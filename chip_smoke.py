@@ -16,7 +16,11 @@ Phases:
    median of --reps collects and a torch.profiler trace of one more;
 4. filter -> with_columns -> collect at --rows rows, bit-exact against
    numpy boolean indexing, through a full-width compaction, timed and
-   traced the same way.
+   traced the same way;
+5. the per-symbol OHLC bar (filter -> group_by(symbol,
+   maintain_order=True) -> agg(first, max, min, last, sum, std, len) ->
+   collect) at --rows rows against a numpy oracle, timed and traced the
+   same way.
 
 The line before the last lists every ported kernel with its numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check raises,
@@ -40,20 +44,49 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 N_SYMBOLS = 1000
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` back-to-back calls, after a
-    warm-up call, with CUDA events."""
+def cuda_ms(fn, reps: int, window_ms: float = 20.0) -> float:
+    """Mean device time of fn() over back-to-back calls, after a warm-up
+    call, with CUDA events: at least `reps` calls, and enough of them to
+    fill about `window_ms` (at most 1000), so that a kernel of a few
+    microseconds is not timed over a window shorter than the card's
+    clock and launch jitter."""
     import torch
-    fn()
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
     start.record()
-    for _ in range(reps):
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    calls = max(reps, min(1000, int(window_ms / max(start.elapsed_time(end),
+                                                     1e-3))))
+    start.record()
+    for _ in range(calls):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / calls
+
+
+def max_abs_err(got, want) -> float:
+    """Largest |got - want| over the elements that differ (0 where equal,
+    so that equal infinities, such as an empty group's identity, count
+    as no error)."""
+    import torch
+    d = (got.double() - want.double()).abs()
+    return float(torch.where(got == want, torch.zeros_like(d), d).max())
+
+
+def reset_launches(TK, TP) -> None:
+    """Set every kernel's launch count to 0."""
+    TK.LAUNCHES = TK.MINMAX_LAUNCHES = TK.GATHER_LAUNCHES = 0
+    TP.LAUNCHES = 0
+
+
+def read_launches(TK, TP) -> dict:
+    return {"seg_sum": TK.LAUNCHES, "compact_words": TP.LAUNCHES,
+            "seg_minmax": TK.MINMAX_LAUNCHES, "gather": TK.GATHER_LAUNCHES}
 
 
 def time_collects(lf, reps: int):
@@ -191,6 +224,108 @@ def check_compact(args, torch, TP, n, n_cols8, n_cols4, live_frac, seed):
     return out
 
 
+def check_seg_minmax(args, torch, TK, data, is_max):
+    """Kernel C at the OHLC path's shapes, G = 1024: the max of the f32
+    price (is_max) or the min of the int32 row positions (identity n),
+    over the live rows' symbol slots. Bit for bit against the plain
+    version; then a small check of NaN, +-0, +-inf and int64 extremes."""
+    n = args.rows
+    dev = torch.device("cuda")
+    G = 1024
+    sym = torch.from_numpy(data["symbol"].astype("int32")).to(dev)
+    live = torch.from_numpy(data["volume"]).to(dev) > 1000
+    gid = torch.where(live, sym + 1, torch.full_like(sym, G))
+    if is_max:
+        x = torch.from_numpy(data["price"]).to(dev)
+        ident = -float("inf")
+    else:
+        x = torch.arange(n, dtype=torch.int32, device=dev)
+        ident = n
+    got = TK.seg_minmax(x, gid, G, is_max, ident)
+    want = TK.seg_minmax_plain(x, gid, G, is_max, ident)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "seg_minmax differs from its plain version"
+    # the awkward values, each dtype, both reductions
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    m = 100_003
+    sgid = torch.randint(-2, 300, (m,), generator=g, device=dev,
+                         dtype=torch.int32)
+    for dt in (torch.float32, torch.float64, torch.int32, torch.int64):
+        kt = {torch.float32: torch.int32, torch.float64: torch.int64}.get(
+            dt, dt)
+        if dt.is_floating_point:
+            v = torch.randn(m, generator=g, device=dev).to(dt)
+            sp = torch.tensor([float("nan"), -0.0, 0.0, float("inf"),
+                               -float("inf")], dtype=dt, device=dev)
+            pos = torch.randint(0, m, (m // 20,), generator=g, device=dev)
+            v[pos] = sp[torch.randint(0, 5, (m // 20,), generator=g,
+                                      device=dev)]
+            v = torch.where((sgid % 2 == 1) & torch.isnan(v), -v, v)
+            lo, hi = -float("inf"), float("inf")
+        else:
+            info = torch.iinfo(dt)
+            v = torch.randint(info.min, info.max, (m,), generator=g,
+                              device=dev, dtype=dt)
+            v[:2] = torch.tensor([info.min, info.max], dtype=dt, device=dev)
+            lo, hi = info.min, info.max
+        for mx in (False, True):
+            a = TK.seg_minmax(v, sgid, 297, mx, lo if mx else hi)
+            b = TK.seg_minmax_plain(v, sgid, 297, mx, lo if mx else hi)
+            assert torch.equal(a.view(kt), b.view(kt)), \
+                f"seg_minmax {dt} is_max={mx} differs on special values"
+    idx = torch.where((gid >= 0) & (gid < G), gid,
+                      torch.full_like(gid, G)).long()
+    buf = torch.full((G + 1,), ident, dtype=x.dtype, device=dev)
+    red = "amax" if is_max else "amin"
+    out = {
+        "kernel": "seg_minmax", "n": n, "G": G, "dtype": str(x.dtype),
+        "is_max": is_max,
+        "max_abs_err": max_abs_err(got, want),
+        "kernel_ms": cuda_ms(lambda: TK.seg_minmax(x, gid, G, is_max, ident),
+                             args.reps),
+        "plain_ms": cuda_ms(lambda: TK.seg_minmax_plain(x, gid, G, is_max,
+                                                        ident), args.reps),
+        "library_ms": cuda_ms(lambda: buf.scatter_reduce_(0, idx, x, red),
+                              args.reps),
+    }
+    nbytes = n * (4 + x.element_size()) + G * x.element_size()
+    out["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S, n / F32_OPS_PER_S)
+    out["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= \
+        n / F32_OPS_PER_S else "operations"
+    return out
+
+
+def check_gather(args, torch, TK):
+    """Kernel D: an f64 table of G = 1024 group means gathered to
+    --rows rows, about 20% of the ids outside [0, G); bit for bit."""
+    n = args.rows
+    dev = torch.device("cuda")
+    G = 1024
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    table = torch.randn(G, generator=g, device=dev, dtype=torch.float64)
+    gid = torch.randint(0, G + G // 4, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    got = TK.gather(table, gid)
+    want = TK.gather_plain(table, gid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "gather differs from its plain version"
+    idx = torch.where(gid < G, gid, torch.full_like(gid, G)).long()
+    padded = torch.cat([table, table.new_zeros(1)])
+    out = {
+        "kernel": "gather", "n": n, "G": G, "dtype": "float64",
+        "out_of_range": float((gid >= G).double().mean()),
+        "max_abs_err": max_abs_err(got, want),
+        "kernel_ms": cuda_ms(lambda: TK.gather(table, gid), args.reps),
+        "plain_ms": cuda_ms(lambda: TK.gather_plain(table, gid), args.reps),
+        "library_ms": cuda_ms(lambda: padded.index_select(0, idx),
+                              args.reps),
+    }
+    nbytes = n * (4 + 8) + G * 8
+    out["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+    out["bound_by"] = "bytes"
+    return out
+
+
 def q1_frame(pl, df):
     return (df.lazy()
             .filter(pl.col("volume") > 1000)
@@ -228,6 +363,67 @@ def check_q1(out, data):
     assert np.all(np.abs(got["avg"].astype(np.float64) - want_avg)
                   <= 1e-10 * np.abs(want_avg)), "q1 means differ"
     return len(present)
+
+
+def ohlc_frame(pl, df):
+    return (df.lazy()
+            .filter(pl.col("volume") > 1000)
+            .group_by("symbol", maintain_order=True)
+            .agg(pl.col("price").first().alias("open"),
+                 pl.col("price").max().alias("high"),
+                 pl.col("price").min().alias("low"),
+                 pl.col("price").last().alias("close"),
+                 pl.col("volume").sum().alias("vol"),
+                 pl.col("price").std().alias("sd"),
+                 pl.len().alias("n")))
+
+
+def check_ohlc(out, data):
+    """The OHLC bar against numpy: rows in the order of each symbol's
+    first live row; open/high/low/close bit for bit; vol (int64) and n
+    exact; sd (Float32) within one float32 ulp of the f64 two-pass std
+    (ddof 1) rounded to float32."""
+    import numpy as np
+    live = data["volume"] > 1000
+    sym = data["symbol"][live]
+    price = data["price"][live]
+    order = np.argsort(sym, kind="stable")
+    ss = sym[order]
+    starts = np.flatnonzero(np.r_[True, ss[1:] != ss[:-1]])
+    ends = np.r_[starts[1:], len(ss)]
+    cnt = ends - starts
+    first, last = order[starts], order[ends - 1]
+    ps = price[order]
+    hi = np.maximum.reduceat(ps, starts)
+    lo = np.minimum.reduceat(ps, starts)
+    vol = np.add.reduceat(data["volume"][live][order].astype(np.int64),
+                          starts)
+    p64 = ps.astype(np.float64)
+    mean = np.add.reduceat(p64, starts) / cnt
+    dev = (p64 - np.repeat(mean, cnt)) ** 2
+    sd = np.sqrt(np.add.reduceat(dev, starts) / (cnt - 1)).astype(np.float32)
+    rank = np.argsort(first, kind="stable")  # first-occurrence order
+    want = {"symbol": ss[starts][rank], "open": price[first][rank],
+            "high": hi[rank], "low": lo[rank], "close": price[last][rank],
+            "vol": vol[rank], "n": cnt[rank]}
+    got = {k: out.get_column(k).to_numpy() for k in out.columns}
+    assert out.height == len(starts), "ohlc group count differs"
+    for k in ("open", "high", "low", "close"):
+        assert got[k].dtype == np.float32, (k, got[k].dtype)
+        assert np.array_equal(got[k].view(np.uint32),
+                              want[k].view(np.uint32)), f"ohlc {k} differs"
+    assert np.array_equal(got["symbol"].astype(np.int64),
+                          want["symbol"].astype(np.int64)), \
+        "ohlc row order differs"
+    assert got["vol"].dtype == np.int64 and \
+        np.array_equal(got["vol"], want["vol"]), "ohlc vol differs"
+    assert np.array_equal(got["n"].astype(np.int64), want["n"]), \
+        "ohlc counts differ"
+    sdw = sd[rank]
+    assert got["sd"].dtype == np.float32
+    assert np.all(np.abs(got["sd"] - sdw) <= np.spacing(sdw)), \
+        "ohlc sd differs"
+    return len(starts)
 
 
 def check_filter(out, data):
@@ -293,15 +489,22 @@ def main() -> int:
     comp_groups = check_compact(args, torch, TP, 1024, 3, 1, 0.98,
                                 args.seed + 1)
     print(json.dumps({"phase": "kernel", **comp_groups}))
+    mm_max = check_seg_minmax(args, torch, TK, data, True)
+    print(json.dumps({"phase": "kernel", **mm_max}))
+    mm_pos = check_seg_minmax(args, torch, TK, data, False)
+    print(json.dumps({"phase": "kernel", **mm_pos}))
+    gat = check_gather(args, torch, TK)
+    print(json.dumps({"phase": "kernel", **gat}))
 
     # --- 3. q1 end to end ---------------------------------------------------
     df = pl.DataFrame(data, device="cuda")
     lf = q1_frame(pl, df)
-    TK.LAUNCHES = TP.LAUNCHES = 0
+    reset_launches(TK, TP)
     out = lf.collect()
-    q1_launches = {"seg_sum": TK.LAUNCHES, "compact_words": TP.LAUNCHES}
-    assert q1_launches["seg_sum"] > 0, "q1 did not launch seg_sum"
-    assert q1_launches["compact_words"] > 0, "q1 did not launch compact_words"
+    q1_launches = read_launches(TK, TP)
+    assert q1_launches["seg_sum"] == 2, "q1 did not launch seg_sum twice"
+    assert q1_launches["compact_words"] == 1, \
+        "q1 did not launch compact_words once"
     ngroups = check_q1(out, data)
     times = time_collects(lf, args.reps)
     print(json.dumps({"phase": "q1", "rows": args.rows, "groups": ngroups,
@@ -313,10 +516,10 @@ def main() -> int:
     lf2 = (df.lazy().filter(pl.col("volume") > 1000)
            .with_columns((pl.col("price") * pl.col("volume"))
                          .alias("notional")))
-    TK.LAUNCHES = TP.LAUNCHES = 0
+    reset_launches(TK, TP)
     TP.LAST_ROWS = 0
     out2 = lf2.collect()
-    filter_launches = {"seg_sum": TK.LAUNCHES, "compact_words": TP.LAUNCHES}
+    filter_launches = read_launches(TK, TP)
     assert filter_launches["compact_words"] > 0 and \
         TP.LAST_ROWS == df._table.capacity, \
         "the filter collect did not compact at full width"
@@ -327,24 +530,42 @@ def main() -> int:
                       "median_ms": statistics.median(times), "ms": times,
                       "trace": trace_collect(lf2)}))
 
-    # --- 5. result ------------------------------------------------------------
+    # --- 5. the per-symbol OHLC bar ----------------------------------------
+    lf5 = ohlc_frame(pl, df)
+    reset_launches(TK, TP)
+    out5 = lf5.collect()
+    ohlc_launches = read_launches(TK, TP)
+    assert ohlc_launches["seg_minmax"] > 0, "ohlc did not launch seg_minmax"
+    assert ohlc_launches["gather"] > 0, "ohlc did not launch gather"
+    ngroups5 = check_ohlc(out5, data)
+    times = time_collects(lf5, args.reps)
+    print(json.dumps({"phase": "ohlc", "rows": args.rows, "groups": ngroups5,
+                      "launches": ohlc_launches,
+                      "median_ms": statistics.median(times), "ms": times,
+                      "trace": trace_collect(lf5)}))
+
+    # --- result ---------------------------------------------------------------
+    def launches(name):
+        return sum(r[name] for r in (q1_launches, filter_launches,
+                                     ohlc_launches))
+
+    def entry(name, source, replaces, m):
+        return {"name": name, "route": "cuda",
+                "source": f"polaroid_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches(name),
+                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+
     kernels = [
-        {"name": "seg_sum", "route": "cuda",
-         "source": "polaroid_tpu_torch/csrc/seg_sum.cu",
-         "replaces": "polaroid_tpu/ops/pallas_kernels.py:120",
-         "launches": q1_launches["seg_sum"] + filter_launches["seg_sum"],
-         "max_abs_err": seg["max_abs_err"], "ms": seg["kernel_ms"],
-         "plain_ms": seg["plain_ms"], "bound_ms": seg["bound_ms"],
-         "bound_by": seg["bound_by"], "library_ms": seg["library_ms"]},
-        {"name": "compact_words", "route": "cuda",
-         "source": "polaroid_tpu_torch/csrc/compact.cu",
-         "replaces": "polaroid_tpu/ops/pallas_partition.py:281",
-         "launches": q1_launches["compact_words"]
-         + filter_launches["compact_words"],
-         "max_abs_err": comp_full["max_abs_err"], "ms": comp_full["kernel_ms"],
-         "plain_ms": comp_full["plain_ms"], "bound_ms": comp_full["bound_ms"],
-         "bound_by": comp_full["bound_by"],
-         "library_ms": comp_full["library_ms"]},
+        entry("seg_sum", "seg_sum.cu",
+              "polaroid_tpu/ops/pallas_kernels.py:120", seg),
+        entry("compact_words", "compact.cu",
+              "polaroid_tpu/ops/pallas_partition.py:281", comp_full),
+        entry("seg_minmax", "seg_minmax.cu",
+              "polaroid_tpu/ops/pallas_kernels.py:177", mm_max),
+        entry("gather", "gather.cu",
+              "polaroid_tpu/ops/pallas_kernels.py:231", gat),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ Two storage rules differ from the JAX package:
 * Unsigned words are held in wider signed tensors (UInt16 in int32,
   UInt32 and UInt64 in int64) with the logical dtype on the `Column`:
   torch lacks `>>`, `<` and `cummax` for uint32/uint64 on the CPU.
-  UInt64 values at or above 2^63 wrap to negative int64.
+  UInt64 values at or above 2^63 wrap to negative int64; code that
+  orders or converts them (group min/max, means, var/std in
+  ops/groupby.py) undoes the wrap.
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@ NotImplementedError here.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -71,6 +72,17 @@ def _sum_dtype(dt: DataType) -> DataType:
     if dt.is_integer:
         return Int64 if dt.is_signed_integer or dt.bit_width() < 64 else dt
     return dt
+
+
+def _type_bounds(tdt: torch.dtype):
+    """(lowest, highest) value of a storage dtype: -inf/inf for floats,
+    False/True (as 0/1) for bool."""
+    if tdt.is_floating_point:
+        return -math.inf, math.inf
+    if tdt == torch.bool:
+        return 0, 1
+    info = torch.iinfo(tdt)
+    return info.min, info.max
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,19 @@
 """Hand-written CUDA kernels for the aggregation paths, with their plain
 PyTorch versions.
 
-The counterpart of the JAX package's `ops/pallas_kernels.py`. Kernel A,
-`seg_sum`, replaces `onehot_seg_sum` (its Pallas kernel
-`_seg_sum_kernel`): per-group sums of C value rows over dense group ids,
-in one pass over the rows (source: csrc/seg_sum.cu). The TPU kernel's
-radix one-hot matrix product was a formulation for the MXU; on the card
-each block adds rows into f64 partial sums in shared memory.
+The counterpart of the JAX package's `ops/pallas_kernels.py`:
+* kernel A, `seg_sum`, replaces `onehot_seg_sum` (`_seg_sum_kernel`):
+  per-group sums of C value rows over dense group ids, in one pass over
+  the rows (source: csrc/seg_sum.cu). The TPU kernel's radix one-hot
+  matrix product was a formulation for the MXU; on the card each block
+  adds rows into f64 partial sums in shared memory.
+* kernel C, `seg_minmax`, replaces `onehot_seg_minmax`
+  (`_seg_minmax_kernel`): per-group min or max of one row, typed
+  (f32, f64, int32, int64) where the TPU kernel is f32 only
+  (source: csrc/seg_minmax.cu).
+* kernel D, `gather`, replaces `onehot_gather` (`_gather_kernel`):
+  out[i] = table[gid[i]], in the table's type (f32 or f64) where the TPU
+  kernel gathers in f32 through the MXU (source: csrc/gather.cu).
 
 A wrapper runs its plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches the kernel or raises.
@@ -18,15 +25,20 @@ import ctypes
 
 import torch
 
-__all__ = ["seg_sum", "seg_sum_plain", "MAX_GROUPS", "LAUNCHES"]
+__all__ = ["seg_sum", "seg_sum_plain", "seg_minmax", "seg_minmax_plain",
+           "gather", "gather_plain", "MAX_GROUPS", "LAUNCHES",
+           "MINMAX_LAUNCHES", "GATHER_LAUNCHES"]
 
 # the dense group-by's key-domain limit (the JAX package's
 # _MXU_GROUP_LIMIT): one block's C x G f64 partials must fit shared memory
 MAX_GROUPS = 4096
 # dynamic shared memory one block may use on sm_90 (227 KB)
 _SMEM_BYTES = 232448
-# kernel launches made by `seg_sum` (reset by callers that count them)
+# kernel launches made by `seg_sum`, `seg_minmax` and `gather` (reset by
+# callers that count them)
 LAUNCHES = 0
+MINMAX_LAUNCHES = 0
+GATHER_LAUNCHES = 0
 
 
 def seg_sum_plain(vals: torch.Tensor, gid: torch.Tensor, G: int
@@ -87,4 +99,167 @@ def seg_sum(vals: torch.Tensor, gid: torch.Tensor, G: int) -> torch.Tensor:
                      out[c0:c1].data_ptr(), stream)
             check(lib, err, "seg_sum launch")
             LAUNCHES += 1
+    return out
+
+
+# --- kernel C: segment min / max -------------------------------------------
+
+_MINMAX_TYPES = {torch.float32: ("f32", torch.int32),
+                 torch.float64: ("f64", torch.int64),
+                 torch.int32: ("i32", torch.int32),
+                 torch.int64: ("i64", torch.int64)}
+
+
+def _minmax_keys(x: torch.Tensor, is_max: bool) -> torch.Tensor:
+    """Signed-integer keys in the order the reduction wants (the encoding
+    of csrc/seg_minmax.cu): ints as they are; a float's bits b as
+    b >= 0 ? b : b ^ 0x7f..f, so -0.0 < +0.0; any NaN as the key that
+    wins (the key type's min for min, its max for max)."""
+    if not x.dtype.is_floating_point:
+        return x
+    kt = _MINMAX_TYPES[x.dtype][1]
+    info = torch.iinfo(kt)
+    b = x.view(kt)
+    key = torch.where(b >= 0, b, b ^ info.max)
+    return torch.where(torch.isnan(x),
+                       torch.full_like(key, info.max if is_max else info.min),
+                       key)
+
+
+def seg_minmax_plain(x: torch.Tensor, gid: torch.Tensor, G: int,
+                     is_max: bool, identity) -> torch.Tensor:
+    """scatter_reduce_ of the order keys into G+1 slots (ids outside
+    [0, G) routed to slot G and dropped), decoded back to values. For
+    floats a second scatter keeps each group's largest NaN bit pattern
+    (as unsigned), which a group whose key is the NaN key decodes to, as
+    in the kernel."""
+    idx = torch.where((gid >= 0) & (gid < G), gid,
+                      torch.full_like(gid, G)).long()
+    ident = _minmax_keys(torch.tensor([identity], dtype=x.dtype), is_max)
+    out = ident.to(x.device).expand(G + 1).clone()
+    out.scatter_reduce_(0, idx, _minmax_keys(x, is_max),
+                        "amax" if is_max else "amin")
+    out = out[:G]
+    if not x.dtype.is_floating_point:
+        return out
+    info = torch.iinfo(out.dtype)
+    # bits ^ sign bit puts the unsigned order of the bits in signed order
+    ub = torch.where(torch.isnan(x), x.view(out.dtype) ^ info.min,
+                     torch.full_like(idx, info.min, dtype=out.dtype))
+    nan_bits = torch.full((G + 1,), info.min, dtype=out.dtype,
+                          device=x.device)
+    nan_bits.scatter_reduce_(0, idx, ub, "amax")
+    bits = torch.where(out >= 0, out, out ^ info.max)
+    nan_key = info.max if is_max else info.min
+    return torch.where(out == nan_key, nan_bits[:G] ^ info.min,
+                       bits).view(x.dtype)
+
+
+def _check_minmax(x: torch.Tensor, gid: torch.Tensor, G: int,
+                  identity) -> None:
+    if x.dim() != 1 or x.dtype not in _MINMAX_TYPES:
+        raise TypeError(f"seg_minmax: x must be (n,) float32/float64/int32/"
+                        f"int64, got {tuple(x.shape)} {x.dtype}")
+    if gid.dim() != 1 or gid.dtype != torch.int32 or \
+            gid.shape[0] != x.shape[0]:
+        raise TypeError(f"seg_minmax: gid must be ({x.shape[0]},) int32, "
+                        f"got {tuple(gid.shape)} {gid.dtype}")
+    if not (x.is_contiguous() and gid.is_contiguous()):
+        raise ValueError("seg_minmax: inputs must be contiguous")
+    if x.device != gid.device:
+        raise ValueError("seg_minmax: x and gid lie on different devices")
+    if not 1 <= G <= MAX_GROUPS:
+        raise ValueError(f"seg_minmax: G={G} outside [1, {MAX_GROUPS}]")
+    if identity != identity:
+        raise ValueError("seg_minmax: the identity must not be NaN")
+
+
+def seg_minmax(x: torch.Tensor, gid: torch.Tensor, G: int, is_max: bool,
+               identity) -> torch.Tensor:
+    """Per-group min (or max, `is_max`) of `x` ((n,) f32, f64, int32 or
+    int64) over group ids `gid` ((n,) int32); ids outside [0, G) are
+    ignored and a group with no rows gives `identity`. A group holding a
+    NaN gives NaN (of its NaNs, the one whose bits are largest as an
+    unsigned integer); -0.0 orders below +0.0. Returns (G,) in x's dtype.
+    G <= MAX_GROUPS."""
+    global MINMAX_LAUNCHES
+    _check_minmax(x, gid, G, identity)
+    if x.device.type == "cpu":
+        return seg_minmax_plain(x, gid, G, is_max, identity)
+    if x.device.type != "cuda":
+        raise ValueError(f"seg_minmax: unsupported device {x.device}")
+    from .cuda_build import check, library
+    lib = library("seg_minmax")
+    suffix = _MINMAX_TYPES[x.dtype][0]
+    fn = getattr(lib, "pt_seg_minmax_" + suffix)
+    floating = x.dtype.is_floating_point
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int,
+                   ctypes.c_double if floating else ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(G, dtype=x.dtype, device=x.device)
+    # per-group NaN bit patterns (floats): scratch the kernel writes whole
+    nan_bits = torch.empty(G, dtype=_MINMAX_TYPES[x.dtype][1],
+                           device=x.device) if floating else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), gid.data_ptr(), x.shape[0], G, int(is_max),
+                 float(identity) if floating else int(identity),
+                 out.data_ptr(),
+                 nan_bits.data_ptr() if floating else None, stream)
+        check(lib, err, "seg_minmax launch")
+        MINMAX_LAUNCHES += 1
+    return out
+
+
+# --- kernel D: group -> row gather ------------------------------------------
+
+def gather_plain(table: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
+    """Index a zero-padded table: ids outside [0, G) read the pad."""
+    G = table.shape[0]
+    idx = torch.where((gid >= 0) & (gid < G), gid,
+                      torch.full_like(gid, G)).long()
+    return torch.cat([table, table.new_zeros(1)])[idx]
+
+
+def _check_gather(table: torch.Tensor, gid: torch.Tensor) -> None:
+    if table.dim() != 1 or table.dtype not in (torch.float32,
+                                               torch.float64) or \
+            table.shape[0] < 1:
+        raise TypeError(f"gather: table must be (G >= 1,) float32/float64, "
+                        f"got {tuple(table.shape)} {table.dtype}")
+    if gid.dim() != 1 or gid.dtype != torch.int32:
+        raise TypeError(f"gather: gid must be (n,) int32, got "
+                        f"{tuple(gid.shape)} {gid.dtype}")
+    if not (table.is_contiguous() and gid.is_contiguous()):
+        raise ValueError("gather: inputs must be contiguous")
+    if table.device != gid.device:
+        raise ValueError("gather: table and gid lie on different devices")
+
+
+def gather(table: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
+    """out[i] = table[gid[i]] for a (G,) f32 or f64 table and (n,) int32
+    ids; 0 where gid[i] lies outside [0, G). Returns (n,) in the table's
+    dtype."""
+    global GATHER_LAUNCHES
+    _check_gather(table, gid)
+    if table.device.type == "cpu":
+        return gather_plain(table, gid)
+    if table.device.type != "cuda":
+        raise ValueError(f"gather: unsupported device {table.device}")
+    from .cuda_build import check, library
+    lib = library("gather")
+    fn = lib.pt_gather_f32 if table.dtype == torch.float32 \
+        else lib.pt_gather_f64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(gid.shape[0], dtype=table.dtype, device=table.device)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table.data_ptr(), table.shape[0], gid.data_ptr(),
+                 gid.shape[0], out.data_ptr(), stream)
+        check(lib, err, "gather launch")
+        GATHER_LAUNCHES += 1
     return out

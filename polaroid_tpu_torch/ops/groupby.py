@@ -12,10 +12,16 @@ the port takes it on every device, so the CPU tests run the card's path
 with the kernel's plain version. Integer sums stay an exact int64
 `index_add_`, as the JAX package's `_seg_sum` scatter is exact.
 
+Min and max (and so any, all, first, last and each group's first row)
+are segment extremes taken by the kernel `cuda_kernels.seg_minmax`, and
+var/std broadcast each group's mean back to its rows with the kernel
+`cuda_kernels.gather`, on every device too.
+
 The empty group slots are removed with the compaction kernel
-(`compact.compact_device`). Min, max, var and std, key domains above
-4096 slots, maintain_order=True and the sorted layout raise
-NotImplementedError naming the slice that brings them.
+(`compact.compact_device`), or, under maintain_order=True, sorted last by
+a stable sort of the few slots by their first row. Key domains above
+4096 slots and the sorted layout raise NotImplementedError naming the
+slice that brings them.
 """
 
 from __future__ import annotations
@@ -27,22 +33,22 @@ import torch
 from ..batch import Column, Table, storage_torch_dtype
 from ..config import capacity_for
 from ..dtypes import Boolean, UInt32
-from ..errors import DuplicateError
+from ..errors import DuplicateError, InvalidOperationError
 from ..expr import meta
 from ..expr.eval import Val, _eval_binary, _eval_unary, _float_dt, \
-    _lit_val, _sum_dtype, cast_val, eval_expr
+    _lit_val, _sum_dtype, _type_bounds, cast_val, eval_expr
 from ..expr.expr import Expr
-from .compact import compact_device
-from .cuda_kernels import MAX_GROUPS, seg_sum
+from .compact import compact_device, gather_table
+from .cuda_kernels import MAX_GROUPS, gather, seg_minmax, seg_sum
 
 __all__ = ["GroupContext", "build_groups_dense", "group_by_agg"]
 
-_NEXT_SLICE = {
-    "min": "Slice A2 (onehot_seg_minmax)",
-    "max": "Slice A2 (onehot_seg_minmax)",
-    "var": "Slice A2 (onehot_gather)",
-    "std": "Slice A2 (onehot_gather)",
-}
+_I64_SIGN = -(1 << 63)
+
+# aggregates that need each group's rows in order: the sorted tier
+_NEXT_SLICE = {agg: "Slice B (the sorted tier of the group-by)"
+               for agg in ("median", "quantile", "n_unique", "arg_min",
+                           "arg_max")}
 
 
 class GroupContext:
@@ -52,7 +58,8 @@ class GroupContext:
     rows of each slot (int64) and `stash` the batched kernel sums, keyed
     ("len",) / ("count"|"sum", id(column data))."""
 
-    __slots__ = ("gid", "live", "cap", "group_count", "out_cap", "stash")
+    __slots__ = ("gid", "live", "cap", "group_count", "out_cap", "stash",
+                 "_group_start")
 
     def __init__(self, gid, live, cap, group_count, out_cap):
         self.gid = gid
@@ -61,6 +68,19 @@ class GroupContext:
         self.group_count = group_count
         self.out_cap = out_cap
         self.stash = {}
+        self._group_start = None
+
+    @property
+    def group_start(self) -> torch.Tensor:
+        """The first live row of each slot (int32; cap for an empty
+        slot): one seg_minmax over the row positions, taken at first use
+        and kept."""
+        if self._group_start is None:
+            idx = torch.arange(self.cap, dtype=torch.int32,
+                               device=self.gid.device)
+            self._group_start = _masked_seg_minmax(
+                idx, self.gid, self.out_cap, None, False, self.cap)
+        return self._group_start
 
 
 def _aggs_have_quantile(agg_exprs) -> bool:
@@ -84,6 +104,29 @@ def _seg_sums(rows: List[torch.Tensor], gid, G: int) -> List[torch.Tensor]:
         else torch.float32
     out = seg_sum(torch.stack([r.to(dt) for r in rows]), gid, G)
     return list(out.unbind(0))
+
+
+def _masked_seg_minmax(x: torch.Tensor, gid, G: int, live, is_max: bool,
+                       identity) -> torch.Tensor:
+    """Per-group min/max of the rows of `x` where `live` (None: every
+    row) with the seg_minmax kernel; rows outside `live` go to an id
+    outside every group. Bool and ints narrower than 32 bits are widened
+    to int32 (the result stays widened)."""
+    if live is not None:
+        gid = torch.where(live, gid, torch.full_like(gid, G))
+    if x.dtype in (torch.bool, torch.int8, torch.uint8, torch.int16):
+        x = x.to(torch.int32)
+    return seg_minmax(x.contiguous(), gid, G, is_max, identity)
+
+
+def _to_f64(x: torch.Tensor, dt) -> torch.Tensor:
+    """Values as float64. UInt64 is held in int64 (values >= 2^63 wrap to
+    negative): convert it from its two 32-bit halves, which rounds once,
+    as a uint64 -> float64 conversion does."""
+    if repr(dt) != "UInt64":
+        return x.to(torch.float64)
+    hi = ((x >> 32) & 0xFFFFFFFF).to(torch.float64)
+    return hi * 4294967296.0 + (x & 0xFFFFFFFF).to(torch.float64)
 
 
 # --- dense (no-sort) group layout for statically small key domains --------
@@ -173,7 +216,8 @@ def build_groups_dense(key_vals: Sequence[Val], mask: torch.Tensor,
 # aggregation over groups
 # ---------------------------------------------------------------------------
 
-def reduce_group(agg: str, v: Val, ctx: GroupContext) -> Val:
+def reduce_group(agg: str, v: Val, ctx: GroupContext,
+                 attrs: dict = None) -> Val:
     """One grouped reduction (reference: `polars-expr/src/reduce/*.rs`)."""
     cap, ncap, gid, dt = ctx.cap, ctx.out_cap, ctx.gid, v.dtype
     sx = v.data.expand(cap)
@@ -215,16 +259,72 @@ def reduce_group(agg: str, v: Val, ctx: GroupContext) -> Val:
             s.index_add_(0, idx, x)
             out_dt = _sum_dtype(dt)
             return Val(out_dt, s[:ncap].to(storage_torch_dtype(out_dt)))
-    if agg == "mean" and (dt.is_float or dt.is_integer or dt.is_bool):
+    numeric = dt.is_float or dt.is_integer or dt.is_bool
+    if agg in ("mean", "var", "std") and numeric:
         out_dt = _float_dt(dt)
+        xf = sx if dt.is_float else _to_f64(sx, dt)
         ss = stash.get(("sum", id(v.data)))
         nn = stash.get(("count", id(v.data)))
         if ss is None or nn is None:
-            xf = sx.to(torch.float64) if not dt.is_float else sx
             ss, nn = _seg_sums([torch.where(spart, xf, torch.zeros_like(xf)),
                                 spart.to(torch.float32)], gid, ncap)
         m = ss / nn.clamp(min=1)
-        return Val(out_dt, m.to(storage_torch_dtype(out_dt)), nn > 0)
+        if agg == "mean":
+            return Val(out_dt, m.to(storage_torch_dtype(out_dt)), nn > 0)
+        # two passes in f64, as the JAX package's CPU path: the group mean
+        # gathered back to the rows (dead rows read 0 and are masked),
+        # then the squared deviations summed
+        ddof = (attrs or {}).get("ddof", 1)
+        xf = xf.to(torch.float64)
+        d2 = torch.where(spart, (xf - gather(m, gid)) ** 2,
+                         torch.zeros_like(xf))
+        (sq,) = _seg_sums([d2], gid, ncap)
+        var = sq / (nn - ddof).clamp(min=1)
+        out = torch.sqrt(var) if agg == "std" else var
+        return Val(out_dt, out.to(storage_torch_dtype(out_dt)), nn > ddof)
+    if agg in ("any", "all"):
+        if not dt.is_bool:
+            raise InvalidOperationError(f"{agg} on {dt!r}")
+        if agg == "any":
+            r = _masked_seg_minmax(spart & sx, gid, ncap, None, True, 0)
+        else:
+            r = _masked_seg_minmax(sx, gid, ncap, spart, False, 1)
+        return Val(Boolean, r == 1)
+    if agg in ("min", "max"):
+        is_max = agg == "max"
+        if v.validity is None:
+            has = ctx.group_count > 0
+        else:
+            n = stash.get(("count", id(v.data)))
+            has = (n if n is not None else counted(spart).data) > 0
+        if dt.is_string:
+            # sorted dictionary: code order is string order
+            r = _masked_seg_minmax(sx, gid, ncap, spart, is_max,
+                                   -1 if is_max else _type_bounds(
+                                       torch.int32)[1])
+            return Val(dt, r, has, v.sdict)
+        # UInt64 is held in int64: flip the sign bit so that signed order
+        # is unsigned order, and flip it back after
+        u64 = repr(dt) == "UInt64"
+        x = sx ^ _I64_SIGN if u64 else sx
+        lo, hi = _type_bounds(x.dtype)
+        r = _masked_seg_minmax(x, gid, ncap, spart, is_max,
+                               lo if is_max else hi)
+        if u64:
+            r = r ^ _I64_SIGN
+        return Val(dt, r.to(sx.dtype), has)
+    if agg in ("first", "last"):
+        if agg == "first":
+            sel = ctx.group_start
+        else:
+            sel = _masked_seg_minmax(
+                torch.arange(cap, dtype=torch.int32, device=gid.device),
+                gid, ncap, None, True, -1)
+        selc = sel.clamp(0, cap - 1).long()
+        validity = ctx.group_count > 0
+        if v.validity is not None:
+            validity = validity & v.validity.expand(cap)[selc]
+        return Val(dt, sx[selc], validity, v.sdict)
     if agg in _NEXT_SLICE:
         raise NotImplementedError(
             f"group-by {agg} is not ported yet: it comes with "
@@ -241,7 +341,7 @@ def eval_group_expr(e: Expr, table: Table, ctx: GroupContext,
         return eval_group_expr(e.children[0], table, ctx, key_outputs)
     if k == "agg":
         inner = eval_expr(e.children[0], table, "agg")
-        return reduce_group(e.attrs["agg"], inner, ctx)
+        return reduce_group(e.attrs["agg"], inner, ctx, e.attrs)
     if k == "table_len":
         # the layout pass already counted the live rows of each group
         return Val(UInt32, ctx.group_count)
@@ -284,11 +384,12 @@ def _collect_stash_requests(agg_exprs, table: Table, cap: int) -> dict:
                 dt = colo.dtype
                 if kind == "len":
                     reqs.setdefault(("len",), None)
-                if kind in ("count", "mean"):
+                numeric = dt.is_float or dt.is_integer or dt.is_bool
+                if kind == "count" or (kind in ("mean", "var", "std")
+                                       and numeric):
                     reqs.setdefault(("count", did), colo)
                 if (kind == "sum" and dt.is_float) or (
-                        kind == "mean" and (dt.is_float or dt.is_integer
-                                            or dt.is_bool)):
+                        kind in ("mean", "var", "std") and numeric):
                     reqs.setdefault(("sum", did), colo)
         for ch in e.children:
             visit(ch)
@@ -311,7 +412,7 @@ def _fill_stash(gctx: GroupContext, reqs: dict) -> None:
                         else colo.validity.to(torch.float32))
         else:  # sum
             x = colo.data if colo.dtype.is_float \
-                else colo.data.to(torch.float64)
+                else _to_f64(colo.data, colo.dtype)
             if colo.validity is not None:
                 x = torch.where(colo.validity, x, torch.zeros_like(x))
             rows.append(x)
@@ -333,12 +434,9 @@ def group_by_agg(table: Table, key_exprs: Sequence[Expr],
                  agg_exprs: Sequence[Expr],
                  maintain_order=False) -> Table:
     """GROUP BY keys AGG exprs -> one row per group, in ascending key
-    order (nulls first). maintain_order may be the optimizer's "key"
+    order (nulls first), or with maintain_order=True in the order of each
+    group's first live row. maintain_order may be the optimizer's "key"
     sentinel: the dense layout emits key order, so it needs nothing."""
-    if maintain_order is True:
-        raise NotImplementedError(
-            "group_by(maintain_order=True) needs the first row of each "
-            "group (onehot_seg_minmax): Slice A2 of the port")
     cap = table.capacity
     mask = table.row_mask()
     key_vals = [eval_expr(k, table, "select") for k in key_exprs]
@@ -386,8 +484,15 @@ def group_by_agg(table: Table, key_exprs: Sequence[Expr],
             if v.validity is not None else None
         cols[name] = Column(v.dtype, data, validity, v.sdict)
 
+    tmp = Table(names, cols, ocap, None, gvalid_rows, device=mask.device)
+    if maintain_order is True:
+        # first-occurrence order: a stable sort of the slots by their
+        # first row, in which the empty slots (first row = cap) go last,
+        # so the groups come out as a prefix (no host sync)
+        perm = torch.sort(gctx.group_start, stable=True).indices
+        out = gather_table(tmp, perm, None, None)
+        return out.with_valid(None, None, nrows_dev=gvalid_rows.sum())
     # the dense layout leaves empty key slots: compact them away on the
     # device with the compaction kernel (no host sync)
-    tmp = Table(names, cols, ocap, None, gvalid_rows, device=mask.device)
     out, count = compact_device(tmp)
     return out.with_valid(None, None, nrows_dev=count)

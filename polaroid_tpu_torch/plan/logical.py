@@ -165,9 +165,10 @@ class FastCount(Plan):
 
 
 def _resolve_file_schema(scan: Scan) -> Schema:
-    # file scans (io/parquet.py, io/arrow_interop.py) come with Slice A2
+    # file scans (io/parquet.py, io/arrow_interop.py) come with Slice A3:
+    # the JAX package decodes through pyarrow, which the card's host lacks
     raise NotImplementedError(
-        f"{scan.fmt} scans are not ported yet (Slice A2 of the port)")
+        f"{scan.fmt} scans are not ported yet (Slice A3 of the port)")
 
 
 class _Unary(Plan):

@@ -57,6 +57,100 @@ def test_compact_kernel_matches_plain(dev, n):
                            w[:k].view(torch.int32))
 
 
+def _minmax_input(n, G, dtype, g):
+    """Values with NaN (+NaN in groups of even id, -NaN in odd ones),
+    -0.0/+0.0 and +-inf mixed in (floats) or the type's extremes (ints),
+    and ids in [-2, G + 2)."""
+    gid = torch.randint(-2, G + 2, (n,), generator=g, dtype=torch.int32)
+    if dtype.is_floating_point:
+        x = (torch.randn(n, generator=g, dtype=torch.float64) * 100).to(dtype)
+        sp = torch.tensor([float("nan"), -0.0, 0.0, float("inf"),
+                           -float("inf")], dtype=dtype)
+        pos = torch.randint(0, n, (max(n // 20, 1),), generator=g)
+        x[pos] = sp[torch.randint(0, 5, (pos.numel(),), generator=g)]
+        odd = (gid % 2 == 1) & torch.isnan(x)
+        x[odd] = -x[odd]
+        return x, gid, -float("inf"), float("inf")
+    info = torch.iinfo(dtype)
+    x = torch.randint(info.min, info.max, (n,), generator=g, dtype=dtype)
+    x[:min(n, 2)] = torch.tensor([info.min, info.max][:min(n, 2)],
+                                 dtype=dtype)
+    return x, gid, info.min, info.max
+
+
+@pytest.mark.parametrize("n,G", [(1, 1), (1000, 7), (4097, 300),
+                                 (1 << 16, 1024), (100_003, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32, torch.int64])
+def test_seg_minmax_kernel_matches_plain(dev, n, G, dtype):
+    """Bit for bit, NaN (with its sign) and -0.0 included."""
+    g = torch.Generator().manual_seed(n + G)
+    x, gid, lo, hi = _minmax_input(n, G, dtype, g)
+    kt = {torch.float32: torch.int32, torch.float64: torch.int64}.get(
+        dtype, dtype)
+    for is_max in (False, True):
+        ident = lo if is_max else hi
+        before = TK.MINMAX_LAUNCHES
+        got = TK.seg_minmax(x.to(dev), gid.to(dev), G, is_max, ident)
+        torch.cuda.synchronize()
+        assert TK.MINMAX_LAUNCHES == before + 1
+        want = TK.seg_minmax_plain(x, gid, G, is_max, ident)
+        assert got.dtype == dtype
+        assert torch.equal(got.cpu().view(kt), want.view(kt)), is_max
+
+
+@pytest.mark.parametrize("n,G", [(1, 1), (1000, 7), (4097, 300),
+                                 (1 << 16, 1024), (100_003, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gather_kernel_matches_plain(dev, n, G, dtype):
+    g = torch.Generator().manual_seed(n + G)
+    table = torch.randn(G, generator=g, dtype=torch.float64).to(dtype)
+    gid = torch.randint(-3, G + G // 4 + 3, (n,), generator=g,
+                        dtype=torch.int32)
+    before = TK.GATHER_LAUNCHES
+    got = TK.gather(table.to(dev), gid.to(dev))
+    torch.cuda.synchronize()
+    assert TK.GATHER_LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), TK.gather_plain(table, gid))
+
+
+def test_ohlc_on_card_matches_cpu(dev):
+    """The per-symbol OHLC bar with maintain_order=True, on the card
+    against the CPU run, with the kernels' launches during one collect."""
+    rng = np.random.default_rng(6)
+    n = 50_000
+    data = {"symbol": rng.integers(0, 1000, n).astype(np.uint32),
+            "price": rng.uniform(1, 200, n).astype(np.float32),
+            "volume": rng.integers(0, 5000, n).astype(np.int32)}
+
+    def ohlc(device):
+        df = pt.DataFrame(data, device=device)
+        return (df.lazy().filter(pt.col("volume") > 1000)
+                .group_by("symbol", maintain_order=True)
+                .agg(pt.col("price").first().alias("open"),
+                     pt.col("price").max().alias("high"),
+                     pt.col("price").min().alias("low"),
+                     pt.col("price").last().alias("close"),
+                     pt.col("volume").sum().alias("vol"),
+                     pt.col("price").std().alias("sd"),
+                     pt.len().alias("n"))
+                .collect().to_dict())
+
+    TK.LAUNCHES = TK.MINMAX_LAUNCHES = TK.GATHER_LAUNCHES = 0
+    TP.LAUNCHES = 0
+    got = ohlc("cuda")
+    # seg_sum: group counts, the stash (len, count and sum of price), the
+    # squared deviations; seg_minmax: first row, high, low, last row
+    assert (TK.LAUNCHES, TK.MINMAX_LAUNCHES, TK.GATHER_LAUNCHES,
+            TP.LAUNCHES) == (3, 4, 1, 0)
+    want = ohlc("cpu")
+    for k in ("symbol", "open", "high", "low", "close", "vol", "n"):
+        assert got[k] == want[k], k
+    sd_w = np.asarray(want["sd"], dtype=np.float32)
+    assert np.all(np.abs(np.asarray(got["sd"], dtype=np.float32) - sd_w)
+                  <= np.spacing(sd_w))
+
+
 def test_q1_on_card_matches_cpu(dev):
     rng = np.random.default_rng(4)
     n = 50_000

@@ -2,6 +2,9 @@
 package's Pallas kernels run in interpret mode.
 
 polaroid_tpu_torch.ops.cuda_kernels.seg_sum      vs  pallas_kernels.onehot_seg_sum
+polaroid_tpu_torch.ops.cuda_kernels.seg_minmax   vs  pallas_kernels.onehot_seg_minmax
+                                                     (and jax.ops.segment_min/max)
+polaroid_tpu_torch.ops.cuda_kernels.gather       vs  pallas_kernels.onehot_gather
 polaroid_tpu_torch.ops.cuda_partition.compact_words vs pallas_partition.compact_words
 
 On a CPU tensor each wrapper runs its plain PyTorch version; the CUDA
@@ -13,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from polaroid_tpu.ops import pallas_kernels as PK
@@ -74,6 +78,109 @@ def test_seg_sum_checks_inputs_and_counts_no_cpu_launch():
         TK.seg_sum(v, g, TK.MAX_GROUPS + 1)
     with pytest.raises(ValueError):
         TK.seg_sum(v.t().contiguous().t(), g, 4)
+
+
+@pytest.mark.parametrize("G", [7, 300, 1024, 4096])
+@pytest.mark.parametrize("is_max", [False, True])
+def test_seg_minmax_matches_pallas(G, is_max):
+    """f32 with an infinite identity: the TPU kernel's contract."""
+    rng = np.random.default_rng(G + is_max)
+    n = 3000
+    x = rng.normal(scale=100, size=n).astype(np.float32)
+    gid = rng.integers(-2, G + 3, n).astype(np.int32)
+    ident = -np.inf if is_max else np.inf
+    want = np.asarray(PK.onehot_seg_minmax(jnp.asarray(x), jnp.asarray(gid),
+                                           G, is_max, float(ident)))
+    got = TK.seg_minmax(torch.from_numpy(x), torch.from_numpy(gid), G,
+                        is_max, ident)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (G,)
+    # exact, empty groups included (the identity)
+    assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("G", [7, 300, 1024, 4096])
+def test_gather_matches_pallas(G):
+    rng = np.random.default_rng(G)
+    n = 2500
+    table = rng.normal(scale=1e3, size=G).astype(np.float32)
+    gid = rng.integers(-3, G + 3, n).astype(np.int32)
+    want = np.asarray(PK.onehot_gather(jnp.asarray(table), jnp.asarray(gid)))
+    got = TK.gather(torch.from_numpy(table), torch.from_numpy(gid))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n,)
+    # the TPU kernel's f32 MXU product, within 1e-6 relative
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    out = (gid < 0) | (gid >= G)
+    assert np.all(got.numpy()[out] == 0)
+
+
+def _specials(dt, n, gid, rng):
+    """n values of dtype dt with the awkward ones mixed in: NaN (+NaN in
+    groups of even id, -NaN in odd ones), -0.0/+0.0 and +-inf for floats;
+    the type's extremes for ints."""
+    if np.dtype(dt).kind == "f":
+        x = rng.normal(scale=10, size=n).astype(dt)
+        sp = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf], dt)
+        pos = rng.integers(0, n, n // 20)
+        x[pos] = sp[rng.integers(0, len(sp), len(pos))]
+        odd = (gid % 2 == 1) & np.isnan(x)
+        x[odd] = -x[odd]
+        return x, -np.inf, np.inf
+    info = np.iinfo(dt)
+    x = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+    x[:4] = [info.min, info.max, 0, -1]
+    return x, info.min, info.max
+
+
+@pytest.mark.parametrize("dt", [np.float64, np.float32, np.int32, np.int64])
+def test_seg_minmax_plain_bit_exact_vs_jax(dt):
+    """The plain version against jax.ops.segment_min/max on the CPU (the
+    JAX package's CPU path), bit for bit: NaN propagates for min and max
+    with its sign, -0.0 orders below +0.0."""
+    rng = np.random.default_rng(np.dtype(dt).itemsize)
+    n, G = 4000, 53
+    gid = rng.integers(-2, G + 2, n).astype(np.int32)
+    x, lo, hi = _specials(dt, n, gid, rng)
+    seg = np.where((gid >= 0) & (gid < G), gid, G)
+    u = f"u{np.dtype(dt).itemsize}"
+    for is_max, f in ((False, jax.ops.segment_min),
+                      (True, jax.ops.segment_max)):
+        want = np.asarray(f(jnp.asarray(x), jnp.asarray(seg),
+                            num_segments=G + 1))[:G]
+        got = TK.seg_minmax(torch.from_numpy(x), torch.from_numpy(gid), G,
+                            is_max, lo if is_max else hi).numpy()
+        assert got.dtype == want.dtype
+        assert np.array_equal(got.view(u), want.view(u)), is_max
+        if np.dtype(dt).kind == "f":
+            assert np.isnan(got).any()
+            z = TK.seg_minmax(torch.tensor([0.0, -0.0, -0.0, 0.0],
+                                           dtype=torch.from_numpy(x).dtype),
+                              torch.tensor([0, 0, 1, 1], dtype=torch.int32),
+                              2, is_max, lo if is_max else hi)
+            assert z.tolist() == [0.0, 0.0]
+            assert torch.signbit(z).tolist() == [not is_max] * 2
+
+
+def test_seg_minmax_and_gather_check_inputs_and_count_no_cpu_launch():
+    TK.MINMAX_LAUNCHES = TK.GATHER_LAUNCHES = 0
+    x = torch.arange(10, dtype=torch.float32)
+    g = torch.zeros(10, dtype=torch.int32)
+    assert TK.seg_minmax(x, g, 3, True, -1.0).tolist() == [9.0, -1.0, -1.0]
+    assert TK.gather(x[:3].double(), g).tolist() == [0.0] * 10
+    assert TK.MINMAX_LAUNCHES == TK.GATHER_LAUNCHES == 0
+    with pytest.raises(TypeError):
+        TK.seg_minmax(x.to(torch.int16), g, 3, True, 0)
+    with pytest.raises(TypeError):
+        TK.seg_minmax(x, g.long(), 3, True, 0.0)
+    with pytest.raises(ValueError):
+        TK.seg_minmax(x, g, TK.MAX_GROUPS + 1, True, 0.0)
+    with pytest.raises(ValueError):
+        TK.seg_minmax(x, g, 3, False, float("nan"))
+    with pytest.raises(TypeError):
+        TK.gather(x[:3].to(torch.int32), g)
+    with pytest.raises(TypeError):
+        TK.gather(x[:3], g.long())
+    with pytest.raises(ValueError):
+        TK.gather(x[::2], g)
 
 
 def _mask(kind, n, rng):

@@ -126,11 +126,12 @@ def test_sort_after_group_by_is_elided():
     assert q(pt, tdf).to_dict() == q(ref, rdf).to_dict()
 
 
-@pytest.mark.parametrize("agg", ["min", "max", "var", "std"])
+@pytest.mark.parametrize("agg", ["median", "n_unique", "arg_max",
+                                 "product"])
 def test_aggregates_of_later_slices_raise(agg):
     _, tdf = _frames("u32")
     e = getattr(pt.col("price"), agg)()
-    with pytest.raises(NotImplementedError, match="Slice A2"):
+    with pytest.raises(NotImplementedError, match="Slice B"):
         tdf.lazy().group_by("symbol").agg(e).collect()
 
 
@@ -142,8 +143,8 @@ def test_layouts_of_later_slices_raise():
         df.lazy().group_by("k").agg(pt.len()).collect()  # 100k-key domain
     with pytest.raises(NotImplementedError, match="Slice B"):
         df.lazy().group_by("f").agg(pt.len()).collect()  # float key
-    with pytest.raises(NotImplementedError, match="Slice A2"):
-        df.group_by("k", maintain_order=True).agg(pt.len())
+    with pytest.raises(NotImplementedError, match="Slice B"):
+        df.group_by("f", maintain_order=True).agg(pt.len())
 
 
 def test_key_stats_follow_the_live_rows():
