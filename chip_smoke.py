@@ -7,7 +7,7 @@ Phases:
 1. the card (name and power limit from nvidia-smi) and a fresh build of
    every CUDA kernel of the port from csrc/;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes the headline query gives it, with times for the kernel, its
+   shapes the main paths give it, with times for the kernel, its
    plain version, one PyTorch library call computing the same function,
    and the least time the card could take (the bound);
 3. the headline query q1 (filter -> with_columns -> group_by(symbol) ->
@@ -20,7 +20,14 @@ Phases:
 5. the per-symbol OHLC bar (filter -> group_by(symbol,
    maintain_order=True) -> agg(first, max, min, last, sum, std, len) ->
    collect) at --rows rows against a numpy oracle, timed and traced the
-   same way.
+   same way;
+6. the H2O.ai db-benchmark group-by queries over large key domains (q2,
+   q3, q5, q7, q10, q6 without its median, and q3 sorted by its key) on
+   G1_1e7_1e2_0_0 data (10^7 rows, K = 100) through the hash tier, each
+   against a numpy oracle, with the exchange kernel launched and no
+   fallback, timed and traced the same way;
+7. a group-by whose bucket cells overflow (8 keys over a span above
+   4096), which must take the carry-sort fallback, against numpy.
 
 The line before the last lists every ported kernel with its numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check raises,
@@ -42,6 +49,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 N_SYMBOLS = 1000
+H2O_ROWS = 10_000_000       # the rows of H2O's G1_1e7_1e2_0_0
 
 
 def cuda_ms(fn, reps: int, window_ms: float = 20.0) -> float:
@@ -78,15 +86,20 @@ def max_abs_err(got, want) -> float:
     return float(torch.where(got == want, torch.zeros_like(d), d).max())
 
 
-def reset_launches(TK, TP) -> None:
-    """Set every kernel's launch count to 0."""
+def reset_launches(TK, TP, TE, TH) -> None:
+    """Set every kernel's launch count, and the hash tier's count of
+    carry-sort fallbacks, to 0."""
     TK.LAUNCHES = TK.MINMAX_LAUNCHES = TK.GATHER_LAUNCHES = 0
     TP.LAUNCHES = 0
+    TE.EXCHANGE_LAUNCHES = 0
+    TH.FALLBACKS = 0
 
 
-def read_launches(TK, TP) -> dict:
+def read_launches(TK, TP, TE, TH) -> dict:
     return {"seg_sum": TK.LAUNCHES, "compact_words": TP.LAUNCHES,
-            "seg_minmax": TK.MINMAX_LAUNCHES, "gather": TK.GATHER_LAUNCHES}
+            "seg_minmax": TK.MINMAX_LAUNCHES, "gather": TK.GATHER_LAUNCHES,
+            "bucket_exchange": TE.EXCHANGE_LAUNCHES,
+            "fallbacks": TH.FALLBACKS}
 
 
 def time_collects(lf, reps: int):
@@ -141,6 +154,7 @@ def make_q1_data(rows: int, seed: int):
 def check_seg_sum(args, torch, TK, data):
     """Kernel A at the q1 stash's shape: C = 4 f64 rows (len, count(price),
     sum(notional), sum(price)) over n rows and G = 1024 group slots."""
+    from polaroid_tpu_torch.ops.segment import SPILL, spill_slots
     n = args.rows
     dev = torch.device("cuda")
     G = 1024
@@ -164,9 +178,11 @@ def check_seg_sum(args, torch, TK, data):
     tol = 2 * want[0] * 2.0 ** -53 * mag
     err = (got - want).abs()
     assert bool((err <= tol).all()), "seg_sum sums outside tolerance"
-    idx = torch.where((gid >= 0) & (gid < G), gid, torch.full_like(gid, G)) \
-        .long()
-    buf = torch.zeros((4, G + 1), dtype=torch.float64, device=dev)
+    # the library yardstick: one index_add_, the rows outside every group
+    # spread over spill slots past G as the port's own scatters do
+    idx = torch.where((gid >= 0) & (gid < G), gid.long(),
+                      spill_slots(n, G, dev))
+    buf = torch.zeros((4, G + SPILL), dtype=torch.float64, device=dev)
     out = {
         "kernel": "seg_sum", "n": n, "C": 4, "G": G, "dtype": "float64",
         "max_abs_err": float(err.max()),
@@ -199,6 +215,13 @@ def check_compact(args, torch, TP, n, n_cols8, n_cols4, live_frac, seed):
         w = c.view(torch.int32)
         words += [w[0::2], w[1::2]]
     words += cols4
+    return compare_compact(args, torch, TP, mask, words)
+
+
+def compare_compact(args, torch, TP, mask, words):
+    """Kernel B on (mask, words) against its plain version: equal live
+    counts and live prefixes bit for bit; times and the bound."""
+    n = mask.shape[0]
     outs, cnt = TP.compact_words(mask, words)
     want, want_cnt = TP.compact_words_plain(mask, words)
     torch.cuda.synchronize()
@@ -229,6 +252,7 @@ def check_seg_minmax(args, torch, TK, data, is_max):
     price (is_max) or the min of the int32 row positions (identity n),
     over the live rows' symbol slots. Bit for bit against the plain
     version; then a small check of NaN, +-0, +-inf and int64 extremes."""
+    from polaroid_tpu_torch.ops.segment import SPILL, spill_slots
     n = args.rows
     dev = torch.device("cuda")
     G = 1024
@@ -273,9 +297,10 @@ def check_seg_minmax(args, torch, TK, data, is_max):
             b = TK.seg_minmax_plain(v, sgid, 297, mx, lo if mx else hi)
             assert torch.equal(a.view(kt), b.view(kt)), \
                 f"seg_minmax {dt} is_max={mx} differs on special values"
-    idx = torch.where((gid >= 0) & (gid < G), gid,
-                      torch.full_like(gid, G)).long()
-    buf = torch.full((G + 1,), ident, dtype=x.dtype, device=dev)
+    # the library yardstick, dead rows spread as in check_seg_sum
+    idx = torch.where((gid >= 0) & (gid < G), gid.long(),
+                      spill_slots(n, G, dev))
+    buf = torch.full((G + SPILL,), ident, dtype=x.dtype, device=dev)
     red = "amax" if is_max else "amin"
     out = {
         "kernel": "seg_minmax", "n": n, "G": G, "dtype": str(x.dtype),
@@ -441,6 +466,213 @@ def check_filter(out, data):
                               w.view(f"u{w.itemsize}")), f"{k} differs"
 
 
+def h2o_key_code(torch, data, col):
+    """One int32 key column's codes as the hash tier builds them, at the
+    table's capacity (code = value - min + 1, the key's stats base), and
+    the live rows."""
+    from polaroid_tpu_torch.config import capacity_for
+    dev = torch.device("cuda")
+    x = data[col]
+    cap = capacity_for(len(x))
+    code = torch.zeros(cap, dtype=torch.int64, device=dev)
+    code[:len(x)] = torch.from_numpy(x).to(dev).long() - int(x.min()) + 1
+    return code, torch.arange(cap, device=dev) < len(x)
+
+
+def check_exchange(args, torch, TE, TH, prep):
+    """Kernel E at the H2O q3 collect's shape (capacity 2^24: B = 2048
+    blocks, 2 words, 10^7 live rows), bit for bit against the plain
+    version, pads included."""
+    assert bool(prep.ok), "the q3 exchange input overflows a cell"
+    words, fills = TH.exchange_words(prep)
+    starts, counts = prep.starts, prep.counts
+    B = starts.shape[0]
+    got = TE.bucket_exchange(starts, counts, words, fills)
+    want = TE.bucket_exchange_plain(starts, counts, words, fills)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), "bucket_exchange differs from its plain " \
+            "version"
+    # the library yardstick: one index_copy_ of the kept rows of both
+    # words to their slots, computed beforehand
+    s = starts.long()
+    c = counts.long().clamp(max=TE.CAP)
+    j = torch.arange(TE.CAP, device=s.device)
+    b = torch.arange(B, device=s.device)[:, None, None]
+    k = torch.arange(TE.K, device=s.device)[None, :, None]
+    keep = j < c[:, :, None]
+    src = (b * TE.S + s[:, :, None] + j)[keep]
+    dst = (k * (B * TE.CAP) + b * TE.CAP + j)[keep]
+    vals = torch.stack([w[src] for w in words])
+    lib_out = torch.empty((len(words), TE.K * B * TE.CAP), dtype=torch.int32,
+                          device=s.device)
+    live = int(c.sum())
+    W = len(words)
+    out = {
+        "kernel": "bucket_exchange", "blocks": B, "words": W, "live": live,
+        "slots": TE.K * B * TE.CAP, "max_abs_err": 0.0,
+        "kernel_ms": cuda_ms(lambda: TE.bucket_exchange(starts, counts,
+                                                        words, fills),
+                             args.reps),
+        "plain_ms": cuda_ms(lambda: TE.bucket_exchange_plain(
+            starts, counts, words, fills), args.reps),
+        "library_ms": cuda_ms(lambda: lib_out.index_copy_(1, dst, vals),
+                              args.reps),
+    }
+    nbytes = 4 * W * (live + TE.K * B * TE.CAP) + 2 * 4 * B * TE.K
+    out["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+    out["bound_by"] = "bytes"
+    return out
+
+
+def make_h2o_data(rows: int, seed: int):
+    """G1_1e7_1e2_0_0 of the H2O.ai db-benchmark (K = 100, no NAs,
+    unsorted): id1, id2, id4, id5 in [1, K]; id3, id6 in [1, rows / K];
+    v1 in [1, 5], v2 in [1, 15] (int32), v3 uniform on [0, 100)
+    (Float64). The ids are int32, as bench.py builds them, not strings.
+    kf = (id4 % 8) * 10_000 is the overflowing key of phase 7."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    K = 100
+    big = max(rows // K, 1)
+    d = {}
+    for name, hi in (("id1", K), ("id2", K), ("id3", big), ("id4", K),
+                     ("id5", K), ("id6", big)):
+        d[name] = rng.integers(1, hi + 1, rows, dtype=np.int32)
+    d["v1"] = rng.integers(1, 6, rows, dtype=np.int32)
+    d["v2"] = rng.integers(1, 16, rows, dtype=np.int32)
+    d["v3"] = rng.uniform(0, 100, rows)
+    d["kf"] = (d["id4"] % 8).astype(np.int32) * 10_000
+    return d
+
+
+def h2o_queries(pl, df):
+    """(name, keys, lazy frame, order) of phase 6: order is None (any),
+    "first" (each group's first row) or "key" (ascending key)."""
+    c = pl.col
+    return [
+        ("q2", ("id1", "id2"), df.lazy().group_by("id1", "id2")
+         .agg(c("v1").sum().alias("v1")), None),
+        ("q3", ("id3",), df.lazy().group_by("id3")
+         .agg(c("v1").sum().alias("v1"), c("v3").mean().alias("v3")), None),
+        ("q5", ("id6",), df.lazy().group_by("id6")
+         .agg(c("v1").sum().alias("v1"), c("v2").sum().alias("v2"),
+              c("v3").sum().alias("v3")), None),
+        ("q7", ("id3",), df.lazy().group_by("id3")
+         .agg((c("v1").max() - c("v2").min()).alias("range_v1_v2")), None),
+        ("q10", ("id1", "id2", "id4"), df.lazy().group_by("id1", "id2", "id4")
+         .agg(c("v3").sum().alias("v3"), pl.len().alias("count")), None),
+        ("q6", ("id4", "id5"), df.lazy().group_by("id4", "id5",
+                                                  maintain_order=True)
+         .agg(c("v3").std().alias("sd_v3"), c("v3").first().alias("first"),
+              c("v3").last().alias("last")), "first"),
+        ("q3_sorted", ("id3",), df.lazy().group_by("id3")
+         .agg(c("v1").sum().alias("v1"), c("v3").mean().alias("v3"))
+         .sort("id3"), "key"),
+    ]
+
+
+def h2o_oracle(data, keys, outputs):
+    """numpy per-group results: the groups in ascending key order (their
+    key columns), their first rows, and each named output."""
+    import numpy as np
+    code = np.zeros(len(data[keys[0]]), dtype=np.int64)
+    for k in keys:
+        code = code * (int(data[k].max()) + 1) + data[k]
+    order = np.argsort(code, kind="stable")
+    sc = code[order]
+    starts = np.flatnonzero(np.r_[True, sc[1:] != sc[:-1]])
+    ends = np.r_[starts[1:], len(sc)]
+    cnt = ends - starts
+    first = order[starts]
+    want = {k: data[k][first] for k in keys}
+
+    def red(ufunc, col, dtype=None):
+        v = data[col][order]
+        return ufunc.reduceat(v if dtype is None else v.astype(dtype),
+                              starts)
+
+    for name, (kind, col) in outputs.items():
+        if kind == "sum":
+            want[name] = red(np.add, col, np.int64 if col != "v3" else None)
+        elif kind == "mean":
+            want[name] = red(np.add, col) / cnt
+        elif kind == "range":
+            want[name] = red(np.maximum, "v1") - red(np.minimum, "v2")
+        elif kind == "len":
+            want[name] = cnt
+        elif kind == "std":
+            v = data[col][order]
+            mean = np.add.reduceat(v, starts) / cnt
+            dev = (v - np.repeat(mean, cnt)) ** 2
+            with np.errstate(invalid="ignore", divide="ignore"):
+                want[name] = np.sqrt(np.add.reduceat(dev, starts) /
+                                     (cnt - 1))
+        elif kind == "first":
+            want[name] = data[col][first]
+        elif kind == "last":
+            want[name] = data[col][order[ends - 1]]
+    return want, first
+
+
+H2O_OUTPUTS = {
+    "q2": {"v1": ("sum", "v1")},
+    "q3": {"v1": ("sum", "v1"), "v3": ("mean", "v3")},
+    "q5": {"v1": ("sum", "v1"), "v2": ("sum", "v2"), "v3": ("sum", "v3")},
+    "q7": {"range_v1_v2": ("range", None)},
+    "q10": {"v3": ("sum", "v3"), "count": ("len", None)},
+    "q6": {"sd_v3": ("std", "v3"), "first": ("first", "v3"),
+           "last": ("last", "v3")},
+    "q3_sorted": {"v1": ("sum", "v1"), "v3": ("mean", "v3")},
+    "fallback": {"v1": ("sum", "v1"), "v3": ("mean", "v3"),
+                 "n": ("len", None)},
+}
+# Float64 outputs held to rtol 1e-12; the rest exact (bit for bit)
+H2O_CLOSE = {"v3", "sd_v3"}
+
+
+def check_h2o(name, out, data, keys, order):
+    """A phase-6/7 result against numpy: key sets and counts exact,
+    integer sums and first/last/min/max bit for bit, Float64 sums, means
+    and std within rtol 1e-12, and the row order where one is asked."""
+    import numpy as np
+    outputs = H2O_OUTPUTS[name]
+    want, first = h2o_oracle(data, keys, outputs)
+    got = {k: out.get_column(k).to_numpy() for k in out.columns}
+    ng = len(want[keys[0]])
+    assert out.height == ng, f"{name}: {out.height} groups, want {ng}"
+    if order == "first":
+        perm = np.argsort(first, kind="stable")
+        want = {k: v[perm] for k, v in want.items()}
+    elif order is None:
+        gcode = np.zeros(ng, dtype=np.int64)
+        for k in keys:
+            gcode = gcode * (int(data[k].max()) + 1) + got[k].astype(np.int64)
+        perm = np.argsort(gcode, kind="stable")
+        got = {k: v[perm] for k, v in got.items()}
+    for k in keys:
+        assert np.array_equal(got[k].astype(np.int64),
+                              want[k].astype(np.int64)), \
+            f"{name}: key {k} (or the row order) differs"
+    for col in outputs:
+        g, w = got[col], want[col]
+        if col in H2O_CLOSE:
+            g = g.astype(np.float64)
+            nan = np.isnan(w)
+            assert np.array_equal(np.isnan(g.astype(np.float64)), nan), \
+                f"{name}: {col} nulls differ"
+            assert np.all(np.abs(g[~nan] - w[~nan])
+                          <= 1e-12 * np.abs(w[~nan])), f"{name}: {col}"
+        elif g.dtype.kind == "f":
+            assert np.array_equal(g.view(np.uint64),
+                                  w.astype(np.float64).view(np.uint64)), \
+                f"{name}: {col} differs"
+        else:
+            assert np.array_equal(g.astype(np.int64), w.astype(np.int64)), \
+                f"{name}: {col} differs"
+    return ng
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -459,6 +691,8 @@ def main() -> int:
     from polaroid_tpu_torch.ops import cuda_build as B
     from polaroid_tpu_torch.ops import cuda_kernels as TK
     from polaroid_tpu_torch.ops import cuda_partition as TP
+    from polaroid_tpu_torch.ops import exchange as TE
+    from polaroid_tpu_torch.ops import hgroup as TH
 
     # --- 1. the card and the build --------------------------------------
     smi = subprocess.run(
@@ -495,13 +729,31 @@ def main() -> int:
     print(json.dumps({"phase": "kernel", **mm_pos}))
     gat = check_gather(args, torch, TK)
     print(json.dumps({"phase": "kernel", **gat}))
+    h2o = make_h2o_data(H2O_ROWS, args.seed)
+    prep = TH.hash_prep(*h2o_key_code(torch, h2o, "id3"))
+    exch = check_exchange(args, torch, TE, TH, prep)
+    print(json.dumps({"phase": "kernel", **exch}))
+    # kernel B at the hash tier's shapes: the group keys of the q3
+    # layout (M = 25,165,824 slots, one word), and of the carry sort of
+    # phase 7 (2^24 rows, 8 groups)
+    lay = TH.hash_layout(prep)
+    comp_hash = compare_compact(args, torch, TP, lay.start,
+                                [TH._to_word(lay.h)])
+    print(json.dumps({"phase": "kernel", "shape": "h2o_q3_layout",
+                      **comp_hash}))
+    sv, _, _, newg = TH.carry_sort(*h2o_key_code(torch, h2o, "kf"))
+    comp_carry = compare_compact(args, torch, TP, newg,
+                                 [TH._to_word(sv & TH.U32_MASK)])
+    print(json.dumps({"phase": "kernel", "shape": "h2o_fallback_sort",
+                      **comp_carry}))
+    del prep, lay, sv, newg
 
     # --- 3. q1 end to end ---------------------------------------------------
     df = pl.DataFrame(data, device="cuda")
     lf = q1_frame(pl, df)
-    reset_launches(TK, TP)
+    reset_launches(TK, TP, TE, TH)
     out = lf.collect()
-    q1_launches = read_launches(TK, TP)
+    q1_launches = read_launches(TK, TP, TE, TH)
     assert q1_launches["seg_sum"] == 2, "q1 did not launch seg_sum twice"
     assert q1_launches["compact_words"] == 1, \
         "q1 did not launch compact_words once"
@@ -516,10 +768,10 @@ def main() -> int:
     lf2 = (df.lazy().filter(pl.col("volume") > 1000)
            .with_columns((pl.col("price") * pl.col("volume"))
                          .alias("notional")))
-    reset_launches(TK, TP)
+    reset_launches(TK, TP, TE, TH)
     TP.LAST_ROWS = 0
     out2 = lf2.collect()
-    filter_launches = read_launches(TK, TP)
+    filter_launches = read_launches(TK, TP, TE, TH)
     assert filter_launches["compact_words"] > 0 and \
         TP.LAST_ROWS == df._table.capacity, \
         "the filter collect did not compact at full width"
@@ -532,9 +784,9 @@ def main() -> int:
 
     # --- 5. the per-symbol OHLC bar ----------------------------------------
     lf5 = ohlc_frame(pl, df)
-    reset_launches(TK, TP)
+    reset_launches(TK, TP, TE, TH)
     out5 = lf5.collect()
-    ohlc_launches = read_launches(TK, TP)
+    ohlc_launches = read_launches(TK, TP, TE, TH)
     assert ohlc_launches["seg_minmax"] > 0, "ohlc did not launch seg_minmax"
     assert ohlc_launches["gather"] > 0, "ohlc did not launch gather"
     ngroups5 = check_ohlc(out5, data)
@@ -544,10 +796,45 @@ def main() -> int:
                       "median_ms": statistics.median(times), "ms": times,
                       "trace": trace_collect(lf5)}))
 
+    # --- 6. the H2O group-by over large key domains ------------------------
+    hdf = pl.DataFrame(h2o, device="cuda")
+    runs = [q1_launches, filter_launches, ohlc_launches]
+    for name, keys, lfq, order in h2o_queries(pl, hdf):
+        reset_launches(TK, TP, TE, TH)
+        outq = lfq.collect()
+        ql = read_launches(TK, TP, TE, TH)
+        assert ql["bucket_exchange"] >= 1, f"{name} did not launch the " \
+            "exchange kernel"
+        assert ql["fallbacks"] == 0, f"{name} took the fallback"
+        ng = check_h2o(name, outq, h2o, keys, order)
+        runs.append(ql)
+        times = time_collects(lfq, args.reps)
+        print(json.dumps({"phase": "h2o", "query": name,
+                          "rows": H2O_ROWS, "groups": ng,
+                          "launches": ql,
+                          "median_ms": statistics.median(times), "ms": times,
+                          "trace": trace_collect(lfq)}))
+
+    # --- 7. the carry-sort fallback ------------------------------------------
+    lf7 = hdf.lazy().group_by("kf").agg(pl.col("v1").sum().alias("v1"),
+                                        pl.col("v3").mean().alias("v3"),
+                                        pl.len().alias("n"))
+    reset_launches(TK, TP, TE, TH)
+    out7 = lf7.collect()
+    fb_launches = read_launches(TK, TP, TE, TH)
+    assert fb_launches["fallbacks"] == 1, "phase 7 did not take the fallback"
+    assert fb_launches["bucket_exchange"] == 0
+    ng7 = check_h2o("fallback", out7, h2o, ("kf",), None)
+    runs.append(fb_launches)
+    times = time_collects(lf7, args.reps)
+    print(json.dumps({"phase": "fallback", "rows": H2O_ROWS,
+                      "groups": ng7, "launches": fb_launches,
+                      "median_ms": statistics.median(times), "ms": times,
+                      "trace": trace_collect(lf7)}))
+
     # --- result ---------------------------------------------------------------
     def launches(name):
-        return sum(r[name] for r in (q1_launches, filter_launches,
-                                     ohlc_launches))
+        return sum(r[name] for r in runs)
 
     def entry(name, source, replaces, m):
         return {"name": name, "route": "cuda",
@@ -566,6 +853,8 @@ def main() -> int:
               "polaroid_tpu/ops/pallas_kernels.py:177", mm_max),
         entry("gather", "gather.cu",
               "polaroid_tpu/ops/pallas_kernels.py:231", gat),
+        entry("bucket_exchange", "exchange.cu",
+              "polaroid_tpu/ops/exchange.py:116", exch),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

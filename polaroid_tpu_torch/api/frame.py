@@ -171,7 +171,7 @@ class DataFrame:
     def sort(self, by, *more_by, descending: bool = False) -> "DataFrame":
         """Sort by key columns ON THE HOST, nulls first (stable). A
         convenience for comparing results; the device sort comes with
-        Slice B of the port."""
+        Slice B3 of the port (device sorts)."""
         t = C.compact(self._table)
         n = t.count_rows()
         keys = meta.expand_exprs(_to_exprs((by,) + more_by), self.schema)

@@ -78,7 +78,7 @@ class LazyFrame:
              nulls_last=False) -> "LazyFrame":
         """A sort node; the optimizer removes it where the input is
         already in that order (a group-by's key order). Any other sort
-        comes with Slice B of the port."""
+        comes with Slice B3 of the port (device sorts)."""
         keys = _to_exprs((by,) + more_by)
         nk = len(keys)
         desc = list(descending) if isinstance(descending, (list, tuple)) \

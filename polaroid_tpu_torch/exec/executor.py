@@ -24,6 +24,10 @@ from ..plan import logical as L
 
 # nodes applied on top of their input table, as one chain under a group-by
 _CHAIN = ("filter", "select", "with_columns")
+# the slice of the port that brings a plan node not ported yet
+_NEXT_SLICE = {"sort": "Slice B3 (device sorts)",
+               "distinct": "Slice B2 (the sorted tier)",
+               "join": "Slice C (joins)"}
 
 
 def execute(plan: L.Plan) -> Table:
@@ -50,7 +54,8 @@ def execute(plan: L.Plan) -> Table:
         return C.slice_rows(execute(plan.input), plan.offset,
                             plan.length)
     raise NotImplementedError(
-        f"plan node {k!r} is not ported yet (later slices of the port)")
+        f"plan node {k!r} is not ported yet: it comes with "
+        f"{_NEXT_SLICE.get(k, 'a later slice of the port')}")
 
 
 def _apply_node(node: L.Plan, table: Table) -> Table:

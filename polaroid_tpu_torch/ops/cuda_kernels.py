@@ -25,6 +25,8 @@ import ctypes
 
 import torch
 
+from .segment import segment_minmax, segment_sum, segment_take
+
 __all__ = ["seg_sum", "seg_sum_plain", "seg_minmax", "seg_minmax_plain",
            "gather", "gather_plain", "MAX_GROUPS", "LAUNCHES",
            "MINMAX_LAUNCHES", "GATHER_LAUNCHES"]
@@ -43,14 +45,9 @@ GATHER_LAUNCHES = 0
 
 def seg_sum_plain(vals: torch.Tensor, gid: torch.Tensor, G: int
                   ) -> torch.Tensor:
-    """out[c, g] = sum_i vals[c, i] * [gid[i] == g], in f64: index_add_
-    into G+1 slots, ids outside [0, G) routed to slot G and dropped."""
-    idx = torch.where((gid >= 0) & (gid < G), gid,
-                      torch.full_like(gid, G)).long()
-    out = torch.zeros((vals.shape[0], G + 1), dtype=torch.float64,
-                      device=vals.device)
-    out.index_add_(1, idx, vals.to(torch.float64))
-    return out[:, :G]
+    """out[c, g] = sum_i vals[c, i] * [gid[i] == g], in f64: one
+    index_add_, ids outside [0, G) dropped (`segment.segment_sum`)."""
+    return segment_sum(vals, gid, G)
 
 
 def _check(vals: torch.Tensor, gid: torch.Tensor, G: int) -> None:
@@ -110,49 +107,12 @@ _MINMAX_TYPES = {torch.float32: ("f32", torch.int32),
                  torch.int64: ("i64", torch.int64)}
 
 
-def _minmax_keys(x: torch.Tensor, is_max: bool) -> torch.Tensor:
-    """Signed-integer keys in the order the reduction wants (the encoding
-    of csrc/seg_minmax.cu): ints as they are; a float's bits b as
-    b >= 0 ? b : b ^ 0x7f..f, so -0.0 < +0.0; any NaN as the key that
-    wins (the key type's min for min, its max for max)."""
-    if not x.dtype.is_floating_point:
-        return x
-    kt = _MINMAX_TYPES[x.dtype][1]
-    info = torch.iinfo(kt)
-    b = x.view(kt)
-    key = torch.where(b >= 0, b, b ^ info.max)
-    return torch.where(torch.isnan(x),
-                       torch.full_like(key, info.max if is_max else info.min),
-                       key)
-
-
 def seg_minmax_plain(x: torch.Tensor, gid: torch.Tensor, G: int,
                      is_max: bool, identity) -> torch.Tensor:
-    """scatter_reduce_ of the order keys into G+1 slots (ids outside
-    [0, G) routed to slot G and dropped), decoded back to values. For
-    floats a second scatter keeps each group's largest NaN bit pattern
-    (as unsigned), which a group whose key is the NaN key decodes to, as
-    in the kernel."""
-    idx = torch.where((gid >= 0) & (gid < G), gid,
-                      torch.full_like(gid, G)).long()
-    ident = _minmax_keys(torch.tensor([identity], dtype=x.dtype), is_max)
-    out = ident.to(x.device).expand(G + 1).clone()
-    out.scatter_reduce_(0, idx, _minmax_keys(x, is_max),
-                        "amax" if is_max else "amin")
-    out = out[:G]
-    if not x.dtype.is_floating_point:
-        return out
-    info = torch.iinfo(out.dtype)
-    # bits ^ sign bit puts the unsigned order of the bits in signed order
-    ub = torch.where(torch.isnan(x), x.view(out.dtype) ^ info.min,
-                     torch.full_like(idx, info.min, dtype=out.dtype))
-    nan_bits = torch.full((G + 1,), info.min, dtype=out.dtype,
-                          device=x.device)
-    nan_bits.scatter_reduce_(0, idx, ub, "amax")
-    bits = torch.where(out >= 0, out, out ^ info.max)
-    nan_key = info.max if is_max else info.min
-    return torch.where(out == nan_key, nan_bits[:G] ^ info.min,
-                       bits).view(x.dtype)
+    """scatter_reduce_ of the order keys (ids outside [0, G) dropped),
+    decoded back to values, with each group's largest NaN bit pattern
+    kept for floats, as in the kernel (`segment.segment_minmax`)."""
+    return segment_minmax(x, gid, G, is_max, identity)
 
 
 def _check_minmax(x: torch.Tensor, gid: torch.Tensor, G: int,
@@ -217,10 +177,7 @@ def seg_minmax(x: torch.Tensor, gid: torch.Tensor, G: int, is_max: bool,
 
 def gather_plain(table: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
     """Index a zero-padded table: ids outside [0, G) read the pad."""
-    G = table.shape[0]
-    idx = torch.where((gid >= 0) & (gid < G), gid,
-                      torch.full_like(gid, G)).long()
-    return torch.cat([table, table.new_zeros(1)])[idx]
+    return segment_take(table, gid)
 
 
 def _check_gather(table: torch.Tensor, gid: torch.Tensor) -> None:

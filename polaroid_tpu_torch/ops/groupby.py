@@ -1,27 +1,37 @@
-"""Group-by: the dense (no-sort) tier.
+"""Group-by: the dense (no-sort) tier and the hash tier.
 
-The port of the dense tier of the JAX package's `ops/groupby.py`. When
-every key's domain is statically small (dictionary strings, booleans,
-8-bit ints, and integers with cached min/max stats, see
-exec/executor.py) the group id of a row is its mixed-radix key code,
-with no sort. All per-group sums, counts and means are one-hot segment
-sums, taken by the hand-written kernel `cuda_kernels.seg_sum`, and every
-simple reduction of one request is batched into ONE kernel pass (the
-"stash"). The JAX package takes that kernel path only on accelerators;
-the port takes it on every device, so the CPU tests run the card's path
-with the kernel's plain version. Integer sums stay an exact int64
-`index_add_`, as the JAX package's `_seg_sum` scatter is exact.
+The port of the dense and hash-exchange tiers of the JAX package's
+`ops/groupby.py`. When every key's domain is statically known
+(dictionary strings, booleans, 8/16-bit ints, and integers with cached
+min/max stats, see exec/executor.py) each row gets a mixed-radix key
+code with no sort, and the product of the key spans picks the layout:
 
-Min and max (and so any, all, first, last and each group's first row)
-are segment extremes taken by the kernel `cuda_kernels.seg_minmax`, and
-var/std broadcast each group's mean back to its rows with the kernel
-`cuda_kernels.gather`, on every device too.
+* up to 4096 slots, the dense tier: the key code IS the group id. All
+  per-group sums, counts and means are one-hot segment sums taken by the
+  hand-written kernel `cuda_kernels.seg_sum`, and every simple reduction
+  of one request is batched into ONE kernel pass (the "stash"). Min and
+  max (and so any, all, first, last and each group's first row) are
+  segment extremes taken by the kernel `cuda_kernels.seg_minmax`, and
+  var/std broadcast each group's mean back to its rows with the kernel
+  `cuda_kernels.gather`. The empty group slots are removed with the
+  compaction kernel (`compact.compact_device`), or, under
+  maintain_order=True, sorted last by a stable sort of the few slots by
+  their first row.
+* up to 2^32 slots, the hash tier (`ops/hgroup.py`): the key codes go
+  through the hash exchange (kernel E, `exchange.bucket_exchange`), or
+  the carry sort when `hgroup.precheck` refuses it, and each live row
+  gets a dense group id in hash order. The same reductions then run as
+  large-G torch scatter ops (`ops/segment.py`), which stand in for the
+  JAX package's XLA segmented scans there.
 
-The empty group slots are removed with the compaction kernel
-(`compact.compact_device`), or, under maintain_order=True, sorted last by
-a stable sort of the few slots by their first row. Key domains above
-4096 slots and the sorted layout raise NotImplementedError naming the
-slice that brings them.
+The JAX package takes the one-hot kernels only on accelerators and the
+hash tier only at 2^14 <= capacity < 2^24; the port takes both on every
+device and at every capacity, so the CPU tests run the card's path with
+the kernels' plain versions. Integer sums are an exact int64 scatter in
+both tiers, as the JAX package's `_seg_sum` scatter is exact.
+
+Unbounded or larger key domains and the sorted layout raise
+NotImplementedError naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -38,17 +48,24 @@ from ..expr import meta
 from ..expr.eval import Val, _eval_binary, _eval_unary, _float_dt, \
     _lit_val, _sum_dtype, _type_bounds, cast_val, eval_expr
 from ..expr.expr import Expr
+from . import hgroup
 from .compact import compact_device, gather_table
 from .cuda_kernels import MAX_GROUPS, gather, seg_minmax, seg_sum
+from .segment import segment_minmax, segment_sum, segment_sum_int, \
+    segment_take
 
-__all__ = ["GroupContext", "build_groups_dense", "group_by_agg"]
+__all__ = ["GroupContext", "HashGroupContext", "build_groups_dense",
+           "build_groups_hash", "group_by_agg"]
 
 _I64_SIGN = -(1 << 63)
+# the largest key domain of the hash tier: its key codes are u32 words
+_HASH_DOMAIN = 1 << 32
+_SORTED_TIER = "the sorted tier (Slice B2 of the port)"
 
 # aggregates that need each group's rows in order: the sorted tier
-_NEXT_SLICE = {agg: "Slice B (the sorted tier of the group-by)"
+_NEXT_SLICE = {agg: _SORTED_TIER
                for agg in ("median", "quantile", "n_unique", "arg_min",
-                           "arg_max")}
+                           "arg_max", "product")}
 
 
 class GroupContext:
@@ -56,7 +73,11 @@ class GroupContext:
     (dead rows get gid == out_cap, outside every group), `out_cap` the
     group-slot count (padded key-domain product), `group_count` the live
     rows of each slot (int64) and `stash` the batched kernel sums, keyed
-    ("len",) / ("count"|"sum", id(column data))."""
+    ("len",) / ("count"|"sum", id(column data)).
+
+    The reduction primitives (`sums`, `extreme`, `take`, `int_sum`) are
+    the dense tier's kernels here; `HashGroupContext` takes the same
+    reductions over any number of groups."""
 
     __slots__ = ("gid", "live", "cap", "group_count", "out_cap", "stash",
                  "_group_start")
@@ -70,17 +91,92 @@ class GroupContext:
         self.stash = {}
         self._group_start = None
 
+    def _positions(self) -> torch.Tensor:
+        return torch.arange(self.cap, dtype=torch.int32,
+                            device=self.gid.device)
+
     @property
     def group_start(self) -> torch.Tensor:
         """The first live row of each slot (int32; cap for an empty
-        slot): one seg_minmax over the row positions, taken at first use
-        and kept."""
+        slot): one segment min over the row positions, taken at first
+        use and kept."""
         if self._group_start is None:
-            idx = torch.arange(self.cap, dtype=torch.int32,
-                               device=self.gid.device)
-            self._group_start = _masked_seg_minmax(
-                idx, self.gid, self.out_cap, None, False, self.cap)
+            self._group_start = self.extreme(self._positions(), None, False,
+                                             self.cap)
         return self._group_start
+
+    def group_end(self) -> torch.Tensor:
+        """The last live row of each slot (int32; -1 for an empty one)."""
+        return self.extreme(self._positions(), None, True, -1)
+
+    def slot_codes(self) -> torch.Tensor:
+        """The key code of each group slot (int64): the slot itself."""
+        return torch.arange(self.out_cap, dtype=torch.int64,
+                            device=self.gid.device)
+
+    def sums(self, rows: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Per-group f64 sums of several (n,) rows in ONE kernel pass.
+        Rows travel as f32 when they all are f32 (0/1 counts are exact
+        there) and as f64 otherwise."""
+        dt = torch.float64 if any(r.dtype == torch.float64 for r in rows) \
+            else torch.float32
+        out = seg_sum(torch.stack([r.to(dt) for r in rows]), self.gid,
+                      self.out_cap)
+        return list(out.unbind(0))
+
+    def _extreme(self, x, gid, is_max, identity):
+        return seg_minmax(x, gid, self.out_cap, is_max, identity)
+
+    def extreme(self, x: torch.Tensor, live, is_max: bool, identity
+                ) -> torch.Tensor:
+        """Per-group min/max of the rows of `x` where `live` (None: every
+        row); rows outside `live` go to an id outside every group. Bool
+        and ints narrower than 32 bits are widened to int32 (the result
+        stays widened)."""
+        gid = self.gid
+        if live is not None:
+            gid = torch.where(live, gid, torch.full_like(gid, self.out_cap))
+        if x.dtype in (torch.bool, torch.int8, torch.uint8, torch.int16):
+            x = x.to(torch.int32)
+        return self._extreme(x.contiguous(), gid, is_max, identity)
+
+    def take(self, table: torch.Tensor) -> torch.Tensor:
+        """Each row's entry of a per-group table (0 for dead rows)."""
+        return gather(table, self.gid)
+
+    def int_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Exact int64 per-group sums, as the JAX package's _seg_sum."""
+        return segment_sum_int(x, self.gid, self.out_cap)
+
+
+class HashGroupContext(GroupContext):
+    """The hash tier's layout: `gid` numbers each live row's group
+    densely (hash order on the exchange path, key order on the carry-sort
+    fallback), `out_cap` is the row capacity (there are never more groups
+    than rows), `key_codes` the key code of each group (2^32 past the
+    last) and `ngroups` their device count. The reductions are large-G
+    torch scatter ops (`ops/segment.py`)."""
+
+    __slots__ = ("key_codes", "ngroups")
+
+    def __init__(self, gid, live, cap, group_count, key_codes, ngroups):
+        super().__init__(gid, live, cap, group_count, cap)
+        self.key_codes = key_codes
+        self.ngroups = ngroups
+
+    def slot_codes(self) -> torch.Tensor:
+        return self.key_codes
+
+    def sums(self, rows: List[torch.Tensor]) -> List[torch.Tensor]:
+        out = segment_sum(torch.stack([r.to(torch.float64) for r in rows]),
+                          self.gid, self.out_cap)
+        return list(out.unbind(0))
+
+    def _extreme(self, x, gid, is_max, identity):
+        return segment_minmax(x, gid, self.out_cap, is_max, identity)
+
+    def take(self, table: torch.Tensor) -> torch.Tensor:
+        return segment_take(table, self.gid)
 
 
 def _aggs_have_quantile(agg_exprs) -> bool:
@@ -94,29 +190,6 @@ def _aggs_have_quantile(agg_exprs) -> bool:
                                                         "quantile"):
             return True
     return False
-
-
-def _seg_sums(rows: List[torch.Tensor], gid, G: int) -> List[torch.Tensor]:
-    """Per-group f64 sums of several (n,) rows in ONE kernel pass. Rows
-    travel as f32 when they all are f32 (0/1 counts are exact there) and
-    as f64 otherwise."""
-    dt = torch.float64 if any(r.dtype == torch.float64 for r in rows) \
-        else torch.float32
-    out = seg_sum(torch.stack([r.to(dt) for r in rows]), gid, G)
-    return list(out.unbind(0))
-
-
-def _masked_seg_minmax(x: torch.Tensor, gid, G: int, live, is_max: bool,
-                       identity) -> torch.Tensor:
-    """Per-group min/max of the rows of `x` where `live` (None: every
-    row) with the seg_minmax kernel; rows outside `live` go to an id
-    outside every group. Bool and ints narrower than 32 bits are widened
-    to int32 (the result stays widened)."""
-    if live is not None:
-        gid = torch.where(live, gid, torch.full_like(gid, G))
-    if x.dtype in (torch.bool, torch.int8, torch.uint8, torch.int16):
-        x = x.to(torch.int32)
-    return seg_minmax(x.contiguous(), gid, G, is_max, identity)
 
 
 def _to_f64(x: torch.Tensor, dt) -> torch.Tensor:
@@ -166,12 +239,15 @@ def _dense_spans(key_vals: Sequence[Val], key_exprs=None, table=None):
     return out
 
 
-def _dense_code(v: Val, span: int, base, cap: int) -> torch.Tensor:
+def _dense_code(v: Val, span: int, base, cap: int,
+                dtype=torch.int32) -> torch.Tensor:
+    """Each row's code in [0, span) (0 for null), as `dtype`: int32 for
+    the dense tier, int64 for the hash tier's spans of up to 2^32."""
     data = v.data.expand(cap)
     if v.dtype.is_string or v.dtype == Boolean:
-        code = data.to(torch.int32) + 1  # null string code -1 -> 0
+        code = data.to(dtype) + 1  # null string code -1 -> 0
     else:  # integer with known base
-        code = (data.to(torch.int64) - base + 1).to(torch.int32)
+        code = (data.to(torch.int64) - base + 1).clamp(0, span - 1).to(dtype)
     if v.validity is not None:
         code = torch.where(v.validity.expand(cap), code,
                            torch.zeros_like(code))
@@ -191,25 +267,44 @@ def _dense_decode(gidx: torch.Tensor, v: Val, span: int, base=None):
         validity
 
 
-def build_groups_dense(key_vals: Sequence[Val], mask: torch.Tensor,
-                       spans) -> GroupContext:
-    """O(n) group layout: gid = mixed-radix dense key code; no sort."""
-    cap = mask.shape[0]
+def _span_product(spans) -> int:
     prod = 1
     for span, _ in spans:
         prod *= span
-    out_cap = capacity_for(prod)
-    if out_cap > MAX_GROUPS:
-        raise NotImplementedError(
-            f"group-by over {out_cap} key slots: domains above {MAX_GROUPS} "
-            "take the hash-exchange group-by (Slice B of the port)")
+    return prod
+
+
+def build_groups_dense(key_vals: Sequence[Val], mask: torch.Tensor,
+                       spans) -> GroupContext:
+    """O(n) group layout: gid = mixed-radix dense key code; no sort. The
+    span product must be at most MAX_GROUPS."""
+    cap = mask.shape[0]
+    out_cap = capacity_for(_span_product(spans))
     gid = torch.zeros(cap, dtype=torch.int32, device=mask.device)
     for v, (span, base) in zip(key_vals, spans):
         gid = gid * span + _dense_code(v, span, base or 0, cap)
     gid = torch.where(mask, gid, torch.full_like(gid, out_cap))
-    (cnt,) = _seg_sums([torch.ones(cap, dtype=torch.float32,
-                                   device=mask.device)], gid, out_cap)
-    return GroupContext(gid, mask, cap, cnt.to(torch.int64), out_cap)
+    ctx = GroupContext(gid, mask, cap, None, out_cap)
+    (cnt,) = ctx.sums([torch.ones(cap, dtype=torch.float32,
+                                  device=mask.device)])
+    ctx.group_count = cnt.to(torch.int64)
+    return ctx
+
+
+def build_groups_hash(key_vals: Sequence[Val], mask: torch.Tensor,
+                      spans) -> HashGroupContext:
+    """The hash tier's layout of a key domain of at most 2^32 slots: the
+    mixed-radix key code (first key most significant, as the dense
+    decode) grouped by the hash exchange, or by the carry sort when
+    `hgroup.precheck` refuses it (`hgroup.group_ids`)."""
+    cap = mask.shape[0]
+    code = torch.zeros(cap, dtype=torch.int64, device=mask.device)
+    for v, (span, base) in zip(key_vals, spans):
+        code = code * span + _dense_code(v, span, base or 0, cap,
+                                         torch.int64)
+    gid, codes, ngroups = hgroup.group_ids(code, mask)
+    count = segment_sum_int(mask.to(torch.int64), gid, cap)
+    return HashGroupContext(gid, mask, cap, count, codes, ngroups)
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +314,7 @@ def build_groups_dense(key_vals: Sequence[Val], mask: torch.Tensor,
 def reduce_group(agg: str, v: Val, ctx: GroupContext,
                  attrs: dict = None) -> Val:
     """One grouped reduction (reference: `polars-expr/src/reduce/*.rs`)."""
-    cap, ncap, gid, dt = ctx.cap, ctx.out_cap, ctx.gid, v.dtype
+    cap, dt = ctx.cap, v.dtype
     sx = v.data.expand(cap)
     # rows that take part: live, and non-null for the value aggregates
     present = ctx.live
@@ -228,7 +323,7 @@ def reduce_group(agg: str, v: Val, ctx: GroupContext,
     stash = ctx.stash  # batched sums of this request, keyed by column
 
     def counted(mask):
-        (c,) = _seg_sums([mask.to(torch.float32)], gid, ncap)
+        (c,) = ctx.sums([mask.to(torch.float32)])
         return Val(UInt32, c.to(torch.int64))
 
     if agg == "len":
@@ -246,19 +341,13 @@ def reduce_group(agg: str, v: Val, ctx: GroupContext,
             out_dt = _sum_dtype(dt)
             s = stash.get(("sum", id(v.data)))
             if s is None:
-                (s,) = _seg_sums([torch.where(spart, sx,
-                                              torch.zeros_like(sx))],
-                                 gid, ncap)
+                (s,) = ctx.sums([torch.where(spart, sx,
+                                             torch.zeros_like(sx))])
             return Val(out_dt, s.to(storage_torch_dtype(out_dt)))
         if dt.is_integer:
-            # exact int64 scatter, as the JAX package's _seg_sum
-            x = torch.where(spart, sx, torch.zeros_like(sx)).to(torch.int64)
-            idx = torch.where(gid < ncap, gid,
-                              torch.full_like(gid, ncap)).long()
-            s = torch.zeros(ncap + 1, dtype=torch.int64, device=sx.device)
-            s.index_add_(0, idx, x)
+            s = ctx.int_sum(torch.where(spart, sx, torch.zeros_like(sx)))
             out_dt = _sum_dtype(dt)
-            return Val(out_dt, s[:ncap].to(storage_torch_dtype(out_dt)))
+            return Val(out_dt, s.to(storage_torch_dtype(out_dt)))
     numeric = dt.is_float or dt.is_integer or dt.is_bool
     if agg in ("mean", "var", "std") and numeric:
         out_dt = _float_dt(dt)
@@ -266,8 +355,8 @@ def reduce_group(agg: str, v: Val, ctx: GroupContext,
         ss = stash.get(("sum", id(v.data)))
         nn = stash.get(("count", id(v.data)))
         if ss is None or nn is None:
-            ss, nn = _seg_sums([torch.where(spart, xf, torch.zeros_like(xf)),
-                                spart.to(torch.float32)], gid, ncap)
+            ss, nn = ctx.sums([torch.where(spart, xf, torch.zeros_like(xf)),
+                               spart.to(torch.float32)])
         m = ss / nn.clamp(min=1)
         if agg == "mean":
             return Val(out_dt, m.to(storage_torch_dtype(out_dt)), nn > 0)
@@ -276,9 +365,9 @@ def reduce_group(agg: str, v: Val, ctx: GroupContext,
         # then the squared deviations summed
         ddof = (attrs or {}).get("ddof", 1)
         xf = xf.to(torch.float64)
-        d2 = torch.where(spart, (xf - gather(m, gid)) ** 2,
+        d2 = torch.where(spart, (xf - ctx.take(m)) ** 2,
                          torch.zeros_like(xf))
-        (sq,) = _seg_sums([d2], gid, ncap)
+        (sq,) = ctx.sums([d2])
         var = sq / (nn - ddof).clamp(min=1)
         out = torch.sqrt(var) if agg == "std" else var
         return Val(out_dt, out.to(storage_torch_dtype(out_dt)), nn > ddof)
@@ -286,9 +375,9 @@ def reduce_group(agg: str, v: Val, ctx: GroupContext,
         if not dt.is_bool:
             raise InvalidOperationError(f"{agg} on {dt!r}")
         if agg == "any":
-            r = _masked_seg_minmax(spart & sx, gid, ncap, None, True, 0)
+            r = ctx.extreme(spart & sx, None, True, 0)
         else:
-            r = _masked_seg_minmax(sx, gid, ncap, spart, False, 1)
+            r = ctx.extreme(sx, spart, False, 1)
         return Val(Boolean, r == 1)
     if agg in ("min", "max"):
         is_max = agg == "max"
@@ -299,27 +388,20 @@ def reduce_group(agg: str, v: Val, ctx: GroupContext,
             has = (n if n is not None else counted(spart).data) > 0
         if dt.is_string:
             # sorted dictionary: code order is string order
-            r = _masked_seg_minmax(sx, gid, ncap, spart, is_max,
-                                   -1 if is_max else _type_bounds(
-                                       torch.int32)[1])
+            r = ctx.extreme(sx, spart, is_max,
+                            -1 if is_max else _type_bounds(torch.int32)[1])
             return Val(dt, r, has, v.sdict)
         # UInt64 is held in int64: flip the sign bit so that signed order
         # is unsigned order, and flip it back after
         u64 = repr(dt) == "UInt64"
         x = sx ^ _I64_SIGN if u64 else sx
         lo, hi = _type_bounds(x.dtype)
-        r = _masked_seg_minmax(x, gid, ncap, spart, is_max,
-                               lo if is_max else hi)
+        r = ctx.extreme(x, spart, is_max, lo if is_max else hi)
         if u64:
             r = r ^ _I64_SIGN
         return Val(dt, r.to(sx.dtype), has)
     if agg in ("first", "last"):
-        if agg == "first":
-            sel = ctx.group_start
-        else:
-            sel = _masked_seg_minmax(
-                torch.arange(cap, dtype=torch.int32, device=gid.device),
-                gid, ncap, None, True, -1)
+        sel = ctx.group_start if agg == "first" else ctx.group_end()
         selc = sel.clamp(0, cap - 1).long()
         validity = ctx.group_count > 0
         if v.validity is not None:
@@ -417,8 +499,7 @@ def _fill_stash(gctx: GroupContext, reqs: dict) -> None:
                 x = torch.where(colo.validity, x, torch.zeros_like(x))
             rows.append(x)
     # gid already routes dead rows outside every group
-    gctx.stash = dict(zip(reqs.keys(), _seg_sums(rows, gctx.gid,
-                                                  gctx.out_cap)))
+    gctx.stash = dict(zip(reqs.keys(), gctx.sums(rows)))
 
 
 def _needs_sorted_layout(agg_exprs: Sequence[Expr]) -> bool:
@@ -433,10 +514,11 @@ def _needs_sorted_layout(agg_exprs: Sequence[Expr]) -> bool:
 def group_by_agg(table: Table, key_exprs: Sequence[Expr],
                  agg_exprs: Sequence[Expr],
                  maintain_order=False) -> Table:
-    """GROUP BY keys AGG exprs -> one row per group, in ascending key
-    order (nulls first), or with maintain_order=True in the order of each
-    group's first live row. maintain_order may be the optimizer's "key"
-    sentinel: the dense layout emits key order, so it needs nothing."""
+    """GROUP BY keys AGG exprs -> one row per group. The dense tier emits
+    ascending key order (nulls first), the hash tier hash order;
+    maintain_order=True gives the order of each group's first live row,
+    and the optimizer's "key" sentinel (a sort on the keys after the
+    group-by was dropped) ascending key order from either tier."""
     cap = table.capacity
     mask = table.row_mask()
     key_vals = [eval_expr(k, table, "select") for k in key_exprs]
@@ -444,19 +526,27 @@ def group_by_agg(table: Table, key_exprs: Sequence[Expr],
     if spans is None or _needs_sorted_layout(agg_exprs):
         raise NotImplementedError(
             "this group-by needs the sorted layout (an unbounded key, or "
-            "product): Slice B of the port")
-    gctx = build_groups_dense(key_vals, mask, spans)
+            f"product): it comes with {_SORTED_TIER}")
+    domain = _span_product(spans)
+    if domain <= MAX_GROUPS:
+        gctx = build_groups_dense(key_vals, mask, spans)
+    elif domain <= _HASH_DOMAIN:
+        gctx = build_groups_hash(key_vals, mask, spans)
+    else:
+        raise NotImplementedError(
+            f"group-by over {domain} key slots: domains above 2^32 come "
+            f"with {_SORTED_TIER}")
     reqs = _collect_stash_requests(agg_exprs, table, cap)
     if len(reqs) > 1:
         _fill_stash(gctx, reqs)
     ocap = gctx.out_cap
 
-    # group keys: the slot index IS the key — decode it
+    # group keys: decode each slot's mixed-radix key code
     key_outputs = {}
     names: List[str] = []
     cols = {}
     gvalid_rows = gctx.group_count > 0
-    slot = torch.arange(ocap, dtype=torch.int64, device=mask.device)
+    slot = gctx.slot_codes()
     key_decoded = []
     for span, _ in reversed(spans):
         key_decoded.append(slot % span)
@@ -485,13 +575,21 @@ def group_by_agg(table: Table, key_exprs: Sequence[Expr],
         cols[name] = Column(v.dtype, data, validity, v.sdict)
 
     tmp = Table(names, cols, ocap, None, gvalid_rows, device=mask.device)
-    if maintain_order is True:
-        # first-occurrence order: a stable sort of the slots by their
-        # first row, in which the empty slots (first row = cap) go last,
-        # so the groups come out as a prefix (no host sync)
-        perm = torch.sort(gctx.group_start, stable=True).indices
+    hashed = isinstance(gctx, HashGroupContext)
+    if maintain_order is True or (hashed and maintain_order == "key"):
+        # a stable sort of the slots by each group's first row (or, for
+        # "key", by its key code), in which the empty slots (first row
+        # cap, key code 2^32) go last, so the groups come out as a prefix
+        # (no host sync)
+        perm = torch.sort(gctx.group_start if maintain_order is True
+                          else gctx.key_codes, stable=True).indices
         out = gather_table(tmp, perm, None, None)
         return out.with_valid(None, None, nrows_dev=gvalid_rows.sum())
+    if hashed:
+        # the hash tier numbered its groups densely: they already are a
+        # prefix (the compaction kernel removed the layout's empty slots
+        # when it gathered the group keys, hgroup.hash_group_ids)
+        return tmp.with_valid(None, None, nrows_dev=gctx.ngroups)
     # the dense layout leaves empty key slots: compact them away on the
     # device with the compaction kernel (no host sync)
     out, count = compact_device(tmp)

@@ -13,6 +13,8 @@ import torch
 import polaroid_tpu_torch as pt
 from polaroid_tpu_torch.ops import cuda_kernels as TK
 from polaroid_tpu_torch.ops import cuda_partition as TP
+from polaroid_tpu_torch.ops import exchange as TE
+from polaroid_tpu_torch.ops import hgroup as TH
 
 pytestmark = pytest.mark.cuda
 
@@ -176,3 +178,69 @@ def test_q1_on_card_matches_cpu(dev):
     assert got["symbol"] == want["symbol"] and got["n"] == want["n"]
     np.testing.assert_allclose(got["total"], want["total"], rtol=1e-12)
     np.testing.assert_allclose(got["avg"], want["avg"], rtol=1e-12)
+
+
+@pytest.mark.parametrize("B,dead,overflow", [(1, 0.0, False),
+                                             (3, 0.1, False),
+                                             (64, 0.4, True)])
+def test_bucket_exchange_kernel_matches_plain(dev, B, dead, overflow):
+    """Bit for bit, pads included; with `overflow` some runs pass CAP and
+    are cut, and some extents are out of range and clamped."""
+    g = torch.Generator().manual_seed(B)
+    n = B * TE.S
+    h = torch.randint(0, 1 << 32, (n,), generator=g, dtype=torch.int64)
+    h[torch.rand(n, generator=g) < dead] = TH.FILL
+    if overflow:
+        h[: n // 2] = h[: n // 2] & ~(0x1F << 27)   # bucket 0 heavy
+    prep_h = h.view(B, TE.S).sort(dim=1).values
+    digit = torch.where(prep_h != TH.FILL, prep_h >> 27,
+                        torch.full_like(prep_h, TE.K))
+    counts = torch.stack([torch.bincount(d, minlength=TE.K + 1)[:TE.K]
+                          for d in digit]).to(torch.int32)
+    starts = (torch.cumsum(counts, 1) - counts).to(torch.int32)
+    if overflow:
+        starts[0, 5] = -3
+        starts[1, 7] = TE.S + 10
+        counts[2, 9] = -1
+    words = [TH._to_word(prep_h.reshape(-1)),
+             torch.randint(-(1 << 31), 1 << 31, (n,), generator=g,
+                           dtype=torch.int32)]
+    fills = (TH.FILL, 0x7F00FF01)
+    before = TE.EXCHANGE_LAUNCHES
+    got = TE.bucket_exchange(starts.to(dev), counts.to(dev),
+                             [w.to(dev) for w in words], fills)
+    torch.cuda.synchronize()
+    assert TE.EXCHANGE_LAUNCHES == before + 1
+    want = TE.bucket_exchange_plain(starts, counts, words, fills)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_hash_groupby_on_card_matches_cpu(dev):
+    """A 10^5-key group-by (the hash tier) on the card against the CPU
+    run, the fast path and the fallback."""
+    rng = np.random.default_rng(7)
+    n = 100_000
+    data = {"k": rng.integers(1, 100_001, n).astype(np.int32),
+            "s": ((rng.integers(0, 8, n)) * 10_000).astype(np.int32),
+            "v": rng.integers(1, 6, n).astype(np.int32),
+            "x": rng.uniform(0, 100, n)}
+
+    def q(device, key):
+        df = pt.DataFrame(data, device=device)
+        return (df.lazy().group_by(key)
+                .agg(pt.col("v").sum().alias("vs"),
+                     pt.col("x").mean().alias("xm"),
+                     pt.col("x").max().alias("xx"), pt.len().alias("n"))
+                .sort(key).collect().to_dict())
+
+    for key, fallbacks in (("k", 0), ("s", 1)):
+        TE.EXCHANGE_LAUNCHES = 0
+        TH.FALLBACKS = 0
+        got = q("cuda", key)
+        assert TH.FALLBACKS == fallbacks
+        assert (TE.EXCHANGE_LAUNCHES > 0) == (fallbacks == 0)
+        want = q("cpu", key)
+        for c in (key, "vs", "xx", "n"):
+            assert got[c] == want[c], c
+        np.testing.assert_allclose(got["xm"], want["xm"], rtol=1e-12)
