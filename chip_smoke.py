@@ -27,7 +27,13 @@ Phases:
    against a numpy oracle, with the exchange kernel launched and no
    fallback, timed and traced the same way;
 7. a group-by whose bucket cells overflow (8 keys over a span above
-   4096), which must take the carry-sort fallback, against numpy.
+   4096), which must take the carry-sort fallback, against numpy;
+8. device sorts on the same H2O frame at 10^7 rows (S1-S6: three Int32
+   keys, a descending Float64 key, two keys with 5% nulls placed last,
+   top_k and bottom_k, a sort after a hash group-by, and one Int32 key
+   that takes the packed torch.sort), each bit for bit against a stable
+   numpy oracle, with the bitonic kernel launched where more than one
+   key word is sorted, timed and traced the same way.
 
 The line before the last lists every ported kernel with its numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check raises,
@@ -86,20 +92,21 @@ def max_abs_err(got, want) -> float:
     return float(torch.where(got == want, torch.zeros_like(d), d).max())
 
 
-def reset_launches(TK, TP, TE, TH) -> None:
+def reset_launches(TK, TP, TE, TH, TM) -> None:
     """Set every kernel's launch count, and the hash tier's count of
     carry-sort fallbacks, to 0."""
     TK.LAUNCHES = TK.MINMAX_LAUNCHES = TK.GATHER_LAUNCHES = 0
     TP.LAUNCHES = 0
     TE.EXCHANGE_LAUNCHES = 0
+    TM.LAUNCHES = 0
     TH.FALLBACKS = 0
 
 
-def read_launches(TK, TP, TE, TH) -> dict:
+def read_launches(TK, TP, TE, TH, TM) -> dict:
     return {"seg_sum": TK.LAUNCHES, "compact_words": TP.LAUNCHES,
             "seg_minmax": TK.MINMAX_LAUNCHES, "gather": TK.GATHER_LAUNCHES,
             "bucket_exchange": TE.EXCHANGE_LAUNCHES,
-            "fallbacks": TH.FALLBACKS}
+            "merge_sort": TM.LAUNCHES, "fallbacks": TH.FALLBACKS}
 
 
 def time_collects(lf, reps: int):
@@ -525,6 +532,55 @@ def check_exchange(args, torch, TE, TH, prep):
     return out
 
 
+def check_merge_sort(args, torch, TM, h2o):
+    """Kernel F at query S1's shape: n = 2^24 rows (the H2O frame's
+    capacity), W = 5 words (the dead-row word, the orderable codes of id1,
+    id2 and id3, and the injected row index), every word bit for bit
+    against the plain version."""
+    from polaroid_tpu_torch.config import capacity_for
+    from polaroid_tpu_torch.dtypes import Int32
+    from polaroid_tpu_torch.ops.keycode import encode_orderable
+    dev = torch.device("cuda")
+    rows = len(h2o["id1"])
+    n = capacity_for(rows)
+    live = torch.arange(n, device=dev) < rows
+    words = [(~live).to(torch.int64)]
+    for c in ("id1", "id2", "id3"):
+        x = torch.zeros(n, dtype=torch.int32, device=dev)
+        x[:rows] = torch.from_numpy(h2o[c]).to(dev)
+        words.append(encode_orderable(x, Int32))
+    nk = len(words)
+    got = TM.merge_sort_words(words, nk)
+    want = TM.merge_sort_words_plain(words, nk)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), "merge_sort_words differs from its plain " \
+            "version"
+    W = nk + 1
+    # the library yardstick: no torch call sorts W words
+    # lexicographically; one stable torch.sort of 2^24 int64 (the packed
+    # id3 code and row, as the one-word route sorts) is the one-call
+    # yardstick for a sort of this size
+    packed = (words[3] << 31) | torch.arange(n, device=dev)
+    stage_passes, tile_passes = TM.passes(n, W)
+    out = {
+        "kernel": "merge_sort", "n": n, "words": W, "num_keys": nk + 1,
+        "tile_rows": TM.tile_rows(n, W), "stage_passes": stage_passes,
+        "tile_passes": tile_passes, "max_abs_err": 0.0,
+        "kernel_ms": cuda_ms(lambda: TM.merge_sort_words(words, nk),
+                             args.reps),
+        "plain_ms": cuda_ms(lambda: TM.merge_sort_words_plain(words, nk),
+                            args.reps),
+        "library": "torch.sort(stable=True) of one int64 of n",
+        "library_ms": cuda_ms(lambda: torch.sort(packed, stable=True),
+                              args.reps),
+    }
+    nbytes = 2 * 4 * W * n
+    out["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+    out["bound_by"] = "bytes"
+    return out
+
+
 def make_h2o_data(rows: int, seed: int):
     """G1_1e7_1e2_0_0 of the H2O.ai db-benchmark (K = 100, no NAs,
     unsorted): id1, id2, id4, id5 in [1, K]; id3, id6 in [1, rows / K];
@@ -626,9 +682,11 @@ H2O_OUTPUTS = {
     "q3_sorted": {"v1": ("sum", "v1"), "v3": ("mean", "v3")},
     "fallback": {"v1": ("sum", "v1"), "v3": ("mean", "v3"),
                  "n": ("len", None)},
+    "S5_group_by": {"v1": ("sum", "v1")},
 }
 # Float64 outputs held to rtol 1e-12; the rest exact (bit for bit)
 H2O_CLOSE = {"v3", "sd_v3"}
+NULL_SHARE = 0.05           # the null rows of H2O's G1_1e7_1e2_5_0 files
 
 
 def check_h2o(name, out, data, keys, order):
@@ -673,6 +731,121 @@ def check_h2o(name, out, data, keys, order):
     return ng
 
 
+def with_null_copies(pl, hdf, h2o, seed: int):
+    """The H2O frame plus id4n and v3n: id4 and v3 with NULL_SHARE of
+    their rows null, drawn from the seed; returns the frame and the
+    host validity masks."""
+    import numpy as np
+    from polaroid_tpu_torch.batch import Column
+    rng = np.random.default_rng(seed + 1)
+    t = hdf._table
+    valid = {}
+    for name, src in (("id4n", "id4"), ("v3n", "v3")):
+        valid[name] = rng.uniform(size=len(h2o[src])) >= NULL_SHARE
+        t = t.with_column(name, Column.from_host(
+            h2o[src], capacity=t.capacity, device=t.device,
+            validity=valid[name]))
+    return pl.DataFrame._from_table(t), valid
+
+
+def f64_code(x):
+    """numpy's copy of the port's orderable code of float64 values (a
+    uint64 whose order is the values' order)."""
+    import numpy as np
+    b = x.view(np.uint64)
+    return np.where(b >> np.uint64(63) == 1, ~b, b | np.uint64(1 << 63))
+
+
+def sort_queries(pl, hdf, ndf):
+    """(name, lazy frame) of phase 8."""
+    c = pl.col
+    return [
+        ("S1", hdf.lazy().sort(["id1", "id2", "id3"], maintain_order=True)),
+        ("S2", hdf.lazy().sort("v3", descending=True, maintain_order=True)),
+        ("S3", ndf.lazy().sort(["id4n", "v3n"], descending=[False, True],
+                               nulls_last=True, maintain_order=True)),
+        ("S4_top_k", hdf.lazy().top_k(10, by="v3")),
+        ("S4_bottom_k", hdf.lazy().bottom_k(10, by="v3")),
+        ("S5", hdf.lazy().group_by("id3").agg(c("v1").sum())
+         .sort("v1", descending=True, maintain_order=True)),
+        ("S6", hdf.lazy().sort("id3", maintain_order=True)),
+    ]
+
+
+def sort_oracle(name, data, valid):
+    """The rows of a phase-8 result, as positions into `data`: numpy's
+    stable sorts (np.lexsort: last key most significant)."""
+    import numpy as np
+    if name == "S1":
+        return np.lexsort((data["id3"], data["id2"], data["id1"]))
+    code = f64_code(data["v3"])
+    if name == "S2":
+        return np.argsort(~code, kind="stable")
+    if name == "S3":
+        # nulls last: null word 1 for valid rows, 2 for nulls; the value
+        # words of null rows zeroed; v3 descending as the NOT of its code
+        v4, v3 = valid["id4n"], valid["v3n"]
+        return np.lexsort((np.where(v3, ~code, 0), np.where(v3, 1, 2),
+                           np.where(v4, data["id4"], 0),
+                           np.where(v4, 1, 2)))
+    if name == "S4_top_k":
+        return np.argsort(~code, kind="stable")[:10]
+    if name == "S4_bottom_k":
+        return np.argsort(code, kind="stable")[:10]
+    if name == "S6":
+        return np.argsort(data["id3"], kind="stable")
+    raise KeyError(name)
+
+
+def host_columns(out):
+    """Each column of a collected frame as (host values, host validity or
+    None), read off its table."""
+    t = out._table
+    n = t.count_rows()
+    return {k: (c.data[:n].cpu().numpy(),
+                None if c.validity is None else c.validity[:n].cpu().numpy())
+            for k, c in t.cols.items()}
+
+
+def check_rows(name, got, want, valid):
+    """Every column of `got` (host_columns) bit for bit against the
+    `want` columns, and the nulls where `valid` has a mask."""
+    import numpy as np
+    assert sorted(got) == sorted(want), f"{name}: columns {sorted(got)}"
+    for k, w in want.items():
+        g, gv = got[k]
+        assert g.dtype == w.dtype and len(g) == len(w), \
+            f"{name}: {k} is {g.dtype}[{len(g)}], want {w.dtype}[{len(w)}]"
+        wv = valid.get(k)
+        if wv is None:
+            assert gv is None or gv.all(), f"{name}: {k} has nulls"
+            wv = np.ones(len(w), dtype=bool)
+        else:
+            assert gv is not None and np.array_equal(gv, wv), \
+                f"{name}: the nulls of {k} differ"
+        u = f"u{w.itemsize}"
+        assert np.array_equal(g.view(u)[wv], w.view(u)[wv]), \
+            f"{name}: {k} differs"
+
+
+def check_sort(name, out, data, valid, group_base=None):
+    """A phase-8 result against numpy. S5 is held to a stable numpy sort
+    of its own group-by collected alone (`group_base`, itself checked
+    against the H2O oracle), since equal sums keep the group-by's hash
+    order."""
+    import numpy as np
+    got = host_columns(out)
+    if name == "S5":
+        keys, sums = group_base
+        order = np.argsort(-sums, kind="stable")
+        check_rows(name, got, {"id3": keys[order], "v1": sums[order]}, {})
+        return len(order)
+    order = sort_oracle(name, data, valid)
+    check_rows(name, got, {k: v[order] for k, v in data.items()},
+               {k: v[order] for k, v in valid.items()})
+    return len(order)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -693,6 +866,7 @@ def main() -> int:
     from polaroid_tpu_torch.ops import cuda_partition as TP
     from polaroid_tpu_torch.ops import exchange as TE
     from polaroid_tpu_torch.ops import hgroup as TH
+    from polaroid_tpu_torch.ops import merge_sort as TM
 
     # --- 1. the card and the build --------------------------------------
     smi = subprocess.run(
@@ -747,13 +921,15 @@ def main() -> int:
     print(json.dumps({"phase": "kernel", "shape": "h2o_fallback_sort",
                       **comp_carry}))
     del prep, lay, sv, newg
+    msort = check_merge_sort(args, torch, TM, h2o)
+    print(json.dumps({"phase": "kernel", **msort}))
 
     # --- 3. q1 end to end ---------------------------------------------------
     df = pl.DataFrame(data, device="cuda")
     lf = q1_frame(pl, df)
-    reset_launches(TK, TP, TE, TH)
+    reset_launches(TK, TP, TE, TH, TM)
     out = lf.collect()
-    q1_launches = read_launches(TK, TP, TE, TH)
+    q1_launches = read_launches(TK, TP, TE, TH, TM)
     assert q1_launches["seg_sum"] == 2, "q1 did not launch seg_sum twice"
     assert q1_launches["compact_words"] == 1, \
         "q1 did not launch compact_words once"
@@ -768,10 +944,10 @@ def main() -> int:
     lf2 = (df.lazy().filter(pl.col("volume") > 1000)
            .with_columns((pl.col("price") * pl.col("volume"))
                          .alias("notional")))
-    reset_launches(TK, TP, TE, TH)
+    reset_launches(TK, TP, TE, TH, TM)
     TP.LAST_ROWS = 0
     out2 = lf2.collect()
-    filter_launches = read_launches(TK, TP, TE, TH)
+    filter_launches = read_launches(TK, TP, TE, TH, TM)
     assert filter_launches["compact_words"] > 0 and \
         TP.LAST_ROWS == df._table.capacity, \
         "the filter collect did not compact at full width"
@@ -784,9 +960,9 @@ def main() -> int:
 
     # --- 5. the per-symbol OHLC bar ----------------------------------------
     lf5 = ohlc_frame(pl, df)
-    reset_launches(TK, TP, TE, TH)
+    reset_launches(TK, TP, TE, TH, TM)
     out5 = lf5.collect()
-    ohlc_launches = read_launches(TK, TP, TE, TH)
+    ohlc_launches = read_launches(TK, TP, TE, TH, TM)
     assert ohlc_launches["seg_minmax"] > 0, "ohlc did not launch seg_minmax"
     assert ohlc_launches["gather"] > 0, "ohlc did not launch gather"
     ngroups5 = check_ohlc(out5, data)
@@ -800,9 +976,9 @@ def main() -> int:
     hdf = pl.DataFrame(h2o, device="cuda")
     runs = [q1_launches, filter_launches, ohlc_launches]
     for name, keys, lfq, order in h2o_queries(pl, hdf):
-        reset_launches(TK, TP, TE, TH)
+        reset_launches(TK, TP, TE, TH, TM)
         outq = lfq.collect()
-        ql = read_launches(TK, TP, TE, TH)
+        ql = read_launches(TK, TP, TE, TH, TM)
         assert ql["bucket_exchange"] >= 1, f"{name} did not launch the " \
             "exchange kernel"
         assert ql["fallbacks"] == 0, f"{name} took the fallback"
@@ -819,9 +995,9 @@ def main() -> int:
     lf7 = hdf.lazy().group_by("kf").agg(pl.col("v1").sum().alias("v1"),
                                         pl.col("v3").mean().alias("v3"),
                                         pl.len().alias("n"))
-    reset_launches(TK, TP, TE, TH)
+    reset_launches(TK, TP, TE, TH, TM)
     out7 = lf7.collect()
-    fb_launches = read_launches(TK, TP, TE, TH)
+    fb_launches = read_launches(TK, TP, TE, TH, TM)
     assert fb_launches["fallbacks"] == 1, "phase 7 did not take the fallback"
     assert fb_launches["bucket_exchange"] == 0
     ng7 = check_h2o("fallback", out7, h2o, ("kf",), None)
@@ -831,6 +1007,38 @@ def main() -> int:
                       "groups": ng7, "launches": fb_launches,
                       "median_ms": statistics.median(times), "ms": times,
                       "trace": trace_collect(lf7)}))
+
+    # --- 8. device sorts at 10^7 rows ---------------------------------------
+    import numpy as np
+    ndf, valid = with_null_copies(pl, hdf, h2o, args.seed)
+    sort_data = {**h2o, "id4n": h2o["id4"], "v3n": h2o["v3"]}
+    assert len(np.unique(h2o["v3"])) == H2O_ROWS, "v3 has ties"
+    # S5's input: the group-by alone, against the H2O oracle
+    base = hdf.lazy().group_by("id3").agg(pl.col("v1").sum()).collect()
+    check_h2o("S5_group_by", base, h2o, ("id3",), None)
+    group_base = (base.get_column("id3").to_numpy(),
+                  base.get_column("v1").to_numpy())
+    for name, lfs in sort_queries(pl, hdf, ndf):
+        reset_launches(TK, TP, TE, TH, TM)
+        outs = lfs.collect()
+        sl = read_launches(TK, TP, TE, TH, TM)
+        if name == "S6":
+            assert sl["merge_sort"] == 0, "S6 did not take the packed sort"
+        else:
+            assert sl["merge_sort"] >= 1, f"{name} did not launch merge_sort"
+        if name == "S5":
+            assert sl["bucket_exchange"] >= 1 and sl["fallbacks"] == 0, \
+                "S5 did not group through the exchange"
+        rows = check_sort(name, outs, sort_data if name == "S3" else h2o,
+                          valid if name == "S3" else {}, group_base)
+        runs.append(sl)
+        times = time_collects(lfs, args.reps)
+        print(json.dumps({"phase": "sort", "query": name,
+                          "rows": H2O_ROWS, "out_rows": rows,
+                          "launches": sl,
+                          "median_ms": statistics.median(times), "ms": times,
+                          "trace": trace_collect(lfs)}))
+    del ndf
 
     # --- result ---------------------------------------------------------------
     def launches(name):
@@ -855,6 +1063,8 @@ def main() -> int:
               "polaroid_tpu/ops/pallas_kernels.py:231", gat),
         entry("bucket_exchange", "exchange.cu",
               "polaroid_tpu/ops/exchange.py:116", exch),
+        entry("merge_sort", "merge_sort.cu",
+              "polaroid_tpu/ops/merge_sort.py:216", msort),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ from ..expr import meta
 from ..expr.eval import eval_expr, val_to_column
 from ..expr.expr import Expr, col as _col
 from ..ops import compact as C
+from ..ops import sort as S
 from .series import Series, _py
 
 
@@ -45,6 +46,11 @@ def _to_exprs(args, kwargs=None) -> List[Expr]:
         e = _to_exprs([a])[0]
         flat.append(e.alias(name))
     return flat
+
+
+def _per_key(flag, nk: int) -> List[bool]:
+    """One flag per sort key from one flag or a list of them."""
+    return list(flag) if isinstance(flag, (list, tuple)) else [flag] * nk
 
 
 class DataFrame:
@@ -168,27 +174,38 @@ class DataFrame:
     def head(self, n: int = 5) -> "DataFrame":
         return DataFrame._from_table(C.slice_rows(self._table, 0, max(n, 0)))
 
-    def sort(self, by, *more_by, descending: bool = False) -> "DataFrame":
-        """Sort by key columns ON THE HOST, nulls first (stable). A
-        convenience for comparing results; the device sort comes with
-        Slice B3 of the port (device sorts)."""
-        t = C.compact(self._table)
-        n = t.count_rows()
+    def sort(self, by, *more_by, descending=False, nulls_last=False,
+             maintain_order: bool = False) -> "DataFrame":
+        """Sort on the frame's device (`ops/sort.sort_table`); nulls
+        first unless `nulls_last`. `descending` and `nulls_last` take one
+        flag or one per key."""
         keys = meta.expand_exprs(_to_exprs((by,) + more_by), self.schema)
-        sort_keys = []
-        for e in keys:
-            v = eval_expr(e, t, "select")
-            x = v.data.expand(t.capacity)[:n].cpu().numpy()
-            valid = v.valid_or_true().expand(t.capacity)[:n].cpu().numpy()
-            rank = np.unique(x, return_inverse=True)[1].reshape(-1)
-            rank = np.where(valid, -rank if descending else rank, 0)
-            # nulls first: the validity is the more significant key
-            sort_keys += [valid, rank]
-        # np.lexsort's last key is the most significant
-        order = np.lexsort(sort_keys[::-1]) if sort_keys else np.arange(n)
-        perm = torch.arange(t.capacity, device=t.device)
-        perm[:n] = torch.from_numpy(order).to(t.device)
-        return DataFrame._from_table(C.gather_table(t, perm, n, None))
+        nk = len(keys)
+        desc = _per_key(descending, nk)
+        nl = _per_key(nulls_last, nk)
+        t = self._table
+        vals = [eval_expr(k, t, "select") for k in keys]
+        return DataFrame._from_table(
+            S.sort_table(t, vals, desc, nl, maintain_order))
+
+    def top_k(self, k: int, by, descending=False) -> "DataFrame":
+        """The k rows with the largest keys, largest first (the smallest
+        for a key marked `descending`); nulls last."""
+        keys = _to_exprs(tuple(by) if isinstance(by, (list, tuple))
+                         else (by,))
+        nk = len(keys)
+        desc = [not d for d in _per_key(descending, nk)]
+        t = self._table
+        vals = [eval_expr(kk, t, "select") for kk in keys]
+        return DataFrame._from_table(
+            S.top_k_table(t, vals, k, desc, [True] * nk))
+
+    def bottom_k(self, k: int, by, descending=False) -> "DataFrame":
+        """The k rows with the smallest keys, smallest first; nulls
+        last."""
+        desc = [not d for d in descending] \
+            if isinstance(descending, (list, tuple)) else not descending
+        return self.top_k(k, by, descending=desc)
 
     # --- relational ops -------------------------------------------------
     def group_by(self, *by, maintain_order: bool = False, **named_by):

@@ -14,6 +14,7 @@ from typing import Dict, List
 from ..expr.expr import Expr, col as _col
 from ..plan import logical as L
 from ..plan.optimizer import optimize
+from .frame import _per_key
 
 
 def _to_exprs(args, kwargs=None) -> List[Expr]:
@@ -74,18 +75,35 @@ class LazyFrame:
     def group_by(self, *by, maintain_order: bool = False, **named_by):
         return LazyGroupBy(self, _to_exprs(by, named_by), maintain_order)
 
-    def sort(self, by, *more_by, descending=False,
-             nulls_last=False) -> "LazyFrame":
-        """A sort node; the optimizer removes it where the input is
-        already in that order (a group-by's key order). Any other sort
-        comes with Slice B3 of the port (device sorts)."""
+    def sort(self, by, *more_by, descending=False, nulls_last=False,
+             maintain_order: bool = False) -> "LazyFrame":
+        """A sort node (`ops/sort.sort_table` on the device); the
+        optimizer removes it where the input is already in that order (a
+        group-by's key order). `descending` and `nulls_last` take one
+        flag or one per key."""
         keys = _to_exprs((by,) + more_by)
         nk = len(keys)
-        desc = list(descending) if isinstance(descending, (list, tuple)) \
-            else [descending] * nk
-        nl = list(nulls_last) if isinstance(nulls_last, (list, tuple)) \
-            else [nulls_last] * nk
-        return LazyFrame._from_plan(L.Sort(self._plan, keys, desc, nl))
+        return LazyFrame._from_plan(L.Sort(
+            self._plan, keys, _per_key(descending, nk),
+            _per_key(nulls_last, nk), maintain_order))
+
+    def top_k(self, k: int, by, descending=False) -> "LazyFrame":
+        """The k rows with the largest keys, largest first (the smallest
+        for a key marked `descending`); nulls last. A sort node fused with
+        its slice, run by `ops/sort.top_k_table`."""
+        keys = _to_exprs(tuple(by) if isinstance(by, (list, tuple))
+                         else (by,))
+        nk = len(keys)
+        desc = [not d for d in _per_key(descending, nk)]
+        return LazyFrame._from_plan(
+            L.Sort(self._plan, keys, desc, [True] * nk, True, (0, k)))
+
+    def bottom_k(self, k: int, by, descending=False) -> "LazyFrame":
+        """The k rows with the smallest keys, smallest first; nulls
+        last."""
+        desc = [not d for d in descending] \
+            if isinstance(descending, (list, tuple)) else not descending
+        return self.top_k(k, by, descending=desc)
 
     def head(self, n: int = 5) -> "LazyFrame":
         return LazyFrame._from_plan(L.Slice(self._plan, 0, n))

@@ -47,6 +47,17 @@ class Series:
     def shape(self):
         return (len(self),)
 
+    def sort(self, descending: bool = False) -> "Series":
+        """The values in order on the series' device, nulls first: a
+        one-column table through `ops/sort.sort_table`, as a frame
+        sorts."""
+        from ..batch import Table
+        from .frame import DataFrame
+        name = self.name or ""
+        t = Table([name], {name: self._col}, self._col.capacity, len(self))
+        return DataFrame._from_table(t).sort(name, descending=descending) \
+            .get_column(name)
+
     def to_numpy(self) -> np.ndarray:
         return np.asarray(self._col.to_numpy(len(self)))
 

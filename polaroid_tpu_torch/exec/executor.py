@@ -18,15 +18,16 @@ import torch
 
 from ..batch import Table
 from ..expr import meta
+from ..expr.eval import eval_expr
 from ..ops import compact as C
+from ..ops import sort as S
 from ..ops.groupby import group_by_agg
 from ..plan import logical as L
 
 # nodes applied on top of their input table, as one chain under a group-by
 _CHAIN = ("filter", "select", "with_columns")
 # the slice of the port that brings a plan node not ported yet
-_NEXT_SLICE = {"sort": "Slice B3 (device sorts)",
-               "distinct": "Slice B2 (the sorted tier)",
+_NEXT_SLICE = {"distinct": "Slice B2 (the sorted tier)",
                "join": "Slice C (joins)"}
 
 
@@ -50,6 +51,14 @@ def execute(plan: L.Plan) -> Table:
         return t
     if k in _CHAIN:
         return _apply_node(plan, execute(plan.input))
+    if k == "sort":
+        t = execute(plan.input)
+        vals = [eval_expr(b, t, "select") for b in plan.by]
+        if plan.slice_ is not None and plan.slice_[0] == 0:
+            return S.top_k_table(t, vals, plan.slice_[1], plan.descending,
+                                 plan.nulls_last)
+        return S.sort_table(t, vals, plan.descending, plan.nulls_last,
+                            plan.maintain_order)
     if k == "slice":
         return C.slice_rows(execute(plan.input), plan.offset,
                             plan.length)

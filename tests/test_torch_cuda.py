@@ -11,10 +11,12 @@ import pytest
 import torch
 
 import polaroid_tpu_torch as pt
+from polaroid_tpu_torch.testing import frame_from_numpy
 from polaroid_tpu_torch.ops import cuda_kernels as TK
 from polaroid_tpu_torch.ops import cuda_partition as TP
 from polaroid_tpu_torch.ops import exchange as TE
 from polaroid_tpu_torch.ops import hgroup as TH
+from polaroid_tpu_torch.ops import merge_sort as TM
 
 pytestmark = pytest.mark.cuda
 
@@ -244,3 +246,109 @@ def test_hash_groupby_on_card_matches_cpu(dev):
         for c in (key, "vs", "xx", "n"):
             assert got[c] == want[c], c
         np.testing.assert_allclose(got["xm"], want["xm"], rtol=1e-12)
+
+
+def _sort_words(n, nk, npay, g):
+    """nk key words with ties and about 10% all-ones words, and npay
+    payload words, u32 values in int64 (CPU)."""
+    keys = [torch.randint(0, 37, (n,), generator=g) for _ in range(nk)]
+    keys[0][torch.rand(n, generator=g) < 0.1] = 0xFFFFFFFF
+    pays = [torch.randint(0, 1 << 32, (n,), generator=g)
+            for _ in range(npay)]
+    return keys + pays
+
+
+@pytest.mark.parametrize("n", [1 << 10, 1 << 12, 1 << 13, 1 << 16, 1 << 20])
+@pytest.mark.parametrize("W", [2, 5, 9])
+def test_merge_sort_kernel_matches_plain(dev, n, W):
+    """Stable, bit for bit, the injected index included. W counts the
+    kernel's words: nk keys, the index and the payloads. n runs below,
+    at and above the shared-memory tile (4096 rows at these W; W = 5 and
+    9 need more than 48 KB of shared memory)."""
+    nk = {2: 1, 5: 3, 9: 4}[W]
+    g = torch.Generator().manual_seed(n + W)
+    words = _sort_words(n, nk, W - nk - 1, g)
+    before = TM.LAUNCHES
+    got = TM.merge_sort_words([w.to(dev) for w in words], nk, stable=True)
+    torch.cuda.synchronize()
+    assert TM.LAUNCHES == before + 1
+    want = TM.merge_sort_words_plain(words, nk, stable=True)
+    assert len(got) == len(want) == W
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n,W", [(1, 2), (2, 3), (1 << 16, 20), (1 << 17, 32)])
+def test_merge_sort_kernel_edges(dev, n, W):
+    """One and two rows, and word counts whose tile is smaller than 4096
+    rows (W = 20: 2048, W = 32: 1024)."""
+    g = torch.Generator().manual_seed(W)
+    words = _sort_words(n, 2, W - 3, g)
+    got = TM.merge_sort_words([w.to(dev) for w in words], 2)
+    want = TM.merge_sort_words_plain(words, 2)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("fill", [7, 0xFFFFFFFF])
+def test_merge_sort_kernel_all_equal_keys(dev, fill):
+    """Every key alike: the stable order is the input order."""
+    n = 1 << 16
+    key = torch.full((n,), fill, dtype=torch.int64)
+    pay = torch.randint(0, 1 << 32, (n,),
+                        generator=torch.Generator().manual_seed(3))
+    out = TM.merge_sort_words([key.to(dev), pay.to(dev)], 1)
+    assert torch.equal(out[0].cpu(), key)
+    assert torch.equal(out[1].cpu(), torch.arange(n))
+    assert torch.equal(out[2].cpu(), pay)
+
+
+def test_merge_sort_kernel_unstable(dev):
+    """stable=False: the key words agree with the plain version, and a
+    payload that is a function of the keys comes along with them."""
+    n = 1 << 16
+    g = torch.Generator().manual_seed(5)
+    keys = _sort_words(n, 2, 0, g)
+    pay = (keys[0] * 41 + keys[1]) & 0xFFFFFFFF
+    got = TM.merge_sort_words([w.to(dev) for w in keys + [pay]], 2,
+                              stable=False)
+    want = TM.merge_sort_words_plain(keys + [pay], 2, stable=False)
+    assert len(got) == 3
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_sorts_on_card_match_cpu(dev):
+    """Multi-key sorts with nulls, top_k and bottom_k on the card against
+    the CPU run, with kernel F's launches; a one-word key takes the
+    packed torch.sort instead."""
+    rng = np.random.default_rng(8)
+    n = 70_000
+    f = rng.normal(size=n)
+    data = {"a": rng.integers(0, 50, n).astype(np.int32), "f": f,
+            "u": rng.integers(0, np.iinfo(np.uint64).max, n, dtype=np.uint64,
+                              endpoint=True),
+            "r": np.arange(n)}
+    valid = {"a": rng.uniform(size=n) < 0.95}
+
+    def run(device):
+        df = frame_from_numpy(data, validity=valid, device=device)
+        lf = df.lazy()
+        return [
+            lf.sort(["a", "f"], descending=[True, False], nulls_last=True,
+                    maintain_order=True).collect().to_dict(),
+            df.sort("u", maintain_order=True).to_dict(),
+            lf.filter(pt.col("r") % 3 == 0).top_k(9, by="f").collect()
+            .to_dict(),
+            df.bottom_k(9, by=["a", "f"]).to_dict(),
+        ]
+
+    TM.LAUNCHES = 0
+    got = run("cuda")
+    assert TM.LAUNCHES == 4
+    assert got == run("cpu")
+    TM.LAUNCHES = 0
+    df = pt.DataFrame({"k": data["a"], "r": data["r"]}, device="cuda")
+    out = df.sort("k", maintain_order=True).to_dict()
+    assert TM.LAUNCHES == 0
+    assert out["r"] == np.argsort(data["a"], kind="stable").tolist()
