@@ -32,7 +32,7 @@ Phases:
    keys, a descending Float64 key, two keys with 5% nulls placed last,
    top_k and bottom_k, a sort after a hash group-by, and one Int32 key
    that takes the packed torch.sort), each bit for bit against a stable
-   numpy oracle, with the bitonic kernel launched where more than one
+   numpy oracle, with the radix kernel launched where more than one
    key word is sorted, timed and traced the same way.
 
 The line before the last lists every ported kernel with its numbers;
@@ -127,25 +127,37 @@ def trace_collect(lf):
     the durations of the device-side events — kernels, memsets, copies;
     one stream, so they do not overlap), how many there were, and the
     five costliest by name."""
+    return trace_call(lf.collect)
+
+
+def trace_call(fn, top_n: int = 5, each: bool = False):
+    """fn() under torch.profiler, summarised as trace_collect says, with
+    the `top_n` costliest device events by name and, with `each`, every
+    device event in the order it ran (name, ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        lf.collect()
+        fn()
         torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    device = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    for e in device:
         ms, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    return {"device_busy_ms": sum(ms for ms, _ in by_name.values()),
-            "device_ops": sum(c for _, c in by_name.values()),
-            "top": [{"name": k[:80], "ms": ms, "count": c}
-                    for k, (ms, c) in top]}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    out = {"device_busy_ms": sum(ms for ms, _ in by_name.values()),
+           "device_ops": sum(c for _, c in by_name.values()),
+           "top": [{"name": k[:80], "ms": ms, "count": c}
+                   for k, (ms, c) in top]}
+    if each:
+        out["events"] = [[e.name[:48], e.time_range.elapsed_us() / 1e3]
+                         for e in device]
+    return out
 
 
 def make_q1_data(rows: int, seed: int):
@@ -535,8 +547,12 @@ def check_exchange(args, torch, TE, TH, prep):
 def check_merge_sort(args, torch, TM, h2o):
     """Kernel F at query S1's shape: n = 2^24 rows (the H2O frame's
     capacity), W = 5 words (the dead-row word, the orderable codes of id1,
-    id2 and id3, and the injected row index), every word bit for bit
-    against the plain version."""
+    id2 and id3, and the row index), every word bit for bit against the
+    plain version; the digit passes run and skipped, the perm_only route
+    that the sorts take (bit for bit and timed), and a trace of one sort
+    by kernel (histogram, digit passes, placement, scratch and readback).
+    Each sort reads its histogram back to the host, so its time includes
+    that sync."""
     from polaroid_tpu_torch.config import capacity_for
     from polaroid_tpu_torch.dtypes import Int32
     from polaroid_tpu_torch.ops.keycode import encode_orderable
@@ -551,30 +567,39 @@ def check_merge_sort(args, torch, TM, h2o):
         words.append(encode_orderable(x, Int32))
     nk = len(words)
     got = TM.merge_sort_words(words, nk)
+    digit_passes = TM.PASSES
     want = TM.merge_sort_words_plain(words, nk)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w), "merge_sort_words differs from its plain " \
             "version"
+    perm = TM.merge_sort_words(words, nk, perm_only=True)
+    assert len(perm) == 1 and torch.equal(perm[0], want[nk]), \
+        "merge_sort_words(perm_only=True) differs from the plain permutation"
     W = nk + 1
     # the library yardstick: no torch call sorts W words
     # lexicographically; one stable torch.sort of 2^24 int64 (the packed
     # id3 code and row, as the one-word route sorts) is the one-call
     # yardstick for a sort of this size
     packed = (words[3] << 31) | torch.arange(n, device=dev)
-    stage_passes, tile_passes = TM.passes(n, W)
     out = {
-        "kernel": "merge_sort", "n": n, "words": W, "num_keys": nk + 1,
-        "tile_rows": TM.tile_rows(n, W), "stage_passes": stage_passes,
-        "tile_passes": tile_passes, "max_abs_err": 0.0,
+        "kernel": "merge_sort", "n": n, "words": W, "num_keys": nk,
+        "digit_passes": digit_passes,
+        "digits_skipped": TM.DIGITS * nk - digit_passes, "max_abs_err": 0.0,
         "kernel_ms": cuda_ms(lambda: TM.merge_sort_words(words, nk),
                              args.reps),
+        "perm_only_ms": cuda_ms(lambda: TM.merge_sort_words(
+            words, nk, perm_only=True), args.reps),
+        "histogram_ms": cuda_ms(lambda: TM.digit_histograms(words, nk),
+                                args.reps),
         "plain_ms": cuda_ms(lambda: TM.merge_sort_words_plain(words, nk),
                             args.reps),
         "library": "torch.sort(stable=True) of one int64 of n",
         "library_ms": cuda_ms(lambda: torch.sort(packed, stable=True),
                               args.reps),
     }
+    out["trace"] = trace_call(lambda: TM.merge_sort_words(words, nk),
+                              top_n=8, each=True)
     nbytes = 2 * 4 * W * n
     out["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
     out["bound_by"] = "bytes"
@@ -1063,7 +1088,7 @@ def main() -> int:
               "polaroid_tpu/ops/pallas_kernels.py:231", gat),
         entry("bucket_exchange", "exchange.cu",
               "polaroid_tpu/ops/exchange.py:116", exch),
-        entry("merge_sort", "merge_sort.cu",
+        entry("merge_sort", "radix_sort.cu",
               "polaroid_tpu/ops/merge_sort.py:216", msort),
     ]
     print(json.dumps({"kernels": kernels}))

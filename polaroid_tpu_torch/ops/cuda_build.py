@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("seg_sum", "compact", "seg_minmax", "gather", "exchange",
-           "merge_sort")
+           "radix_sort")
 # -Xptxas -v: ptxas reports registers, shared memory and spills per kernel
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -7,9 +7,9 @@ go last, and the rows are then sorted lexicographically by those words:
 - one key word (a null-free key of at most 4 bytes) goes to one
   `torch.sort` of the packed [dead:1 | key:32 | idx:31] word
   (`fused_sort.fused_argsort`);
-- more words go to kernel F, `merge_sort.merge_sort_words`, with the row
-  index injected as the last key: its sorted index word is the
-  permutation, so no second index rides along as a payload.
+- more words go to kernel F, `merge_sort.merge_sort_words`, which
+  returns only the permutation (its radix passes carry the row index and
+  nothing else), so no key word is written back.
 Both orders are stable, whatever `maintain_order` asks (a stable order is
 one of the orders an unstable sort may give).
 
@@ -48,7 +48,7 @@ def sort_perm(key_vals, descending: Sequence[bool], nulls_last: Sequence[bool],
         words.extend(encode_key_words(data, v.dtype, validity, d, nl))
     if len(words) == 2 and cap < (1 << 31):
         return fused_argsort(words[1], live=mask)[1]
-    return merge_sort_words(words, len(words), stable=True)[len(words)]
+    return merge_sort_words(words, len(words), perm_only=True)[0]
 
 
 def sort_table(table: Table, key_vals, descending, nulls_last,

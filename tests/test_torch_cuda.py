@@ -318,6 +318,68 @@ def test_merge_sort_kernel_unstable(dev):
         assert torch.equal(a.cpu(), b)
 
 
+def _radix_words(n, kind, g):
+    """Two key words and a payload (CPU): `skewed` puts 60% of the rows in
+    one digit bin of every digit; `trivial_beside_full` gives a first word
+    whose every digit is one value beside a full 32-bit second word;
+    `one_digit` a first word whose only varying digit is its second byte
+    (its pass gathers that byte's copy) beside a full second word."""
+    pay = torch.randint(0, 1 << 32, (n,), generator=g)
+    full = torch.randint(0, 1 << 32, (n,), generator=g)
+    if kind == "skewed":
+        keys = [full, torch.randint(0, 1 << 32, (n,), generator=g)]
+        for k in keys:
+            k[torch.rand(n, generator=g) < 0.6] = 0x5A5A5A5A
+        return keys + [pay]
+    if kind == "one_digit":
+        return [(torch.randint(0, 5, (n,), generator=g) << 8) | 0x80000001,
+                full, pay]
+    return [torch.full((n,), 0x80000001), full, pay]
+
+
+RADIX_PASSES = {"skewed": 8, "trivial_beside_full": 4, "one_digit": 5}
+
+
+@pytest.mark.parametrize("kind", list(RADIX_PASSES))
+@pytest.mark.parametrize("n", [1 << 11, 1 << 12, 1 << 13, 1 << 22])
+def test_radix_sort_kernel_digits(dev, kind, n):
+    """Bit for bit against the plain version at n below one 3840-row tile,
+    just above it (a second tile of 256 rows), at a few tiles and at about
+    a thousand; the passes run are radix_plan's."""
+    g = torch.Generator().manual_seed(n + len(kind))
+    words = _radix_words(n, kind, g)
+    got = TM.merge_sort_words([w.to(dev) for w in words], 2)
+    torch.cuda.synchronize()
+    passes, _ = TM.radix_plan(TM.digit_histograms_plain(words, 2), n)
+    assert TM.PASSES == len(passes) == RADIX_PASSES[kind]
+    want = TM.merge_sort_words_plain(words, 2)
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n", [1, 2, 1 << 20, 1 << 22])
+def test_radix_histogram_kernel_matches_plain(dev, n):
+    """Hot bins (a two-valued word), full 32-bit values and a constant
+    word, counted exactly; n = 1 and 2 leave most lanes idle."""
+    g = torch.Generator().manual_seed(n)
+    words = [(torch.rand(n, generator=g) < 0.4).long(),
+             torch.randint(0, 1 << 32, (n,), generator=g),
+             torch.full((n,), 0xFFFFFFFF)]
+    got = TM.digit_histograms([w.to(dev) for w in words], 3)
+    assert torch.equal(got.cpu(), TM.digit_histograms_plain(words, 3))
+
+
+@pytest.mark.parametrize("n", [1, 1 << 12, 1 << 20])
+def test_radix_sort_perm_only(dev, n):
+    """perm_only: the permutation alone, equal to the plain version's."""
+    g = torch.Generator().manual_seed(n)
+    words = _sort_words(n, 3, 2, g)
+    got = TM.merge_sort_words([w.to(dev) for w in words], 3, perm_only=True)
+    assert len(got) == 1 and got[0].dtype == torch.int64
+    assert torch.equal(got[0].cpu(), TM.merge_sort_words_plain(words, 3)[3])
+
+
 def test_sorts_on_card_match_cpu(dev):
     """Multi-key sorts with nulls, top_k and bottom_k on the card against
     the CPU run, with kernel F's launches; a one-word key takes the

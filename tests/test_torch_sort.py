@@ -197,6 +197,86 @@ def test_merge_sort_words_unstable_keys_match_reference():
         assert np.array_equal(_u64(g), _u64(w))
 
 
+def _radix_keys(kind: str, n: int, nk: int, rng) -> list:
+    """nk u32 key words of one kind: random small values, two bins (the
+    dead-row word), one value for every row, or full 32-bit values."""
+    if kind == "random":
+        return _key_words(n, nk, rng, hi=1000)
+    if kind == "two_bins":
+        return [np.where(rng.uniform(size=n) < 0.6, 0, 1).astype(np.uint32)
+                for _ in range(nk)]
+    if kind == "all_equal":
+        return [np.full(n, v, np.uint32) for v in (7, U32, 0)[:nk]]
+    return [rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+            for _ in range(nk)]
+
+
+RADIX_KINDS = ["random", "two_bins", "all_equal", "full_32_bit"]
+
+
+@pytest.mark.parametrize("kind", RADIX_KINDS)
+@pytest.mark.parametrize("n", [1, 2, 1 << 12])
+def test_digit_histograms_plain_match_bincount(kind, n):
+    rng = np.random.default_rng(n + len(kind))
+    keys = _radix_keys(kind, n, 3, rng)
+    got = TM.digit_histograms_plain(
+        [torch.from_numpy(k.astype(np.int64)) for k in keys], 2)
+    assert got.shape == (2, 4, 256) and got.dtype == torch.int32
+    for w in range(2):
+        for d in range(4):
+            want = np.bincount((keys[w] >> np.uint32(8 * d)) & 255,
+                               minlength=256)
+            assert np.array_equal(got[w, d].numpy(), want), (w, d)
+    # the CPU wrapper is the plain version
+    assert torch.equal(TM.digit_histograms(
+        [torch.from_numpy(k.astype(np.int64)) for k in keys], 2), got)
+
+
+@pytest.mark.parametrize("kind", RADIX_KINDS)
+@pytest.mark.parametrize("n", [1, 2, 1 << 12])
+def test_radix_plan_matches_brute_force(kind, n):
+    """The passes are every (word, digit) whose rows take more than one
+    value, last word and lowest digit first, with each digit value's
+    first slot; running them as stable numpy sorts gives the plain
+    version's permutation."""
+    rng = np.random.default_rng(3 * n + len(kind))
+    nk = 3
+    keys = _radix_keys(kind, n, nk, rng)
+    hist = TM.digit_histograms_plain(
+        [torch.from_numpy(k.astype(np.int64)) for k in keys], nk)
+    passes, bases = TM.radix_plan(hist, n)
+    digits = {(w, d): (keys[w] >> np.uint32(8 * d)) & 255
+              for w in range(nk) for d in range(4)}
+    want = [(w, d) for w in (2, 1, 0) for d in range(4)
+            if len(np.unique(digits[w, d])) > 1]
+    assert passes == want
+    if kind == "all_equal" or n == 1:
+        assert passes == []
+    if kind == "full_32_bit" and n > 2:
+        assert len(passes) == 4 * nk
+    assert bases.shape == (len(passes), 256) and bases.dtype == torch.int32
+    for p, wd in enumerate(passes):
+        brute = [(digits[wd] < v).sum() for v in range(256)]
+        assert np.array_equal(bases[p].numpy(), brute), wd
+    perm = np.arange(n)
+    for w, d in passes:
+        perm = perm[np.argsort(digits[w, d][perm], kind="stable")]
+    plain = TM.merge_sort_words_plain(
+        [torch.from_numpy(k.astype(np.int64)) for k in keys], nk)
+    assert np.array_equal(perm, plain[nk].numpy())
+
+
+def test_merge_sort_words_perm_only_on_cpu():
+    """perm_only returns the stable permutation alone, the plain one."""
+    n = 1 << 12
+    rng = np.random.default_rng(11)
+    words = [torch.from_numpy(w.astype(np.int64))
+             for w in _key_words(n, 3, rng, hi=7)]
+    got = TM.merge_sort_words(words, 2, stable=False, perm_only=True)
+    assert len(got) == 1
+    assert torch.equal(got[0], TM.merge_sort_words_plain(words, 2)[2])
+
+
 def test_lex_sort_indices_matches_reference():
     """Key words and a tail word sorted stably; the permutation is the
     kernel's injected index."""
