@@ -9,7 +9,10 @@ Phases:
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with times for the kernel, its
    plain version, one PyTorch library call computing the same function,
-   and the least time the card could take (the bound);
+   and the least time the card could take (the bound); for the
+   compaction (three shapes) and the segment min/max, also the
+   device-only time of one call from a trace, which must hold exactly
+   one device kernel;
 3. the headline query q1 (filter -> with_columns -> group_by(symbol) ->
    agg(len, sum, mean) -> collect) at --rows rows, against a numpy
    oracle, with the kernels' launch counts during one collect, the
@@ -221,25 +224,39 @@ def check_seg_sum(args, torch, TK, data):
 
 
 def check_compact(args, torch, TP, n, n_cols8, n_cols4, live_frac, seed):
-    """Kernel B over the words of `n_cols8` 8-byte columns (two strided
-    4-byte words each) and `n_cols4` 4-byte columns."""
+    """Kernel B over the words of `n_cols8` 8-byte columns (one int64 view
+    each, as ops/compact.py passes them) and `n_cols4` 4-byte columns."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     mask = torch.rand(n, generator=g, device=dev) < live_frac
     cols8 = [torch.randn(n, generator=g, device=dev, dtype=torch.float64)
              for _ in range(n_cols8)]
     cols4 = [torch.randn(n, generator=g, device=dev) for _ in range(n_cols4)]
-    words = []
-    for c in cols8:
-        w = c.view(torch.int32)
-        words += [w[0::2], w[1::2]]
-    words += cols4
+    words = [c.view(torch.int64) for c in cols8] + cols4
     return compare_compact(args, torch, TP, mask, words)
+
+
+def one_kernel_call(fn, what):
+    """The device-only ms and device events of one fn() call from a
+    trace; asserts that the call ran exactly one device kernel (no
+    torch op, memset or copy beside it). A trace that recorded no device
+    event at all (the profiler can drop a window's events) is taken
+    again, up to twice."""
+    for _ in range(3):
+        tr = trace_call(fn, each=True)
+        if tr["device_ops"]:
+            break
+    assert tr["device_ops"] == 1, f"one {what} call ran {tr['events']}"
+    return {"trace_ms": tr["device_busy_ms"],
+            "trace_device_ops": tr["device_ops"]}
 
 
 def compare_compact(args, torch, TP, mask, words):
     """Kernel B on (mask, words) against its plain version: equal live
-    counts and live prefixes bit for bit; times and the bound."""
+    counts and live prefixes bit for bit; times, the device-only time of
+    one call from a trace, and the bound. The bound counts what the mask
+    asks for: the mask, and each live row's word read once and written
+    once: n + sum_w 2 k b_w bytes."""
     n = mask.shape[0]
     outs, cnt = TP.compact_words(mask, words)
     want, want_cnt = TP.compact_words_plain(mask, words)
@@ -248,10 +265,16 @@ def compare_compact(args, torch, TP, mask, words):
     assert k == int(want_cnt), "compact_words count differs"
     for o, w in zip(outs, want):
         assert torch.equal(o[:k], w[:k]), "compact_words prefix differs"
-    stacked = torch.stack([w.contiguous() for w in words])
-    W = len(words)
+    # the library yardstick: one masked_select of every word's 4-byte
+    # halves stacked, as in earlier runs
+    halves = []
+    for w in words:
+        h = w.view(torch.int32)
+        halves += [h[0::2], h[1::2]] if w.element_size() == 8 else [w]
+    stacked = torch.stack([h.contiguous() for h in halves])
     out = {
-        "kernel": "compact_words", "n": n, "words": W, "live": k,
+        "kernel": "compact_words", "n": n, "words": len(words),
+        "word_bytes": [w.element_size() for w in words], "live": k,
         "max_abs_err": 0.0,
         "kernel_ms": cuda_ms(lambda: TP.compact_words(mask, words),
                              args.reps),
@@ -259,8 +282,10 @@ def compare_compact(args, torch, TP, mask, words):
                             args.reps),
         "library_ms": cuda_ms(lambda: torch.masked_select(stacked, mask),
                               args.reps),
+        **one_kernel_call(lambda: TP.compact_words(mask, words),
+                          "compact_words"),
     }
-    nbytes = n * (1 + 4 * W) + k * 4 * W
+    nbytes = n + sum(2 * k * w.element_size() for w in words)
     out["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
     out["bound_by"] = "bytes"
     return out
@@ -331,6 +356,8 @@ def check_seg_minmax(args, torch, TK, data, is_max):
                                                         ident), args.reps),
         "library_ms": cuda_ms(lambda: buf.scatter_reduce_(0, idx, x, red),
                               args.reps),
+        **one_kernel_call(lambda: TK.seg_minmax(x, gid, G, is_max, ident),
+                          "seg_minmax"),
     }
     nbytes = n * (4 + x.element_size()) + G * x.element_size()
     out["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S, n / F32_OPS_PER_S)
@@ -1077,11 +1104,19 @@ def main() -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
 
+    compact_entry = entry("compact_words", "compact.cu",
+                          "polaroid_tpu/ops/pallas_partition.py:281",
+                          comp_full)
+    for shape, m in (("h2o_q3_layout", comp_hash),
+                     ("h2o_fallback_sort", comp_carry)):
+        compact_entry[shape] = {"ms": m["kernel_ms"],
+                                "bound_ms": m["bound_ms"],
+                                "library_ms": m["library_ms"],
+                                "trace_ms": m["trace_ms"]}
     kernels = [
         entry("seg_sum", "seg_sum.cu",
               "polaroid_tpu/ops/pallas_kernels.py:120", seg),
-        entry("compact_words", "compact.cu",
-              "polaroid_tpu/ops/pallas_partition.py:281", comp_full),
+        compact_entry,
         entry("seg_minmax", "seg_minmax.cu",
               "polaroid_tpu/ops/pallas_kernels.py:177", mm_max),
         entry("gather", "gather.cu",

@@ -3,12 +3,12 @@
 The port of the JAX package's `ops/compact.py`. Compaction moves the live
 rows of every column to a stable front prefix with ONE call of the
 compaction kernel (`cuda_partition.compact_words`) carrying every column
-as 4-byte words:
+as one word:
 * 4-byte columns go as they are;
-* 8-byte columns go as their two 4-byte halves, strided views of
-  `data.view(torch.int32)`, and come back bit for bit (the JAX package
-  needs a compensated (hi, lo) f32 pair there because a TPU holds f64 as
-  f32; the port does not);
+* 8-byte columns go as one int64 view and come back bit for bit (the JAX
+  package splits them into 4-byte halves, and needs a compensated
+  (hi, lo) f32 pair for f64 because a TPU holds f64 as f32; the port
+  does not);
 * 1- and 2-byte columns and validity masks are widened to int32.
 The live count stays on the device (`nrows_dev`), so `collect()` makes no
 host sync.
@@ -16,7 +16,7 @@ host sync.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,52 +34,40 @@ def gather_table(table: Table, perm: torch.Tensor, nrows: Optional[int],
                  device=table.device)
 
 
-def _words(x: torch.Tensor) -> List[torch.Tensor]:
+def _word(x: torch.Tensor) -> torch.Tensor:
     if x.element_size() == 8:
-        w = x.view(torch.int32)
-        return [w[0::2], w[1::2]]
+        return x.view(torch.int64)
     if x.element_size() == 4:
-        return [x]
-    return [x.to(torch.int32)]
+        return x
+    return x.to(torch.int32)
 
 
-def _unwords(ws: List[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
-    if dtype.itemsize == 8:
-        # the two halves are strided views of one buffer (see
-        # cuda_partition._mirror_outputs): view it back as 8-byte values
-        n = ws[0].shape[0]
-        return ws[0].as_strided((n, 2), (2, 1)).view(dtype).view(n)
-    if dtype.itemsize == 4:
-        return ws[0]
+def _unword(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype.itemsize in (4, 8):
+        return w.view(dtype)
     if dtype == torch.bool:
-        return ws[0] != 0
-    return ws[0].to(dtype)
+        return w != 0
+    return w.to(dtype)
 
 
 def _compact_prefix(table: Table, mask: torch.Tensor
                     ) -> Tuple[Table, torch.Tensor]:
     """(table with its live rows as a stable prefix, device live count)."""
-    words, layout = [], []
+    words = []
     for name in table.names:
         c = table.cols[name]
-        ws = _words(c.data)
-        hasv = c.validity is not None
-        if hasv:
-            ws.append(c.validity.to(torch.int32))
-        layout.append((name, c, len(ws) - int(hasv), hasv))
-        words.extend(ws)
+        words.append(_word(c.data))
+        if c.validity is not None:
+            words.append(c.validity.to(torch.int32))
     if not words:
         return table, mask.sum()
     outs, count = compact_words(mask, words)
     cols = {}
-    wi = 0
-    for name, c, nw, hasv in layout:
-        data = _unwords(outs[wi:wi + nw], c.data.dtype)
-        wi += nw
-        validity = None
-        if hasv:
-            validity = outs[wi] != 0
-            wi += 1
+    it = iter(outs)
+    for name in table.names:
+        c = table.cols[name]
+        data = _unword(next(it), c.data.dtype)
+        validity = next(it) != 0 if c.validity is not None else None
         cols[name] = Column(c.dtype, data, validity, c.sdict)
     return Table(list(table.names), cols, table.capacity, None, None,
                  device=table.device), count

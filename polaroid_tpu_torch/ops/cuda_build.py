@@ -20,7 +20,9 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -34,6 +36,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 # nvcc's report of the last build of each source, ptxas' lines included
 BUILD_LOG: Dict[str, str] = {}
+# (kernel, device index, stream) -> the kernel's persistent scratch
+_SCRATCH: Dict[Tuple[str, int, int], torch.Tensor] = {}
 
 
 def build_dir() -> str:
@@ -104,3 +108,19 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.pt_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def zeroed_scratch(kernel: str, words: int, dev: torch.device,
+                   stream: int) -> torch.Tensor:
+    """A device int64 buffer of `words` words for `kernel` on `stream` (the
+    current stream of `dev`, the current device), zeroed when it is made. The
+    kernel's last block returns it to zero at the end of every call, so
+    the calls that the stream orders one after another share it without
+    a memset, and a replayed capture of a launch finds it as the first
+    launch did. One buffer per kernel and stream, kept for the process."""
+    key = (kernel, dev.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _SCRATCH[key] = torch.zeros(words, dtype=torch.int64,
+                                          device=dev)
+    return buf

@@ -9,8 +9,9 @@ The counterpart of the JAX package's `ops/pallas_kernels.py`:
   adds rows into f64 partial sums in shared memory.
 * kernel C, `seg_minmax`, replaces `onehot_seg_minmax`
   (`_seg_minmax_kernel`): per-group min or max of one row, typed
-  (f32, f64, int32, int64) where the TPU kernel is f32 only
-  (source: csrc/seg_minmax.cu).
+  (f32, f64, int32, int64) where the TPU kernel is f32 only, in one
+  launch whose last block decodes the result (source:
+  csrc/seg_minmax.cu).
 * kernel D, `gather`, replaces `onehot_gather` (`_gather_kernel`):
   out[i] = table[gid[i]], in the table's type (f32 or f64) where the TPU
   kernel gathers in f32 through the MXU (source: csrc/gather.cu).
@@ -21,6 +22,7 @@ for CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -101,10 +103,9 @@ def seg_sum(vals: torch.Tensor, gid: torch.Tensor, G: int) -> torch.Tensor:
 
 # --- kernel C: segment min / max -------------------------------------------
 
-_MINMAX_TYPES = {torch.float32: ("f32", torch.int32),
-                 torch.float64: ("f64", torch.int64),
-                 torch.int32: ("i32", torch.int32),
-                 torch.int64: ("i64", torch.int64)}
+# dtype -> (type code of pt_seg_minmax_blocks, entry point suffix)
+_MINMAX_TYPES = {torch.float32: (0, "f32"), torch.float64: (1, "f64"),
+                 torch.int32: (2, "i32"), torch.int64: (3, "i64")}
 
 
 def seg_minmax_plain(x: torch.Tensor, gid: torch.Tensor, G: int,
@@ -134,6 +135,35 @@ def _check_minmax(x: torch.Tensor, gid: torch.Tensor, G: int,
         raise ValueError("seg_minmax: the identity must not be NaN")
 
 
+_MINMAX_LIB = None
+# (device index, dtype, is_max, G) -> the most blocks that fit the card
+_MINMAX_BLOCKS: dict = {}
+
+
+def _minmax_lib():
+    """csrc/seg_minmax.cu's library with its entry points typed."""
+    global _MINMAX_LIB
+    if _MINMAX_LIB is None:
+        from .cuda_build import library
+        lib = library("seg_minmax")
+        c, p = ctypes.c_int, ctypes.c_void_p
+        lib.pt_seg_minmax_blocks.argtypes = [c, c, c, p]
+        lib.pt_seg_minmax_blocks.restype = c
+        for _, suffix in _MINMAX_TYPES.values():
+            fn = getattr(lib, "pt_seg_minmax_" + suffix)
+            ident = ctypes.c_double if suffix[0] == "f" \
+                else ctypes.c_longlong
+            fn.argtypes = [p, p, ctypes.c_longlong, c, c, ident, p, p, c, p]
+            fn.restype = c
+        lib.pt_seg_minmax_max_groups.argtypes = []
+        lib.pt_seg_minmax_max_groups.restype = c
+        if lib.pt_seg_minmax_max_groups() != MAX_GROUPS:
+            raise RuntimeError("csrc/seg_minmax.cu's PT_MAX_GROUPS differs "
+                               "from MAX_GROUPS")
+        _MINMAX_LIB = lib
+    return _MINMAX_LIB
+
+
 def seg_minmax(x: torch.Tensor, gid: torch.Tensor, G: int, is_max: bool,
                identity) -> torch.Tensor:
     """Per-group min (or max, `is_max`) of `x` ((n,) f32, f64, int32 or
@@ -148,26 +178,31 @@ def seg_minmax(x: torch.Tensor, gid: torch.Tensor, G: int, is_max: bool,
         return seg_minmax_plain(x, gid, G, is_max, identity)
     if x.device.type != "cuda":
         raise ValueError(f"seg_minmax: unsupported device {x.device}")
-    from .cuda_build import check, library
-    lib = library("seg_minmax")
-    suffix = _MINMAX_TYPES[x.dtype][0]
-    fn = getattr(lib, "pt_seg_minmax_" + suffix)
+    from .cuda_build import check, zeroed_scratch
+    lib = _minmax_lib()
+    code, suffix = _MINMAX_TYPES[x.dtype]
     floating = x.dtype.is_floating_point
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int,
-                   ctypes.c_double if floating else ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty(G, dtype=x.dtype, device=x.device)
-    # per-group NaN bit patterns (floats): scratch the kernel writes whole
-    nan_bits = torch.empty(G, dtype=_MINMAX_TYPES[x.dtype][1],
-                           device=x.device) if floating else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), gid.data_ptr(), x.shape[0], G, int(is_max),
-                 float(identity) if floating else int(identity),
-                 out.data_ptr(),
-                 nan_bits.data_ptr() if floating else None, stream)
+    dev = x.device
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
+        key = (dev.index, x.dtype, bool(is_max), G)
+        blocks = _MINMAX_BLOCKS.get(key)
+        if blocks is None:
+            n_blocks = ctypes.c_int()
+            err = lib.pt_seg_minmax_blocks(code, int(is_max), G,
+                                           ctypes.byref(n_blocks))
+            check(lib, err, "seg_minmax occupancy")
+            blocks = _MINMAX_BLOCKS[key] = n_blocks.value
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # keys and NaN patterns of MAX_GROUPS groups, then the ticket of
+        # finished blocks
+        scratch = zeroed_scratch("seg_minmax", 2 * MAX_GROUPS + 1, dev,
+                                 stream)
+        err = getattr(lib, "pt_seg_minmax_" + suffix)(
+            x.data_ptr(), gid.data_ptr(), x.shape[0], G, int(is_max),
+            float(identity) if floating else int(identity), out.data_ptr(),
+            scratch.data_ptr(), blocks, stream)
         check(lib, err, "seg_minmax launch")
         MINMAX_LAUNCHES += 1
     return out

@@ -612,9 +612,13 @@ def push_slice(plan: L.Plan) -> L.Plan:
                                else min(child.n_rows, n))
             return push_slice(sc)
         if child.kind == "sort":
-            new = L.Sort(push_slice(child.input), child.by, child.descending,
-                         child.nulls_last, child.maintain_order, (0, n))
-            return new
+            # a sort that already carries a top-k slice keeps the shorter
+            # of its own length and the outer one
+            fused = (0, n) if child.slice_ is None else \
+                (child.slice_[0], min(child.slice_[1], n))
+            return L.Sort(push_slice(child.input), child.by,
+                          child.descending, child.nulls_last,
+                          child.maintain_order, fused)
         if child.kind in ("select", "with_columns") and \
                 all(meta.is_elementwise(e) for e in child.exprs):
             pushed = L.Slice(child.input, 0, n)

@@ -12,6 +12,7 @@ import torch
 
 import polaroid_tpu_torch as pt
 from polaroid_tpu_torch.testing import frame_from_numpy
+from polaroid_tpu_torch.ops import cuda_build as B
 from polaroid_tpu_torch.ops import cuda_kernels as TK
 from polaroid_tpu_torch.ops import cuda_partition as TP
 from polaroid_tpu_torch.ops import exchange as TE
@@ -61,6 +62,114 @@ def test_compact_kernel_matches_plain(dev, n):
                            w[:k].view(torch.int32))
 
 
+def _compact_vs_plain(dev, mask, words_on):
+    """compact_words on the card against its plain version on the CPU:
+    the count and every word's live prefix bit for bit, the outputs
+    strided as their words; one launch for up to 32 words. words_on(d)
+    gives the words on device d."""
+    before = TP.LAUNCHES
+    outs, cnt = TP.compact_words(mask.to(dev), words_on(dev))
+    want, want_cnt = TP.compact_words_plain(mask, words_on("cpu"))
+    k = int(cnt)
+    assert k == int(want_cnt)
+    assert TP.LAUNCHES - before == -(-len(want) // TP.MAX_WORDS)
+    for o, w in zip(outs, want):
+        assert o.dtype == w.dtype and o.stride() == w.stride()
+        assert torch.equal(o[:k].cpu(), w[:k])
+
+
+def _mixed_words(n, g):
+    """words_on for a 4-byte word, both strided halves of an f64 column,
+    an f64 and an int64 column as 8-byte words, and a 4-byte word with
+    stride 3."""
+    x = torch.randn(n, generator=g, dtype=torch.float64)
+    wide = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g,
+                         dtype=torch.int64)
+    s3 = torch.randint(0, 1 << 30, (3 * n,), generator=g, dtype=torch.int32)
+
+    def on(d):
+        xd = x.to(d)
+        halves = xd.view(torch.int32)
+        return [torch.arange(n, dtype=torch.int32, device=d), halves[0::2],
+                halves[1::2], xd.view(torch.int64), wide.to(d),
+                s3.to(d)[::3]]
+    return on
+
+
+@pytest.mark.parametrize("kind,n", [
+    ("sparse", (1 << 22) + 13), ("sparse", (3 << 22) + 5),
+    ("random", (3 << 22) + 5), ("dead", 100_003), ("live", 100_003),
+    ("last_only", 3 * 8192 + 1), ("last_only", 1 << 20),
+    ("random", 8192), ("random", 8191), ("random", 1)])
+def test_compact_kernel_masks(dev, kind, n):
+    """Look-back over a long chain of nearly empty tiles (density 1e-5),
+    tiles of several 8192-row chunks (3 * 2^22 rows: sparse, and dense
+    enough that a tile's list of live rows fills and is copied out more
+    than once), all dead, all live, only the last row live, and
+    chunk-sized edges, with 4-byte, strided and 8-byte words."""
+    g = torch.Generator().manual_seed(n)
+    if kind == "sparse":
+        mask = torch.rand(n, generator=g) < 1e-5
+    elif kind in ("dead", "live", "last_only"):
+        mask = torch.full((n,), kind == "live")
+        mask[-1] = kind != "dead"
+    else:
+        mask = torch.rand(n, generator=g) < 0.5
+    _compact_vs_plain(dev, mask, _mixed_words(n, g))
+
+
+def test_compact_kernel_many_words_and_calls(dev):
+    """W = 40 (two launches, the second reading the first's offsets), an
+    unaligned mask view, and many calls in a row on one scratch, their
+    sizes shrinking and growing; after them the scratch is all zero."""
+    g = torch.Generator().manual_seed(40)
+    n = 70_001
+    mask = torch.rand(n, generator=g) < 0.3
+    words = [torch.randint(-(1 << 31), 1 << 31, (n,), generator=g,
+                           dtype=torch.int64 if i % 3 == 0 else torch.int32)
+             for i in range(40)]
+    _compact_vs_plain(dev, mask, lambda d: [w.to(d) for w in words])
+    big = torch.rand(n + 5, generator=g) < 0.5
+    unaligned = big.to(dev)[5:]
+    assert unaligned.data_ptr() % 16
+    outs, cnt = TP.compact_words(unaligned, [words[1].to(dev)])
+    assert int(cnt) == int(big[5:].sum())
+    assert torch.equal(outs[0][:int(cnt)].cpu(), words[1][big[5:]])
+    for i in range(50):
+        m = (1 << (i % 7)) * 5000 + i
+        mk = torch.rand(m, generator=g) < (0.9 if i % 2 else 0.001)
+        _compact_vs_plain(dev, mk, lambda d: [
+            torch.arange(m, dtype=torch.int64, device=d)])
+    torch.cuda.synchronize()
+    assert not B._SCRATCH[("compact", torch.cuda.current_device(),
+                           torch.cuda.current_stream().cuda_stream)].any()
+
+
+def test_compact_kernel_graph_replay(dev):
+    """A launch captured in a CUDA graph and replayed over new masks: each
+    replay finds the scratch as the first launch did."""
+    g = torch.Generator().manual_seed(7)
+    n = (1 << 20) + 3
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    word = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g,
+                         dtype=torch.int64).to(dev)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        TP.compact_words(mask, [word])  # the scratch of stream s
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=s):
+            (out,), cnt = TP.compact_words(mask, [word])
+    for density in (0.5, 1e-4, 0.0, 1.0, 0.3):
+        m = torch.rand(n, generator=g) < density
+        mask.copy_(m.to(dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        k = int(cnt)
+        assert k == int(m.sum())
+        assert torch.equal(out[:k].cpu(), word.cpu()[m])
+
+
 def _minmax_input(n, G, dtype, g):
     """Values with NaN (+NaN in groups of even id, -NaN in odd ones),
     -0.0/+0.0 and +-inf mixed in (floats) or the type's extremes (ints),
@@ -101,6 +210,37 @@ def test_seg_minmax_kernel_matches_plain(dev, n, G, dtype):
         want = TK.seg_minmax_plain(x, gid, G, is_max, ident)
         assert got.dtype == dtype
         assert torch.equal(got.cpu().view(kt), want.view(kt)), is_max
+
+
+def test_seg_minmax_kernel_views_and_scratch_reset(dev):
+    """Unaligned x and gid views (scalar head), n not a multiple of 4,
+    G = MAX_GROUPS, and calls that alternate types, ops and G on one
+    scratch, each bit for bit against the plain version; after them the
+    scratch is all zero."""
+    g = torch.Generator().manual_seed(11)
+    n = 200_003
+    cases = []
+    for dtype in (torch.float32, torch.float64, torch.int32, torch.int64):
+        x, gid, lo, hi = _minmax_input(n + 3, TK.MAX_GROUPS, dtype, g)
+        cases.append((dtype, x, gid, lo, hi))
+    kt = {torch.float32: torch.int32, torch.float64: torch.int64}
+    for rep in range(3):
+        for i, (dtype, x, gid, lo, hi) in enumerate(cases):
+            G = (TK.MAX_GROUPS, 5, 1000)[(rep + i) % 3]
+            # offsets of 0 to 3 rows into the card's copies: unaligned starts
+            xo, go = (rep + i) % 4, (rep + 2 * i) % 4
+            xd, gd = x.to(dev)[xo:xo + n], gid.to(dev)[go:go + n]
+            xc, gc = x[xo:xo + n], gid[go:go + n]
+            for is_max in (True, False):
+                ident = lo if is_max else hi
+                got = TK.seg_minmax(xd, gd, G, is_max, ident)
+                want = TK.seg_minmax_plain(xc, gc, G, is_max, ident)
+                k = kt.get(dtype, dtype)
+                assert torch.equal(got.cpu().view(k), want.view(k)), \
+                    (dtype, G, is_max, xo, go)
+    torch.cuda.synchronize()
+    assert not B._SCRATCH[("seg_minmax", torch.cuda.current_device(),
+                           torch.cuda.current_stream().cuda_stream)].any()
 
 
 @pytest.mark.parametrize("n,G", [(1, 1), (1000, 7), (4097, 300),

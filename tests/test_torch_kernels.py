@@ -22,7 +22,7 @@ import jax.numpy as jnp
 from polaroid_tpu.ops import pallas_kernels as PK
 from polaroid_tpu.ops import pallas_partition as PP
 from polaroid_tpu_torch.batch import Column, Table
-from polaroid_tpu_torch.dtypes import Float64
+from polaroid_tpu_torch.dtypes import Float64, Int64
 from polaroid_tpu_torch.ops import compact as TC
 from polaroid_tpu_torch.ops import cuda_kernels as TK
 from polaroid_tpu_torch.ops import cuda_partition as TP
@@ -237,8 +237,8 @@ def test_compact_words_strided_halves_share_one_buffer():
 
 
 def test_compact_f64_roundtrip_bit_exact():
-    """NaN, signed zeros and subnormals survive the two-word compaction
-    bit for bit."""
+    """NaN, signed zeros and subnormals survive the compaction bit for
+    bit."""
     special = np.array([np.nan, -0.0, 0.0, 5e-324, -2.2e-308, np.inf,
                         -np.inf, 1.0 / 3.0, -1e300], dtype=np.float64)
     rng = np.random.default_rng(9)
@@ -254,6 +254,88 @@ def test_compact_f64_roundtrip_bit_exact():
     got = out.cols["x"].data[:int(keep.sum())].numpy()
     assert got.dtype == np.float64
     assert np.array_equal(got.view(np.uint64), vals[keep].view(np.uint64))
+
+
+def test_compact_words_takes_8_byte_words():
+    """8-byte words, beside 4-byte and strided ones; 2-byte words are
+    refused."""
+    x = torch.tensor([-(1 << 63), (1 << 63) - 1, 0, -1, 1 << 40, 7])
+    f = torch.tensor([float("nan"), -0.0, 0.0, 5e-324, float("inf"), 1.5],
+                     dtype=torch.float64)
+    m = torch.tensor([True, False, True, True, False, True])
+    words = [x, f.view(torch.int64), x.view(torch.int32)[1::2],
+             torch.arange(6, dtype=torch.int32)]
+    outs, cnt = TP.compact_words(m, words)
+    assert int(cnt) == 4 and outs[0].dtype == torch.int64
+    assert torch.equal(outs[0][:4], x[m])
+    assert torch.equal(outs[1][:4], f.view(torch.int64)[m])
+    assert torch.equal(outs[2][:4], x.view(torch.int32)[1::2][m])
+    assert outs[3][:4].tolist() == [0, 2, 3, 5]
+    with pytest.raises(TypeError):
+        TP.compact_words(m, [x.to(torch.int16)])
+
+
+def test_compact_words_mirrors_views_by_byte_offset():
+    """Words of one storage at a nonzero offset, 8 bytes wide beside its
+    4-byte halves: the halves' outputs share one buffer at the inputs'
+    byte offsets, and the 8-byte word, which overlaps both, gets its
+    own; every prefix is right."""
+    base = torch.arange(12, dtype=torch.int64) * (1 << 33) - 5
+    x = base[2:]
+    halves = x.view(torch.int32)
+    m = torch.tensor([True, False, True, True, False, True, False, False,
+                      True, True])
+    outs, cnt = TP.compact_words(m, [x, halves[1::2], halves[0::2]])
+    k = int(cnt)
+    assert k == 6 and torch.equal(outs[0][:k], x[m])
+    assert torch.equal(outs[1][:k], halves[1::2][m])
+    assert torch.equal(outs[2][:k], halves[0::2][m])
+    assert outs[1].untyped_storage().data_ptr() == \
+        outs[2].untyped_storage().data_ptr() != \
+        outs[0].untyped_storage().data_ptr()
+    back = outs[2].as_strided((10, 2), (2, 1)).view(torch.int64).view(10)
+    assert torch.equal(back[:k], x[m])
+
+
+@pytest.mark.parametrize("kind", ["random", "live"])
+def test_compact_8_byte_columns_with_nulls_match_pallas(kind):
+    """Float64 (NaN, -0.0, subnormals, infinities) and Int64 (extremes)
+    columns with nulls: the port compacts each column as one 8-byte word
+    and each validity as a 4-byte word; the JAX package's compact_words
+    takes the columns as their 4-byte halves. The live prefixes agree bit
+    for bit."""
+    n = 16384
+    rng = np.random.default_rng(16)
+    m = _mask(kind, n, rng)
+    f = rng.normal(size=n)
+    f[:7] = [np.nan, -np.nan, -0.0, 0.0, 5e-324, np.inf, -np.inf]
+    i = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    i[:2] = [-(1 << 63), (1 << 63) - 1]
+    valid = {"f": rng.uniform(size=n) < 0.8, "i": rng.uniform(size=n) < 0.7}
+    t = Table.from_dict({"f": f, "i": i}, {"f": Float64, "i": Int64},
+                        device="cpu", validity=valid)
+    keep = np.zeros(t.capacity, bool)
+    keep[:n] = m
+    out = TC.compact(t.with_valid(torch.from_numpy(keep), None))
+    halves = []
+    for x in (f, i):
+        u = x.view(np.uint32)
+        halves += [jnp.asarray(u[0::2]), jnp.asarray(u[1::2])]
+    res = PP.compact_words(jnp.asarray(m), halves + [
+        jnp.asarray(valid["f"].astype(np.int32)),
+        jnp.asarray(valid["i"].astype(np.int32))])
+    assert res is not None
+    want, want_cnt = res
+    k = int(want_cnt)
+    assert out.count_rows() == k == int(m.sum())
+    want = [np.asarray(w)[:k] for w in want]
+    for c, (lo, hi), v in (("f", want[0:2], want[4]),
+                           ("i", want[2:4], want[5])):
+        col = out.cols[c]
+        got = col.data[:k].numpy().view(np.uint32)
+        assert np.array_equal(got[0::2], lo.view(np.uint32))
+        assert np.array_equal(got[1::2], hi.view(np.uint32))
+        assert np.array_equal(col.validity[:k].numpy(), v != 0)
 
 
 def test_compact_keeps_validity_and_narrow_columns():

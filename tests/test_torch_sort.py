@@ -470,3 +470,15 @@ def test_lazy_sort_default_is_not_maintain_order():
     lf = pt.DataFrame({"a": [3, 1, 2]}, device="cpu").lazy()
     assert lf.sort("a")._plan.maintain_order is False
     assert lf.sort("a", maintain_order=True)._plan.maintain_order is True
+
+
+@pytest.mark.parametrize("query,want", [
+    (lambda lf: lf.top_k(3, by="a").head(5), [9, 8, 7]),
+    (lambda lf: lf.top_k(3, by="a").head(2), [9, 8]),
+    (lambda lf: lf.bottom_k(3, by="a").head(5), [1, 2, 3]),
+], ids=["top_k_head_longer", "top_k_head_shorter", "bottom_k_head_longer"])
+def test_top_k_then_head_keeps_the_shorter_length(query, want):
+    """A head after top_k/bottom_k keeps at most k rows: held against the
+    values, since the reference's optimizer gives the head's length."""
+    lf = pt.DataFrame({"a": [5, 3, 9, 1, 7, 2, 8]}, device="cpu").lazy()
+    assert query(lf).collect().get_column("a").to_list() == want
