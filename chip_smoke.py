@@ -10,9 +10,11 @@ Phases:
    shapes the main paths give it, with times for the kernel, its
    plain version, one PyTorch library call computing the same function,
    and the least time the card could take (the bound); for the
-   compaction (three shapes) and the segment min/max, also the
-   device-only time of one call from a trace, which must hold exactly
-   one device kernel;
+   compaction and the segment min/max, also the device-only time of one
+   call from a trace, which must hold exactly one device kernel; the
+   radix sort and the compaction also on the inputs of every launch
+   that one collect of each phase-9 query makes (recorded by their
+   wrappers);
 3. the headline query q1 (filter -> with_columns -> group_by(symbol) ->
    agg(len, sum, mean) -> collect) at --rows rows, against a numpy
    oracle, with the kernels' launch counts during one collect, the
@@ -37,6 +39,13 @@ Phases:
    that takes the packed torch.sort), each bit for bit against a stable
    numpy oracle, with the radix kernel launched where more than one
    key word is sorted, timed and traced the same way.
+9. the sorted tier of the group-by and the ordered aggregates on the
+   same frame at 10^7 rows: H2O q6 with its median, q9 (corr ** 2),
+   H2O's six-key q10 (the sorted tier over 7 key words), a derived
+   bucket key with no stats (K1), a nullable key on the dense tier with
+   a median, a nearest quantile, n_unique and arg_max (N1) and unique
+   over three keys (U1), each against a numpy oracle, with the kernels
+   of each query's route launched, timed and traced the same way.
 
 The line before the last lists every ported kernel with its numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check raises,
@@ -240,15 +249,17 @@ def one_kernel_call(fn, what):
     """The device-only ms and device events of one fn() call from a
     trace; asserts that the call ran exactly one device kernel (no
     torch op, memset or copy beside it). A trace that recorded no device
-    event at all (the profiler can drop a window's events) is taken
-    again, up to twice."""
-    for _ in range(3):
+    event at all (the profiler can drop a window's events, at times
+    several in a row) is taken again after a pause, up to five times;
+    the number of traces taken is returned."""
+    for attempt in range(1, 7):
         tr = trace_call(fn, each=True)
         if tr["device_ops"]:
             break
+        time.sleep(0.2)
     assert tr["device_ops"] == 1, f"one {what} call ran {tr['events']}"
     return {"trace_ms": tr["device_busy_ms"],
-            "trace_device_ops": tr["device_ops"]}
+            "trace_device_ops": tr["device_ops"], "traces_taken": attempt}
 
 
 def compare_compact(args, torch, TP, mask, words):
@@ -269,8 +280,11 @@ def compare_compact(args, torch, TP, mask, words):
     # halves stacked, as in earlier runs
     halves = []
     for w in words:
-        h = w.view(torch.int32)
-        halves += [h[0::2], h[1::2]] if w.element_size() == 8 else [w]
+        if w.element_size() == 8:
+            h = w.contiguous().view(torch.int32)
+            halves += [h[0::2], h[1::2]]
+        else:
+            halves.append(w)
     stacked = torch.stack([h.contiguous() for h in halves])
     out = {
         "kernel": "compact_words", "n": n, "words": len(words),
@@ -633,6 +647,77 @@ def check_merge_sort(args, torch, TM, h2o):
     return out
 
 
+def compare_merge_sort(args, torch, TM, words, nk):
+    """Kernel F on the key words a query gave it: the permutation alone
+    (the route the group-by and unique take) and every word out, each bit
+    for bit against the plain version; times of the permutation-only
+    route, the plain version and one stable torch.sort of an int64 of n
+    (the lowest key word packed with the row); the digit passes run. The
+    bound of the permutation-only route: each key word read once (4 bytes
+    a row) and the permutation written once (8)."""
+    n = words[0].shape[0]
+    want = TM.merge_sort_words_plain(words, nk)
+    perm = TM.merge_sort_words(words, nk, perm_only=True)
+    digit_passes = TM.PASSES
+    got = TM.merge_sort_words(words, nk)
+    torch.cuda.synchronize()
+    assert len(perm) == 1 and torch.equal(perm[0], want[nk]), \
+        "merge_sort_words(perm_only=True) differs from the plain permutation"
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), "merge_sort_words differs from its plain " \
+            "version"
+    packed = (words[nk - 1] << 31) | torch.arange(n, device=words[0].device)
+    out = {
+        "kernel": "merge_sort", "n": n, "num_keys": nk,
+        "digit_passes": digit_passes, "max_abs_err": 0.0,
+        "kernel_ms": cuda_ms(lambda: TM.merge_sort_words(
+            words, nk, perm_only=True), args.reps),
+        "plain_ms": cuda_ms(lambda: TM.merge_sort_words_plain(words, nk),
+                            args.reps),
+        "library_ms": cuda_ms(lambda: torch.sort(packed, stable=True),
+                              args.reps),
+    }
+    nbytes = 4 * nk * n + 8 * n
+    out["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+    out["bound_by"] = "bytes"
+    return out
+
+
+def record_kernel_inputs(torch, TM, TP, lf):
+    """The inputs of every launch of kernels F and B in one collect of
+    `lf` (the wrappers' RECORD lists): [(words, num_keys)] and [(mask,
+    words)]."""
+    TM.RECORD, TP.RECORD = [], []
+    try:
+        lf.collect()
+        torch.cuda.synchronize()
+        return [(w, nk) for w, nk, _, _ in TM.RECORD], TP.RECORD
+    finally:
+        TM.RECORD = TP.RECORD = None
+
+
+def check_sorted_tier_kernels(args, torch, TM, TP, queries):
+    """Kernels F and B at the shapes phase 9 gives them: every launch of
+    one collect of each phase-9 query, on the inputs that collect gave
+    it, held against the plain version (compare_merge_sort,
+    compare_compact); returns {kernel: {"query#i": numbers}}."""
+    out = {"merge_sort": {}, "compact_words": {}}
+    for name, lf, _ in queries:
+        sorts, compactions = record_kernel_inputs(torch, TM, TP, lf)
+        for i, (words, nk) in enumerate(sorts):
+            m = compare_merge_sort(args, torch, TM, words, nk)
+            out["merge_sort"][f"{name}#{i}"] = m
+            print(json.dumps({"phase": "kernel", "shape": f"{name}#{i}",
+                              **m}))
+        for i, (mask, words) in enumerate(compactions):
+            m = compare_compact(args, torch, TP, mask, words)
+            out["compact_words"][f"{name}#{i}"] = m
+            print(json.dumps({"phase": "kernel", "shape": f"{name}#{i}",
+                              **m}))
+        del sorts, compactions
+    return out
+
+
 def make_h2o_data(rows: int, seed: int):
     """G1_1e7_1e2_0_0 of the H2O.ai db-benchmark (K = 100, no NAs,
     unsorted): id1, id2, id4, id5 in [1, K]; id3, id6 in [1, rows / K];
@@ -898,6 +983,184 @@ def check_sort(name, out, data, valid, group_base=None):
     return len(order)
 
 
+def sorted_tier_queries(pl, hdf, ndf):
+    """(name, lazy frame, launches it must make) of phase 9: the kernels
+    that the port's route for each query runs, whatever else it runs."""
+    c = pl.col
+    return [
+        ("q6", hdf.lazy().group_by("id4", "id5")
+         .agg(c("v3").median().alias("median_v3"),
+              c("v3").std().alias("sd_v3")),
+         ("merge_sort", "compact_words", "bucket_exchange")),
+        ("q9", hdf.lazy().group_by("id2", "id4")
+         .agg((pl.corr("v1", "v2") ** 2).alias("r2")),
+         ("compact_words", "bucket_exchange")),
+        ("q10_full", hdf.lazy()
+         .group_by("id1", "id2", "id3", "id4", "id5", "id6")
+         .agg(c("v3").sum().alias("v3"), c("v1").count().alias("count")),
+         ("merge_sort", "compact_words")),
+        # k is Int64 (Int32 % an integer literal) with the validity of
+        # the modulo's zero guard: a null word and two code words, which
+        # kernel F sorts, skipping the digits that are constant
+        ("K1", hdf.lazy().with_columns((c("id3") % 1000).alias("k"))
+         .group_by("k").agg(c("v1").sum().alias("v1"),
+                            c("v3").mean().alias("v3")),
+         ("merge_sort", "compact_words")),
+        ("N1", ndf.lazy().group_by("id4n")
+         .agg(c("v3n").median().alias("median_v3n"),
+              c("v3").quantile(0.9, "nearest").alias("q90_v3"),
+              c("id6").n_unique().alias("nu_id6"),
+              c("v2").arg_max().alias("am_v2")),
+         ("merge_sort", "seg_sum", "seg_minmax")),
+        ("U1", hdf.lazy().unique(subset=["id1", "id2", "id4"], keep="first",
+                                 maintain_order=True),
+         ("merge_sort",)),
+    ]
+
+
+def groups_of(data, keys, valid=None):
+    """numpy's groups of the key columns: the row order that sorts them
+    (nulls first, then ascending, stable), the run starts and lengths in
+    it, and each row's group; a null key is a group of its own."""
+    import numpy as np
+    cols = []
+    for k in reversed(keys):
+        v = valid.get(k) if valid else None
+        cols.append(data[k] if v is None else np.where(v, data[k], 0))
+        if v is not None:
+            cols.append(v)
+    order = np.lexsort(cols)
+    sk = [c[order] for c in cols]
+    new = np.ones(len(order), dtype=bool)
+    new[1:] = np.any([c[1:] != c[:-1] for c in sk], axis=0)
+    starts = np.flatnonzero(new)
+    cnt = np.diff(np.r_[starts, len(order)])
+    return order, starts, cnt
+
+
+def check_sorted_tier(name, out, data, valid):
+    """A phase-9 result against numpy: keys, counts, integer sums,
+    n_unique, arg_max, the nearest quantile and the unique rows exact (in
+    the tier's row order: ascending key order for the dense and sorted
+    tiers, the frame's order for U1, key order after sorting the hash
+    tier's rows); medians within one f64 ulp of numpy's median; std,
+    means and Float64 sums within rtol 1e-12; r2 within 1e-12. Returns
+    the group count and, for each checked column with a tolerance, the
+    largest error read (relative for rtol, in ulps for medians, absolute
+    for r2)."""
+    import numpy as np
+    if name == "U1":
+        code = (data["id1"].astype(np.int64) * 101 + data["id2"]) * 101 \
+            + data["id4"]
+        first = np.sort(np.unique(code, return_index=True)[1])
+        check_rows(name, host_columns(out),
+                   {k: v[first] for k, v in data.items()}, {})
+        return len(first), {}
+    keys = {"q6": ["id4", "id5"], "q9": ["id2", "id4"],
+            "q10_full": ["id1", "id2", "id3", "id4", "id5", "id6"],
+            "K1": ["k"], "N1": ["id4n"]}[name]
+    if name == "K1":
+        data = dict(data, k=data["id3"] % 1000)
+    if name == "N1":
+        data = dict(data, id4n=data["id4"])
+    order, starts, cnt = groups_of(data, keys, valid)
+    got = {k: v for k, (v, _) in host_columns(out).items()}
+    ng = len(starts)
+    assert len(got[keys[0]]) == ng, f"{name}: {len(got[keys[0]])} groups, " \
+        f"want {ng}"
+    first = order[starts]
+    if name in ("q6", "q9"):
+        # the hash tier: its rows sorted by key
+        perm = np.lexsort([got[k] for k in reversed(keys)])
+        got = {k: v[perm] for k, v in got.items()}
+    for k in keys:
+        if k == "id4n":
+            gv = host_columns(out)[k][1]
+            assert gv is not None and not gv[0] and gv[1:].all(), \
+                f"{name}: the null key is not the first group"
+            assert np.array_equal(got[k][1:], data["id4"][first][1:]), \
+                f"{name}: key {k} differs"
+        else:
+            assert np.array_equal(got[k].astype(np.int64),
+                                  data[k][first].astype(np.int64)), \
+                f"{name}: key {k} (or the row order) differs"
+
+    def red(col):
+        v = data[col][order].astype(np.int64 if col != "v3" else np.float64)
+        return np.add.reduceat(v, starts)
+
+    errs = {}
+
+    def outside(ok, g, w, what):
+        """The failure message: how many groups miss, and the first."""
+        bad = np.flatnonzero(~ok)
+        j = bad[0]
+        return f"{name}: {what}: {len(bad)} groups outside, the first " \
+            f"(row {j}, {cnt[j]} rows) {g[j]!r} against {w[j]!r}"
+
+    def close(g, w, what):
+        errs[what] = float(np.max(np.abs(g - w) / np.abs(w)))
+        ok = np.abs(g - w) <= 1e-12 * np.abs(w)
+        assert ok.all(), outside(ok, g, w, what)
+
+    def within_ulp(g, w, what):
+        errs[what] = float(np.max(np.abs(g - w) / np.spacing(w)))
+        ok = np.abs(g - w) <= np.spacing(w)
+        assert ok.all(), outside(ok, g, w, what)
+
+    def medians(col, live):
+        """numpy's median of each group's rows where `live`, and its
+        nearest 0.9 quantile (the position rounded half to even)."""
+        med = np.full(ng, np.nan)
+        q90 = np.full(ng, np.nan)
+        for j, (s0, c0) in enumerate(zip(starts, cnt)):
+            rows = order[s0:s0 + c0]
+            x = np.sort(data[col][rows[live[rows]]])
+            if len(x):
+                med[j] = np.median(x)
+                q90[j] = x[int(np.round(0.9 * (len(x) - 1)))]
+        return med, q90
+
+    if name == "q6":
+        med, _ = medians("v3", np.ones(len(order), dtype=bool))
+        within_ulp(got["median_v3"], med, "median_v3")
+        v = data["v3"][order]
+        mean = np.add.reduceat(v, starts) / cnt
+        sd = np.sqrt(np.add.reduceat((v - np.repeat(mean, cnt)) ** 2,
+                                     starts) / (cnt - 1))
+        close(got["sd_v3"], sd, "sd_v3")
+    elif name == "q9":
+        n = cnt.astype(np.float64)
+        x, y = data["v1"][order].astype(np.int64), \
+            data["v2"][order].astype(np.int64)
+        sx, sy = np.add.reduceat(x, starts), np.add.reduceat(y, starts)
+        sxx, syy = np.add.reduceat(x * x, starts), np.add.reduceat(y * y,
+                                                                   starts)
+        sxy = np.add.reduceat(x * y, starts)
+        r = (n * sxy - sx * sy) / (np.sqrt(n * sxx - sx * sx) *
+                                   np.sqrt(n * syy - sy * sy))
+        errs["r2"] = float(np.max(np.abs(got["r2"] - r * r)))
+        assert np.all(np.abs(got["r2"] - r * r) <= 1e-12), f"{name}: r2"
+    elif name == "q10_full":
+        close(got["v3"], red("v3"), "v3")
+        assert np.array_equal(got["count"], cnt), f"{name}: count"
+    elif name == "K1":
+        assert np.array_equal(got["v1"], red("v1")), f"{name}: v1"
+        close(got["v3"], red("v3") / cnt, "v3")
+    elif name == "N1":
+        med, _ = medians("v3", valid["v3n"])
+        within_ulp(got["median_v3n"], med, "median_v3n")
+        _, q90 = medians("v3", np.ones(len(order), dtype=bool))
+        assert np.array_equal(got["q90_v3"], q90), f"{name}: q90_v3"
+        ids = data["id6"][order]
+        nu = [len(np.unique(ids[s0:s0 + c0])) for s0, c0 in zip(starts, cnt)]
+        assert np.array_equal(got["nu_id6"], nu), f"{name}: nu_id6"
+        am = [int(np.argmax(data["v2"][np.sort(order[s0:s0 + c0])]))
+              for s0, c0 in zip(starts, cnt)]
+        assert np.array_equal(got["am_v2"], am), f"{name}: am_v2"
+    return ng, errs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -975,6 +1238,12 @@ def main() -> int:
     del prep, lay, sv, newg
     msort = check_merge_sort(args, torch, TM, h2o)
     print(json.dumps({"phase": "kernel", **msort}))
+    # kernels F and B at every shape that phase 9's collects give them
+    import numpy as np
+    hdf = pl.DataFrame(h2o, device="cuda")
+    ndf, valid = with_null_copies(pl, hdf, h2o, args.seed)
+    tier_kernels = check_sorted_tier_kernels(
+        args, torch, TM, TP, sorted_tier_queries(pl, hdf, ndf))
 
     # --- 3. q1 end to end ---------------------------------------------------
     df = pl.DataFrame(data, device="cuda")
@@ -1025,7 +1294,6 @@ def main() -> int:
                       "trace": trace_collect(lf5)}))
 
     # --- 6. the H2O group-by over large key domains ------------------------
-    hdf = pl.DataFrame(h2o, device="cuda")
     runs = [q1_launches, filter_launches, ohlc_launches]
     for name, keys, lfq, order in h2o_queries(pl, hdf):
         reset_launches(TK, TP, TE, TH, TM)
@@ -1061,8 +1329,6 @@ def main() -> int:
                       "trace": trace_collect(lf7)}))
 
     # --- 8. device sorts at 10^7 rows ---------------------------------------
-    import numpy as np
-    ndf, valid = with_null_copies(pl, hdf, h2o, args.seed)
     sort_data = {**h2o, "id4n": h2o["id4"], "v3n": h2o["v3"]}
     assert len(np.unique(h2o["v3"])) == H2O_ROWS, "v3 has ties"
     # S5's input: the group-by alone, against the H2O oracle
@@ -1090,6 +1356,23 @@ def main() -> int:
                           "launches": sl,
                           "median_ms": statistics.median(times), "ms": times,
                           "trace": trace_collect(lfs)}))
+
+    # --- 9. the sorted tier and the ordered aggregates at 10^7 rows ------
+    for name, lfs, must in sorted_tier_queries(pl, hdf, ndf):
+        reset_launches(TK, TP, TE, TH, TM)
+        outs = lfs.collect()
+        bl = read_launches(TK, TP, TE, TH, TM)
+        for kernel in must:
+            assert bl[kernel] >= 1, f"{name} did not launch {kernel}"
+        assert bl["fallbacks"] == 0, f"{name} took the fallback"
+        ng, errs = check_sorted_tier(name, outs, h2o, valid)
+        runs.append(bl)
+        times = time_collects(lfs, args.reps)
+        print(json.dumps({"phase": "sorted_tier", "query": name,
+                          "rows": H2O_ROWS, "out_rows": ng,
+                          "launches": bl, "largest_error": errs,
+                          "median_ms": statistics.median(times), "ms": times,
+                          "trace": trace_collect(lfs)}))
     del ndf
 
     # --- result ---------------------------------------------------------------
@@ -1104,15 +1387,23 @@ def main() -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
 
+    def shape_entry(m):
+        return {"ms": m["kernel_ms"],
+                **{k: m[k] for k in ("plain_ms", "bound_ms", "library_ms",
+                                     "trace_ms", "live", "digit_passes",
+                                     "num_keys") if k in m}}
+
     compact_entry = entry("compact_words", "compact.cu",
                           "polaroid_tpu/ops/pallas_partition.py:281",
                           comp_full)
     for shape, m in (("h2o_q3_layout", comp_hash),
-                     ("h2o_fallback_sort", comp_carry)):
-        compact_entry[shape] = {"ms": m["kernel_ms"],
-                                "bound_ms": m["bound_ms"],
-                                "library_ms": m["library_ms"],
-                                "trace_ms": m["trace_ms"]}
+                     ("h2o_fallback_sort", comp_carry),
+                     *tier_kernels["compact_words"].items()):
+        compact_entry[shape] = shape_entry(m)
+    msort_entry = entry("merge_sort", "radix_sort.cu",
+                        "polaroid_tpu/ops/merge_sort.py:216", msort)
+    for shape, m in tier_kernels["merge_sort"].items():
+        msort_entry[shape] = shape_entry(m)
     kernels = [
         entry("seg_sum", "seg_sum.cu",
               "polaroid_tpu/ops/pallas_kernels.py:120", seg),
@@ -1123,8 +1414,7 @@ def main() -> int:
               "polaroid_tpu/ops/pallas_kernels.py:231", gat),
         entry("bucket_exchange", "exchange.cu",
               "polaroid_tpu/ops/exchange.py:116", exch),
-        entry("merge_sort", "radix_sort.cu",
-              "polaroid_tpu/ops/merge_sort.py:216", msort),
+        msort_entry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

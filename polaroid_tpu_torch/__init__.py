@@ -6,9 +6,11 @@ caller asks for the CPU (`device="cpu"`, or `Config.device = "cpu"`);
 without a card the default raises. The hot kernels are hand-written CUDA
 for Hopper (csrc/), built with nvcc at first use.
 
-This first slice runs filter -> with_columns -> group_by(small key
-domain) -> agg(len / count / sum / mean) -> collect. The rest of the
-JAX package's surface comes with later slices (see ROADMAP.md).
+The port runs filter -> with_columns -> group_by -> agg -> collect over
+any key (the dense, hash and sorted tiers, with median, quantile,
+n_unique, mode, arg_min/arg_max, product and corr/cov), unique, sort,
+top_k and head. The rest of the JAX package's surface comes with later
+slices (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,14 +29,14 @@ from .expr.expr import Expr, col, len_ as len, lit  # noqa: E402
 from .api.frame import DataFrame  # noqa: E402
 from .api.series import Series  # noqa: E402
 from .api.lazyframe import LazyFrame  # noqa: E402
-from .api.functions import from_dict  # noqa: E402
+from .api.functions import corr, cov, from_dict  # noqa: E402
 from . import testing  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
     "DataFrame", "LazyFrame", "Series", "Expr", "Config", "CONFIG",
-    "col", "lit", "len", "from_dict",
+    "col", "lit", "len", "from_dict", "corr", "cov",
     "Int8", "Int16", "Int32", "Int64", "UInt8", "UInt16", "UInt32", "UInt64",
     "Float32", "Float64", "Boolean", "String", "Utf8", "Date", "Datetime",
     "Duration", "Null", "DataType",

@@ -1,4 +1,4 @@
-"""Eager DataFrame (the subset the first slice needs).
+"""Eager DataFrame (the subset the port has so far).
 
 Parity target: `py-polars/src/polars/dataframe/frame.py`, as in the JAX
 package's `api/frame.py`: the eager API is a thin layer over the same
@@ -208,6 +208,17 @@ class DataFrame:
         return self.top_k(k, by, descending=desc)
 
     # --- relational ops -------------------------------------------------
+    def unique(self, subset=None, keep: str = "any",
+               maintain_order: bool = False) -> "DataFrame":
+        """One row per distinct value of the `subset` columns (all
+        columns by default), in the frame's order; keep is "any",
+        "first", "last" or "none" (only rows whose value is unique)."""
+        from ..ops.groupby import unique_table
+        names = [subset] if isinstance(subset, str) else \
+            (list(subset) if subset is not None else None)
+        return DataFrame._from_table(C.compact(
+            unique_table(self._table, names, keep, maintain_order)))
+
     def group_by(self, *by, maintain_order: bool = False, **named_by):
         from .groupby import GroupBy
         return GroupBy(self, _to_exprs(by, named_by), maintain_order)

@@ -1,10 +1,43 @@
-"""Top-level frame constructors (the subset the first slice needs;
-parity target: `py-polars/src/polars/functions/`). `col`, `lit` and
-`len` live in `expr/expr.py`, as in the JAX package."""
+"""Top-level frame constructors and functions (the subset the port has
+so far; parity target: `py-polars/src/polars/functions/`). `col`, `lit`
+and `len` live in `expr/expr.py`, as in the JAX package."""
 
 from __future__ import annotations
+
+from ..dtypes import Float64
+from ..expr.expr import Expr, col
 
 
 def from_dict(data, schema=None, device=None):
     from .frame import DataFrame
     return DataFrame(data, schema=schema, device=device)
+
+
+def _pair(a, b):
+    """Both inputs as Float64 over the rows where both are valid."""
+    a = col(a) if isinstance(a, str) else a
+    b = col(b) if isinstance(b, str) else b
+    pair = a.is_not_null() & b.is_not_null()
+    return a.filter(pair).cast(Float64), b.filter(pair).cast(Float64)
+
+
+def corr(a, b, ddof: int = 1) -> Expr:
+    """Pearson correlation by its sums, as the JAX package composes it:
+    plain aggregations, so it is exact per group in a group-by and
+    pairwise complete under nulls."""
+    ax, bx = _pair(a, b)
+    n = ax.count()
+    sx, sy = ax.sum(), bx.sum()
+    sxx, syy = (ax * ax).sum(), (bx * bx).sum()
+    sxy = (ax * bx).sum()
+    num = n * sxy - sx * sy
+    den = (n * sxx - sx * sx).sqrt() * (n * syy - sy * sy).sqrt()
+    return (num / den).alias("corr")
+
+
+def cov(a, b, ddof: int = 1) -> Expr:
+    """Covariance by its sums, over the rows where both are valid."""
+    ax, bx = _pair(a, b)
+    n = ax.count()
+    return (((ax * bx).sum() - ax.sum() * bx.sum() / n)
+            / (n - ddof)).alias("cov")

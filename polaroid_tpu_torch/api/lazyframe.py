@@ -1,5 +1,5 @@
-"""LazyFrame: deferred query construction (the subset the first slice
-needs).
+"""LazyFrame: deferred query construction (the subset the port has so
+far).
 
 Parity target: `py-polars/src/polars/lazyframe/frame.py`, as in the JAX
 package's `api/lazyframe.py`: builds the logical plan
@@ -107,6 +107,13 @@ class LazyFrame:
 
     def head(self, n: int = 5) -> "LazyFrame":
         return LazyFrame._from_plan(L.Slice(self._plan, 0, n))
+
+    def unique(self, subset=None, keep: str = "any",
+               maintain_order: bool = False) -> "LazyFrame":
+        names = [subset] if isinstance(subset, str) else \
+            (list(subset) if subset is not None else None)
+        return LazyFrame._from_plan(
+            L.Distinct(self._plan, names, keep, maintain_order))
 
     def lazy(self) -> "LazyFrame":
         return self

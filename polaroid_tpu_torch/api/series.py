@@ -1,4 +1,4 @@
-"""Series: a named single column (the subset the first slice needs).
+"""Series: a named single column (the subset the port has so far).
 
 Parity target: `py-polars/src/polars/series/`, as in the JAX package's
 `api/series.py`: a view and conversion type over one `Column`.

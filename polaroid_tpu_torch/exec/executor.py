@@ -6,8 +6,9 @@ kernels in `ops/`. The JAX package traces chains of elementwise nodes
 (plus a group-by on top) into one jitted program (`exec/compiled.py`);
 PyTorch runs eagerly, so the port applies the nodes one by one. What
 comes across from that file is its host pre-pass, `_ensure_groupby_stats`:
-it gives an integer group key the bucketed min/max that puts it on the
-dense group-by path.
+it gives a bare integer group key the bucketed min/max that puts it on
+the dense or hash tier of the group-by. A computed or redefined key has
+no stats and takes the sorted tier, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -21,14 +22,13 @@ from ..expr import meta
 from ..expr.eval import eval_expr
 from ..ops import compact as C
 from ..ops import sort as S
-from ..ops.groupby import group_by_agg
+from ..ops.groupby import group_by_agg, unique_table
 from ..plan import logical as L
 
 # nodes applied on top of their input table, as one chain under a group-by
 _CHAIN = ("filter", "select", "with_columns")
 # the slice of the port that brings a plan node not ported yet
-_NEXT_SLICE = {"distinct": "Slice B2 (the sorted tier)",
-               "join": "Slice C (joins)"}
+_NEXT_SLICE = {"join": "Slice C (joins)"}
 
 
 def execute(plan: L.Plan) -> Table:
@@ -62,6 +62,9 @@ def execute(plan: L.Plan) -> Table:
     if k == "slice":
         return C.slice_rows(execute(plan.input), plan.offset,
                             plan.length)
+    if k == "distinct":
+        return unique_table(execute(plan.input), plan.subset, plan.keep,
+                            plan.maintain_order)
     raise NotImplementedError(
         f"plan node {k!r} is not ported yet: it comes with "
         f"{_NEXT_SLICE.get(k, 'a later slice of the port')}")

@@ -9,7 +9,9 @@ that broadcast.
 
 The rest of that file (windows, strings, temporal, lists, aggregations
 in a select context) comes with later slices and raises
-NotImplementedError here.
+NotImplementedError here. `expr.filter(pred)` is ported inside a
+group-by aggregation: it keeps every row and narrows the rows that take
+part in the aggregate (`Val.live`), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -35,19 +37,23 @@ _BOOL_OPS = {"and", "or", "xor"}
 
 
 class Val:
-    """Evaluation result: device data + validity.
+    """Evaluation result: device data + validity (+ live override).
 
-    data shape: (capacity,) for row-wise results, (1,) for scalars."""
+    data shape: (capacity,) for row-wise results, (1,) for scalars.
+    `live`: an optional bool mask of the rows that take part in an
+    aggregate of this value (set by `expr.filter(pred)`, carried through
+    elementwise ops), beside the table's live rows."""
 
-    __slots__ = ("dtype", "data", "validity", "sdict", "is_scalar")
+    __slots__ = ("dtype", "data", "validity", "sdict", "is_scalar", "live")
 
     def __init__(self, dtype, data, validity=None, sdict=None,
-                 is_scalar=False):
+                 is_scalar=False, live=None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
         self.sdict = sdict
         self.is_scalar = is_scalar
+        self.live = live
 
     def valid_or_true(self):
         if self.validity is None:
@@ -89,11 +95,22 @@ def _type_bounds(tdt: torch.dtype):
 # casting
 # ---------------------------------------------------------------------------
 
+def _with_live(out: Val, live) -> Val:
+    """`out` with the rows that take part in an aggregate narrowed as its
+    operand's were (`expr.filter`)."""
+    out.live = live
+    return out
+
+
 def cast_val(v: Val, dtype: DataType) -> Val:
     if isinstance(dtype, type) and issubclass(dtype, DataType):
         dtype = dtype()
     if v.dtype == dtype:
         return v
+    return _with_live(_cast(v, dtype), v.live)
+
+
+def _cast(v: Val, dtype: DataType) -> Val:
     src, dst = v.dtype, dtype
     if src.is_string and dst.is_string and src.is_binary == dst.is_binary:
         # String <-> Categorical: same codes and dictionary, relabeled
@@ -193,6 +210,11 @@ def _eval_binary_str(op: str, l: Val, r: Val) -> Val:
 
 
 def _eval_binary(op: str, l: Val, r: Val) -> Val:
+    return _with_live(_binary(op, l, r),
+                      l.live if l.live is not None else r.live)
+
+
+def _binary(op: str, l: Val, r: Val) -> Val:
     if l.dtype.is_string or r.dtype.is_string:
         return _eval_binary_str(op, l, r)
     if l.dtype == Null or r.dtype == Null:
@@ -262,6 +284,10 @@ def _eval_fma(op: str, a: Val, b: Val, c: Val) -> Val:
 
 
 def _eval_unary(op: str, v: Val) -> Val:
+    return _with_live(_unary(op, v), v.live)
+
+
+def _unary(op: str, v: Val) -> Val:
     x = v.data
     if op == "not":
         if not v.dtype.is_bool:
@@ -271,6 +297,10 @@ def _eval_unary(op: str, v: Val) -> Val:
         return Val(v.dtype, -x, v.validity, None, v.is_scalar)
     if op == "abs":
         return Val(v.dtype, torch.abs(x), v.validity, None, v.is_scalar)
+    if op == "sqrt":
+        out_dt = _float_dt(v.dtype)
+        return Val(out_dt, torch.sqrt(x.to(storage_torch_dtype(out_dt))),
+                   v.validity, None, v.is_scalar)
     raise NotImplementedError(f"unary op {op!r} is not ported yet")
 
 
@@ -301,7 +331,20 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
         v = eval_expr(e.children[0], table, ctx)
         valid = v.valid_or_true()
         return Val(Boolean, ~valid if k == "is_null" else valid, None, None,
-                   v.is_scalar)
+                   v.is_scalar, v.live)
+    if k == "expr_filter":
+        # every row stays; only the rows where the predicate holds take
+        # part in an aggregate of the value
+        if ctx != "agg":
+            raise NotImplementedError(
+                "expr.filter outside a group-by aggregation is not ported "
+                "yet: it comes with Slice E (the expression surface)")
+        v = eval_expr(e.children[0], table, ctx)
+        p = eval_expr(e.children[1], table, ctx)
+        plive = p.data & p.valid_or_true()
+        return _with_live(Val(v.dtype, v.data, v.validity, v.sdict,
+                              v.is_scalar),
+                          plive if v.live is None else v.live & plive)
     if k == "table_len":
         return Val(UInt32, table.row_mask().sum().view(1), None, None, True)
     raise NotImplementedError(

@@ -28,13 +28,17 @@ from typing import Dict, List, Tuple
 
 import torch
 
-__all__ = ["compact_words", "compact_words_plain", "LAUNCHES"]
+__all__ = ["compact_words", "compact_words_plain", "LAUNCHES", "RECORD"]
 
 MAX_WORDS = 32     # words per launch; must equal PT_MAX_WORDS in csrc/compact.cu
 # kernel launches made by `compact_words` (reset by callers that count them)
 LAUNCHES = 0
 # row count of the last launch (lets a caller see a full-width compaction)
 LAST_ROWS = 0
+# None, or a list to which each call on the card appends its (mask,
+# words), so that a caller can hold the kernel against its plain version
+# on the inputs a query gave it
+RECORD = None
 
 
 def compact_words_plain(mask: torch.Tensor, words: List[torch.Tensor]
@@ -177,6 +181,8 @@ def compact_words(mask: torch.Tensor, words: List[torch.Tensor]
     if n >= 1 << 31:
         raise ValueError(f"compact_words: n = {n} rows, the kernel takes "
                          "fewer than 2^31")
+    if RECORD is not None:
+        RECORD.append((mask, list(words)))
     from .cuda_build import check, zeroed_scratch
     lib = _lib()
     outs = _mirror_outputs(words)

@@ -24,48 +24,67 @@ code with no sort, and the product of the key spans picks the layout:
   large-G torch scatter ops (`ops/segment.py`), which stand in for the
   JAX package's XLA segmented scans there.
 
+* otherwise, the sorted tier (`build_groups`): an unbounded key (a
+  computed integer key, a float key, an integer without stats) or a
+  key domain above 2^32. The rows are sorted by (dead, key
+  words): one key word by one packed `torch.sort`
+  (`fused_sort.fused_argsort_dead_key`), more by kernel F
+  (`merge_sort.merge_sort_words`, the permutation alone), and the group
+  keys come out of the sorted key columns at each group's first row
+  through the compaction kernel. Groups come out in ascending key
+  order, nulls first.
+
+Aggregates that need each group's values in order (median, quantile,
+n_unique, mode) sort (group id, value words) once more, over any tier's
+group ids: 4-byte values by one packed `torch.sort`, wider ones by
+kernel F. arg_min/arg_max take two segment extremes and a count.
+
 The JAX package takes the one-hot kernels only on accelerators and the
 hash tier only at 2^14 <= capacity < 2^24; the port takes both on every
 device and at every capacity, so the CPU tests run the card's path with
 the kernels' plain versions. Integer sums are an exact int64 scatter in
-both tiers, as the JAX package's `_seg_sum` scatter is exact.
-
-Unbounded or larger key domains and the sorted layout raise
-NotImplementedError naming the slice that brings them.
+every tier, as the JAX package's `_seg_sum` scatter is exact.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from ..batch import Column, Table, storage_torch_dtype
 from ..config import capacity_for
 from ..dtypes import Boolean, UInt32
-from ..errors import DuplicateError, InvalidOperationError
+from ..errors import ComputeError, DuplicateError, InvalidOperationError
 from ..expr import meta
-from ..expr.eval import Val, _eval_binary, _eval_unary, _float_dt, \
-    _lit_val, _sum_dtype, _type_bounds, cast_val, eval_expr
+from ..expr.eval import Val, _eval_binary, _eval_fma, _eval_unary, \
+    _float_dt, _lit_val, _sum_dtype, _type_bounds, cast_val, \
+    column_to_val, eval_expr
 from ..expr.expr import Expr
 from . import hgroup
-from .compact import compact_device, gather_table
+from .compact import _unword, _word, compact_device, gather_table
 from .cuda_kernels import MAX_GROUPS, gather, seg_minmax, seg_sum
-from .segment import segment_minmax, segment_sum, segment_sum_int, \
-    segment_take
+from .cuda_partition import compact_words
+from .fused_sort import fused_argsort_dead_key, fused_sort_kv
+from .keycode import U32, code_bits, decode_orderable, encode_key_words, \
+    encode_orderable
+from .merge_sort import merge_sort_words
+from .segment import segment_minmax, segment_prod, segment_sum, \
+    segment_sum_int, segment_take
 
-__all__ = ["GroupContext", "HashGroupContext", "build_groups_dense",
-           "build_groups_hash", "group_by_agg"]
+__all__ = ["GroupContext", "HashGroupContext", "SortedGroupContext",
+           "build_groups_dense", "build_groups_hash", "build_groups",
+           "group_by_agg", "unique_table", "quantile_of_groups"]
 
 _I64_SIGN = -(1 << 63)
 # the largest key domain of the hash tier: its key codes are u32 words
 _HASH_DOMAIN = 1 << 32
-_SORTED_TIER = "the sorted tier (Slice B2 of the port)"
-
-# aggregates that need each group's rows in order: the sorted tier
-_NEXT_SLICE = {agg: _SORTED_TIER
-               for agg in ("median", "quantile", "n_unique", "arg_min",
-                           "arg_max", "product")}
+# the slice of the port that brings the aggregates not ported yet: the
+# nested lists (implode, agg_groups) and the rest of the expression surface
+_NEXT_SLICE = {agg: "Slice E (the expression surface)"
+               for agg in ("implode", "agg_groups", "skew", "kurtosis",
+                           "nan_min", "nan_max", "bitwise_and", "bitwise_or",
+                           "bitwise_xor", "entropy")}
 
 
 class GroupContext:
@@ -113,6 +132,11 @@ class GroupContext:
         """The key code of each group slot (int64): the slot itself."""
         return torch.arange(self.out_cap, dtype=torch.int64,
                             device=self.gid.device)
+
+    def key_order(self):
+        """What to sort the groups by for ascending key order, or None
+        when the layout already emits it (the dense slots are key codes)."""
+        return None
 
     def sums(self, rows: List[torch.Tensor]) -> List[torch.Tensor]:
         """Per-group f64 sums of several (n,) rows in ONE kernel pass.
@@ -167,6 +191,9 @@ class HashGroupContext(GroupContext):
     def slot_codes(self) -> torch.Tensor:
         return self.key_codes
 
+    def key_order(self):
+        return self.key_codes
+
     def sums(self, rows: List[torch.Tensor]) -> List[torch.Tensor]:
         out = segment_sum(torch.stack([r.to(torch.float64) for r in rows]),
                           self.gid, self.out_cap)
@@ -177,6 +204,31 @@ class HashGroupContext(GroupContext):
 
     def take(self, table: torch.Tensor) -> torch.Tensor:
         return segment_take(table, self.gid)
+
+
+class SortedGroupContext(HashGroupContext):
+    """The sorted tier's layout. The rows are sorted by (dead, key
+    words), stably, so each group is one run of the sort that starts at
+    the group's first row. `gid` numbers each live row's group in
+    ascending key order (cap for dead rows) in ROW order: the JAX package
+    keeps it in sorted order and gathers every value column by the
+    permutation, the port scatters it to the rows once, so its
+    reductions are the hash tier's scatters over each column as it lies,
+    with no gather per column and no run of equal ids for the atomics to
+    contend on. `keys` holds each key's (data, validity) at its group's
+    first row and `group_start` that row, for the first `ngroups` slots
+    (cap after)."""
+
+    __slots__ = ("keys",)
+
+    def __init__(self, gid, live, cap, group_count, ngroups, group_start,
+                 keys):
+        super().__init__(gid, live, cap, group_count, None, ngroups)
+        self._group_start = group_start
+        self.keys = keys
+
+    def key_order(self):
+        return None
 
 
 def _aggs_have_quantile(agg_exprs) -> bool:
@@ -307,24 +359,120 @@ def build_groups_hash(key_vals: Sequence[Val], mask: torch.Tensor,
     return HashGroupContext(gid, mask, cap, count, codes, ngroups)
 
 
+def _key_bits(data: torch.Tensor) -> torch.Tensor:
+    """A key column's storage bits as integers: equal bits, equal key
+    words (the orderable encoding is a bijection), so -0.0 and 0.0 and
+    NaNs of other payloads stay apart, as they do in the JAX package."""
+    if data.dtype == torch.float32:
+        return data.view(torch.int32)
+    if data.dtype == torch.float64:
+        return data.view(torch.int64)
+    return data
+
+
+def _sort_rows(key_vals: Sequence[Val], mask: torch.Tensor):
+    """The rows sorted by (dead, key words), stably: (perm, live_sorted,
+    sorted keys as (data, validity) per key, newgrp). One key word goes
+    to one packed torch.sort and its sorted word is decoded back; more
+    go to kernel F, which returns the permutation alone, and the key
+    columns are gathered by it."""
+    cap = mask.shape[0]
+    words = [(~mask).to(torch.int64)]
+    keys = []
+    for v in key_vals:
+        data = v.data.expand(cap)
+        validity = None if v.validity is None else v.validity.expand(cap)
+        keys.append((data, validity))
+        words.extend(encode_key_words(data, v.dtype, validity, False, False))
+    if len(words) == 2 and cap < (1 << 31):
+        dead_s, key_s, perm = fused_argsort_dead_key(words[0], words[1])
+        live_sorted = dead_s == 0
+        skeys = [(decode_orderable(key_s, key_vals[0].dtype, False), None)]
+    else:
+        perm = merge_sort_words(words, len(words), perm_only=True)[0]
+        live_sorted = mask[perm]
+        skeys = [(d[perm], None if va is None else va[perm])
+                 for d, va in keys]
+    differs = torch.zeros(cap, dtype=torch.bool, device=mask.device)
+    differs[0] = True
+    for data, validity in skeys:
+        b = _key_bits(data)
+        if validity is not None:
+            b = torch.where(validity, b, torch.zeros_like(b))
+            differs[1:] |= validity[1:] != validity[:-1]
+        differs[1:] |= b[1:] != b[:-1]
+    return perm, live_sorted, skeys, differs & live_sorted
+
+
+def build_groups(key_vals: Sequence[Val], mask: torch.Tensor
+                 ) -> SortedGroupContext:
+    """The sorted tier's layout of any keys (see SortedGroupContext).
+    One compaction (kernel B) at the run starts gives each group's first
+    row, its first sorted slot and its keys, with no host sync: the
+    group count stays on the device."""
+    cap = mask.shape[0]
+    dev = mask.device
+    perm, live_sorted, skeys, newgrp = _sort_rows(key_vals, mask)
+    ngroups = newgrp.sum()
+    sgid = torch.where(live_sorted, torch.cumsum(newgrp, 0) - 1,
+                       torch.full_like(perm, cap)).to(torch.int32)
+    gid = torch.empty(cap, dtype=torch.int32, device=dev)
+    gid.scatter_(0, perm, sgid)
+    idx = torch.arange(cap, dtype=torch.int32, device=dev)
+    words = [perm, idx]
+    for data, validity in skeys:
+        words.append(_word(data))
+        if validity is not None:
+            words.append(validity.to(torch.int32))
+    outs, _ = compact_words(newgrp, words)
+    first, start = outs[0], outs[1]
+    inside = idx < ngroups
+    # a group's rows are the sorted slots from its start to the next
+    # group's (the live count after the last)
+    nxt = torch.where(idx + 1 < ngroups, start.roll(-1), mask.sum())
+    count = torch.where(inside, nxt - start, 0).to(torch.int64)
+    it = iter(outs[2:])
+    keys = []
+    for data, validity in skeys:
+        kd = _unword(next(it), data.dtype)
+        keys.append((kd, None if validity is None else next(it) != 0))
+    return SortedGroupContext(
+        gid, mask, cap, count, ngroups,
+        torch.where(inside, first, torch.full_like(first, cap)), keys)
+
+
 # ---------------------------------------------------------------------------
 # aggregation over groups
 # ---------------------------------------------------------------------------
+
+def _part(v: Val, ctx: GroupContext):
+    """(values, spart, present) over the rows: `present` the live rows
+    that an aggregate of `v` counts (narrowed by `v.live`, the JAX
+    package's `_group_present`), `spart` those with a valid value."""
+    cap = ctx.cap
+    present = ctx.live if v.live is None else ctx.live & v.live.expand(cap)
+    spart = present if v.validity is None else \
+        present & v.validity.expand(cap)
+    return v.data.expand(cap), spart, present
+
+
+def _count(ctx: GroupContext, rows: torch.Tensor) -> torch.Tensor:
+    """Per-group int64 count of the rows where `rows` is set."""
+    (c,) = ctx.sums([rows.to(torch.float32)])
+    return c.to(torch.int64)
+
 
 def reduce_group(agg: str, v: Val, ctx: GroupContext,
                  attrs: dict = None) -> Val:
     """One grouped reduction (reference: `polars-expr/src/reduce/*.rs`)."""
     cap, dt = ctx.cap, v.dtype
-    sx = v.data.expand(cap)
-    # rows that take part: live, and non-null for the value aggregates
-    present = ctx.live
-    spart = present if v.validity is None else \
-        (present & v.validity.expand(cap))
-    stash = ctx.stash  # batched sums of this request, keyed by column
+    sx, spart, present = _part(v, ctx)
+    # batched sums of this request, keyed by column: they hold every
+    # live row, so a filtered value cannot use them
+    stash = ctx.stash if v.live is None else {}
 
     def counted(mask):
-        (c,) = ctx.sums([mask.to(torch.float32)])
-        return Val(UInt32, c.to(torch.int64))
+        return Val(UInt32, _count(ctx, mask))
 
     if agg == "len":
         return counted(present)
@@ -381,7 +529,7 @@ def reduce_group(agg: str, v: Val, ctx: GroupContext,
         return Val(Boolean, r == 1)
     if agg in ("min", "max"):
         is_max = agg == "max"
-        if v.validity is None:
+        if v.validity is None and v.live is None:
             has = ctx.group_count > 0
         else:
             n = stash.get(("count", id(v.data)))
@@ -391,28 +539,191 @@ def reduce_group(agg: str, v: Val, ctx: GroupContext,
             r = ctx.extreme(sx, spart, is_max,
                             -1 if is_max else _type_bounds(torch.int32)[1])
             return Val(dt, r, has, v.sdict)
-        # UInt64 is held in int64: flip the sign bit so that signed order
-        # is unsigned order, and flip it back after
-        u64 = repr(dt) == "UInt64"
-        x = sx ^ _I64_SIGN if u64 else sx
+        x = _signed_order(sx, dt)
         lo, hi = _type_bounds(x.dtype)
-        r = ctx.extreme(x, spart, is_max, lo if is_max else hi)
-        if u64:
-            r = r ^ _I64_SIGN
+        r = _signed_order(ctx.extreme(x, spart, is_max, lo if is_max else hi),
+                          dt)
         return Val(dt, r.to(sx.dtype), has)
     if agg in ("first", "last"):
-        sel = ctx.group_start if agg == "first" else ctx.group_end()
+        if v.live is None:
+            sel = ctx.group_start if agg == "first" else ctx.group_end()
+            has = ctx.group_count > 0
+        else:
+            sel = ctx.extreme(ctx._positions(), present, agg == "last",
+                              cap if agg == "first" else -1)
+            has = (sel >= 0) & (sel < cap)
         selc = sel.clamp(0, cap - 1).long()
-        validity = ctx.group_count > 0
+        validity = has
         if v.validity is not None:
             validity = validity & v.validity.expand(cap)[selc]
         return Val(dt, sx[selc], validity, v.sdict)
+    if agg == "product":
+        # each group's own rows, in f64 or in int64 that wraps (the JAX
+        # package's cumprod ratio is not kept: ROADMAP Queue 3)
+        acc = torch.float64 if dt.is_float else torch.int64
+        x = torch.where(spart, sx.to(acc), torch.ones((), dtype=acc,
+                                                      device=sx.device))
+        return Val(dt, segment_prod(x, ctx.gid, ctx.out_cap).to(sx.dtype))
+    if agg in ("median", "quantile"):
+        q = 0.5 if agg == "median" else float(attrs["q"])
+        interp = "linear" if agg == "median" else \
+            attrs.get("interpolation", "nearest")
+        val, n = quantile_of_groups(sx, dt, spart, ctx, q, interp)
+        out_dt = _float_dt(dt)
+        return Val(out_dt, val.to(storage_torch_dtype(out_dt)), n > 0)
+    if agg == "n_unique":
+        return _group_n_unique(v, ctx)
+    if agg in ("arg_min", "arg_max"):
+        return _group_arg_extreme(v, ctx, agg == "arg_max")
+    if agg == "mode":
+        return _group_mode(v, ctx)
     if agg in _NEXT_SLICE:
         raise NotImplementedError(
             f"group-by {agg} is not ported yet: it comes with "
             f"{_NEXT_SLICE[agg]}")
     raise NotImplementedError(
         f"group-by aggregation {agg!r} on {dt!r} is not ported yet")
+
+
+def _signed_order(x: torch.Tensor, dt) -> torch.Tensor:
+    """UInt64 is held in int64: flipping the sign bit makes signed order
+    unsigned order (and flips it back); other types as they are."""
+    return x ^ _I64_SIGN if repr(dt) == "UInt64" else x
+
+
+def _sort_pairs(x: torch.Tensor, dt, gid: torch.Tensor, part: torch.Tensor,
+                ncap: int, ids: bool = True):
+    """The rows where `part` is set sorted by (group id, value code) into
+    a prefix, as (ids, codes); the other rows follow with id `ncap`. The
+    code is the value's orderable code (`keycode.encode_orderable`): a
+    32-bit code packs with its id into one int64 for one `torch.sort`
+    (`fused_sort.fused_sort_kv`); a 64-bit one goes to kernel F over (id,
+    the code's two halves), padded to a power of two with rows that sort
+    last, and the codes, and the ids unless `ids` is false (None then),
+    are gathered by the permutation alone. Group g's values are then one
+    ascending run, in group order."""
+    n = gid.shape[0]
+    gkey = torch.where(part, gid.to(torch.int64),
+                       torch.full_like(gid, ncap, dtype=torch.int64))
+    code = encode_orderable(x, dt)
+    if code_bits(dt) == 32 and ncap < (1 << 31):
+        return fused_sort_kv(gkey, code)
+    words = [gkey, (code >> 32) & U32, code & U32]
+    npad = 1 << (n - 1).bit_length()
+    if npad != n:
+        words = [torch.cat([w, w.new_full((npad - n,), U32)])
+                 for w in words]
+    perm = merge_sort_words(words, 3, perm_only=True)[0][:n]
+    return gkey[perm] if ids else None, code[perm]
+
+
+def quantile_of_groups(x: torch.Tensor, dt, part: torch.Tensor,
+                       ctx: GroupContext, q: float, interp: str):
+    """Per-group quantile of the rows of `x` where `part` is set, in f64,
+    with the group's valid count: the JAX package's `_group_quantile`
+    (every interpolation; nearest rounds half to even) over any tier's
+    group ids. The value codes are sorted into runs (`_sort_pairs`),
+    group g's run starts after the counts of the groups before it, and
+    the picks are gathers from it, decoded."""
+    ncap = ctx.out_cap
+    n = _count(ctx, part)
+    codes = _sort_pairs(x, dt, ctx.gid, part, ncap, ids=False)[1]
+    base = torch.cumsum(n, 0) - n
+    pos = q * (n.to(torch.float64) - 1)
+    top = codes.shape[0] - 1
+
+    def pick(i):
+        at = (base + i.to(torch.int64).clamp(min=0)).clamp(0, top)
+        return _to_f64(decode_orderable(codes[at], dt, False), dt)
+
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    if interp == "linear":
+        frac = pos - lo
+        val = pick(lo) * (1 - frac) + pick(hi) * frac
+    elif interp == "lower":
+        val = pick(lo)
+    elif interp == "higher":
+        val = pick(hi)
+    elif interp == "midpoint":
+        val = (pick(lo) + pick(hi)) / 2
+    elif interp == "nearest":
+        val = pick(torch.round(pos))
+    else:
+        raise ComputeError(f"unknown interpolation {interp!r}")
+    return val, n
+
+
+def _pair_boundaries(words) -> torch.Tensor:
+    """Sorted rows that differ from the row before in any word."""
+    new = torch.zeros(words[0].shape[0], dtype=torch.bool,
+                      device=words[0].device)
+    new[0] = True
+    for w in words:
+        new[1:] |= w[1:] != w[:-1]
+    return new
+
+
+def _group_n_unique(v: Val, ctx: GroupContext) -> Val:
+    """Distinct values per group, null counting as one: a sort of (group
+    id, value code) over the valid rows, the value boundaries inside each
+    group's run counted as the difference of a prefix sum at the run's
+    ends, plus one for a group that holds a null."""
+    ncap = ctx.out_cap
+    sx, spart, present = _part(v, ctx)
+    g, c = _sort_pairs(sx, v.dtype, ctx.gid, spart, ncap)
+    new = _pair_boundaries([g, c]) & (g < ncap)
+    prefix = torch.cat([new.new_zeros(1, dtype=torch.int64),
+                        torch.cumsum(new, 0)])
+    m = _count(ctx, spart)
+    base = torch.cumsum(m, 0) - m
+    distinct = prefix[base + m] - prefix[base]
+    if v.validity is not None:
+        distinct = distinct + (_count(ctx, present & ~spart) > 0)
+    return Val(UInt32, distinct)
+
+
+def _group_arg_extreme(v: Val, ctx: GroupContext, is_max: bool) -> Val:
+    """arg_min/arg_max: the position among the group's rows (counting
+    nulls) of its first row holding the extreme valid value; null when
+    the group has no valid value or its extreme is NaN (which equals no
+    row), as in the JAX package."""
+    cap = ctx.cap
+    sx, spart, present = _part(v, ctx)
+    x = _signed_order(sx, v.dtype)
+    if x.dtype in (torch.bool, torch.int8, torch.uint8, torch.int16):
+        x = x.to(torch.int32)
+    lo, hi = _type_bounds(x.dtype)
+    m = ctx.extreme(x, spart, is_max, lo if is_max else hi)
+    hit = spart & (x == segment_take(m, ctx.gid))
+    pos = ctx._positions()
+    first = ctx.extreme(pos, hit, False, cap)
+    before = present & (pos < segment_take(first, ctx.gid))
+    has = first < cap
+    return Val(UInt32, torch.where(has, _count(ctx, before), 0), has)
+
+
+def _group_mode(v: Val, ctx: GroupContext) -> Val:
+    """The most frequent valid value of each group, the smallest (keycode
+    order) winning a tie, as the JAX package picks it: a sort of (group
+    id, value code), run lengths from the run bounds, and per group the
+    longest run's first start."""
+    cap, ncap = ctx.cap, ctx.out_cap
+    sx, spart, _ = _part(v, ctx)
+    g, c = _sort_pairs(sx, v.dtype, ctx.gid, spart, ncap)
+    new = _pair_boundaries([g, c]) & (g < ncap)
+    j = torch.arange(cap, device=g.device)
+    # a run ends where the next row starts a run or takes no part
+    last = torch.cat([(new | (g >= ncap))[1:], new.new_ones(1)])
+    end = torch.flip(torch.cummin(torch.flip(
+        torch.where(last, j, cap), [0]), 0).values, [0])
+    run = torch.where(new, end - j + 1, 0)
+    gs = torch.where(new, g, ncap)
+    best = segment_minmax(run, gs, ncap, True, 0)
+    is_best = new & (run == segment_take(best, gs))
+    at = segment_minmax(torch.where(is_best, j, cap), gs, ncap, False, cap)
+    has = at < cap
+    return Val(v.dtype, decode_orderable(c[at.clamp(max=cap - 1)], v.dtype,
+                                         False), has, v.sdict)
 
 
 def eval_group_expr(e: Expr, table: Table, ctx: GroupContext,
@@ -439,11 +750,18 @@ def eval_group_expr(e: Expr, table: Table, ctx: GroupContext,
             e.attrs["op"],
             eval_group_expr(e.children[0], table, ctx, key_outputs),
             eval_group_expr(e.children[1], table, ctx, key_outputs))
+    if k == "fma":
+        # the optimizer's fused multiply-add over per-group values (it
+        # rewrites agg combinations such as corr(a, b) ** 2)
+        a, b, c = (eval_group_expr(ch, table, ctx, key_outputs)
+                   for ch in e.children)
+        return _eval_fma(e.attrs["op"], a, b, c)
     if k == "unary":
         return _eval_unary(e.attrs["op"], eval_group_expr(
             e.children[0], table, ctx, key_outputs))
     raise NotImplementedError(
-        f"expression kind {k!r} in a group-by aggregation is not ported yet")
+        f"expression kind {k!r} in a group-by aggregation is not ported "
+        "yet: it comes with Slice E (the expression surface)")
 
 
 def _collect_stash_requests(agg_exprs, table: Table, cap: int) -> dict:
@@ -502,61 +820,55 @@ def _fill_stash(gctx: GroupContext, reqs: dict) -> None:
     gctx.stash = dict(zip(reqs.keys(), gctx.sums(rows)))
 
 
-def _needs_sorted_layout(agg_exprs: Sequence[Expr]) -> bool:
-    """product's cumprod trick requires contiguous group runs."""
-    def rec(e: Expr) -> bool:
-        if e.kind == "agg" and e.attrs.get("agg") == "product":
-            return True
-        return any(rec(c) for c in e.children)
-    return any(rec(a) for a in agg_exprs)
-
-
 def group_by_agg(table: Table, key_exprs: Sequence[Expr],
                  agg_exprs: Sequence[Expr],
                  maintain_order=False) -> Table:
-    """GROUP BY keys AGG exprs -> one row per group. The dense tier emits
-    ascending key order (nulls first), the hash tier hash order;
-    maintain_order=True gives the order of each group's first live row,
-    and the optimizer's "key" sentinel (a sort on the keys after the
-    group-by was dropped) ascending key order from either tier."""
+    """GROUP BY keys AGG exprs -> one row per group. The dense and sorted
+    tiers emit ascending key order (nulls first), the hash tier hash
+    order; maintain_order=True gives the order of each group's first live
+    row, and the optimizer's "key" sentinel (a sort on the keys after the
+    group-by was dropped) ascending key order from every tier."""
     cap = table.capacity
     mask = table.row_mask()
     key_vals = [eval_expr(k, table, "select") for k in key_exprs]
     spans = _dense_spans(key_vals, key_exprs, table)
-    if spans is None or _needs_sorted_layout(agg_exprs):
-        raise NotImplementedError(
-            "this group-by needs the sorted layout (an unbounded key, or "
-            f"product): it comes with {_SORTED_TIER}")
-    domain = _span_product(spans)
-    if domain <= MAX_GROUPS:
+    domain = None if spans is None else _span_product(spans)
+    if domain is None or domain > _HASH_DOMAIN:
+        spans = None
+        gctx = build_groups(key_vals, mask)
+    elif domain <= MAX_GROUPS:
         gctx = build_groups_dense(key_vals, mask, spans)
-    elif domain <= _HASH_DOMAIN:
-        gctx = build_groups_hash(key_vals, mask, spans)
     else:
-        raise NotImplementedError(
-            f"group-by over {domain} key slots: domains above 2^32 come "
-            f"with {_SORTED_TIER}")
+        gctx = build_groups_hash(key_vals, mask, spans)
     reqs = _collect_stash_requests(agg_exprs, table, cap)
     if len(reqs) > 1:
         _fill_stash(gctx, reqs)
     ocap = gctx.out_cap
 
-    # group keys: decode each slot's mixed-radix key code
     key_outputs = {}
     names: List[str] = []
     cols = {}
     gvalid_rows = gctx.group_count > 0
-    slot = gctx.slot_codes()
-    key_decoded = []
-    for span, _ in reversed(spans):
-        key_decoded.append(slot % span)
-        slot = slot // span
-    key_decoded.reverse()
-    for ke, kv, kc, (span, base) in zip(key_exprs, key_vals, key_decoded,
-                                        spans):
+    if spans is None:
+        # the sorted tier compacted each group's keys out of its first row
+        keys = [(kv, data, validity) for kv, (data, validity)
+                in zip(key_vals, gctx.keys)]
+    else:
+        # decode each slot's mixed-radix key code
+        slot = gctx.slot_codes()
+        key_decoded = []
+        for span, _ in reversed(spans):
+            key_decoded.append(slot % span)
+            slot = slot // span
+        key_decoded.reverse()
+        keys = []
+        for kv, kc, (span, base) in zip(key_vals, key_decoded, spans):
+            data, kvalid = _dense_decode(kc, kv, span, base)
+            keys.append((kv, data,
+                         kvalid if kv.validity is not None else None))
+    for ke, (kv, data, kvalid) in zip(key_exprs, keys):
         name = meta.output_name(ke)
-        data, kvalid = _dense_decode(kc, kv, span, base)
-        svalid = kvalid & gvalid_rows if kv.validity is not None else None
+        svalid = kvalid & gvalid_rows if kvalid is not None else None
         key_outputs[name] = Val(kv.dtype, data, svalid, kv.sdict)
         if name in cols:
             raise DuplicateError(f"duplicate key name {name!r}")
@@ -575,22 +887,53 @@ def group_by_agg(table: Table, key_exprs: Sequence[Expr],
         cols[name] = Column(v.dtype, data, validity, v.sdict)
 
     tmp = Table(names, cols, ocap, None, gvalid_rows, device=mask.device)
-    hashed = isinstance(gctx, HashGroupContext)
-    if maintain_order is True or (hashed and maintain_order == "key"):
+    order = gctx.group_start if maintain_order is True else \
+        gctx.key_order() if maintain_order == "key" else None
+    if order is not None:
         # a stable sort of the slots by each group's first row (or, for
         # "key", by its key code), in which the empty slots (first row
         # cap, key code 2^32) go last, so the groups come out as a prefix
         # (no host sync)
-        perm = torch.sort(gctx.group_start if maintain_order is True
-                          else gctx.key_codes, stable=True).indices
+        perm = torch.sort(order, stable=True).indices
         out = gather_table(tmp, perm, None, None)
         return out.with_valid(None, None, nrows_dev=gvalid_rows.sum())
-    if hashed:
-        # the hash tier numbered its groups densely: they already are a
-        # prefix (the compaction kernel removed the layout's empty slots
-        # when it gathered the group keys, hgroup.hash_group_ids)
+    if isinstance(gctx, HashGroupContext):
+        # the hash and sorted tiers numbered their groups densely: they
+        # already are a prefix (the compaction kernel removed the empty
+        # slots when it gathered the group keys)
         return tmp.with_valid(None, None, nrows_dev=gctx.ngroups)
     # the dense layout leaves empty key slots: compact them away on the
     # device with the compaction kernel (no host sync)
     out, count = compact_device(tmp)
     return out.with_valid(None, None, nrows_dev=count)
+
+
+# ---------------------------------------------------------------------------
+# unique / distinct
+# ---------------------------------------------------------------------------
+
+def unique_table(table: Table, subset: Optional[Sequence[str]],
+                 keep: str = "any", maintain_order: bool = False) -> Table:
+    """DISTINCT through the sorted tier's row sort: one representative
+    row per key group, as a row mask in the original order (so every
+    `maintain_order` is met). The sort is stable, so a run's first
+    sorted slot is the group's first row and its last the last row. The
+    JAX package writes the mask back to row order by a 2-word sort; a
+    scatter by the permutation is the same function. keep="any" takes
+    the first row."""
+    names = subset or list(table.names)
+    mask = table.row_mask()
+    key_vals = [column_to_val(table.column(n)) for n in names]
+    perm, live_sorted, _, newgrp = _sort_rows(key_vals, mask)
+    if keep not in ("any", "first", "last", "none"):
+        raise ComputeError(f"invalid keep strategy {keep!r}")
+    if keep in ("any", "first"):
+        is_rep = newgrp
+    else:
+        # a run ends where the next sorted slot starts a run or is dead
+        run_end = torch.cat([(newgrp | ~live_sorted)[1:],
+                             newgrp.new_ones(1)]) & live_sorted
+        is_rep = run_end if keep == "last" else run_end & newgrp
+    sel = torch.empty_like(mask)
+    sel.scatter_(0, perm, is_rep)
+    return table.with_valid(sel & mask, None)

@@ -37,6 +37,7 @@ from typing import List, NamedTuple, Sequence
 
 import torch
 
+from ..dtypes import dtype_from_numpy
 from .cuda_partition import compact_words
 from .exchange import CAP, K, S, bucket_exchange
 from .hashing import U32_MASK, fmix32
@@ -54,8 +55,6 @@ _LOG_K = 5
 # group-bys that took the carry-sort fallback (reset by callers that
 # count them)
 FALLBACKS = 0
-# the next slice, for what this one refuses
-_SORTED_TIER = "the sorted tier (Slice B2 of the port)"
 
 
 def fmix32_inv(h: torch.Tensor) -> torch.Tensor:
@@ -249,37 +248,48 @@ def _ident(dt: torch.dtype, agg: str):
     return info.max if agg == "min" else info.min
 
 
+def _is_quantile(agg) -> bool:
+    return isinstance(agg, tuple) and agg[0] == "quantile"
+
+
 def _reduce(vals, aggs, gid, G: int, scan_dtypes) -> List[torch.Tensor]:
     """(G,) per-group results of each (value, aggregate) over row group
     ids `gid` (ids outside [0, G) take no part), through the reductions
     of the group-by's hash context, the ones its collects run."""
-    # groupby imports this module, so the context is imported here
-    from .groupby import HashGroupContext
-    ctx = HashGroupContext(gid, None, G, None, None, None)
+    # groupby imports this module, so these are imported here
+    from .groupby import HashGroupContext, quantile_of_groups
+    part = (gid >= 0) & (gid < G)
+    ctx = HashGroupContext(gid, part, G, None, None, None)
     outs = []
     for i, (v, agg) in enumerate(zip(vals, aggs)):
         sdt = None if scan_dtypes is None else scan_dtypes[i]
         if agg == "count":
             outs.append(ctx.int_sum(torch.ones_like(gid)).to(torch.int32))
-        elif agg in ("sum", "sumsq"):
-            sdt = sdt or v.dtype
-            if v.dtype.is_floating_point or sdt.is_floating_point:
-                x = v.to(torch.float64)
-                x = x * x if agg == "sumsq" else x
+        elif agg in ("sum", "sumsq", "sumprod"):
+            # sumprod: v is a pair (a, b) and each group sums a * b
+            a, b = v if agg == "sumprod" else (v, v)
+            sdt = sdt or a.dtype
+            if a.dtype.is_floating_point or sdt.is_floating_point:
+                x = a.to(torch.float64)
+                if agg != "sum":
+                    x = x * b.to(torch.float64)
                 outs.append(ctx.sums([x])[0].to(sdt))
             else:
-                x = v.to(sdt)
-                x = x * x if agg == "sumsq" else x
+                x = a.to(sdt)
+                if agg != "sum":
+                    x = x * b.to(sdt)
                 outs.append(ctx.int_sum(x).to(sdt))
         elif agg in ("min", "max"):
             wide = torch.int32 if v.dtype in (
                 torch.bool, torch.int8, torch.uint8, torch.int16) else v.dtype
             outs.append(ctx.extreme(v, None, agg == "max",
                                     _ident(wide, agg)).to(v.dtype))
-        else:
-            raise NotImplementedError(
-                f"hash group-by aggregate {agg!r} is not ported yet: it "
-                f"comes with {_SORTED_TIER}")
+        else:  # ("quantile", q, interp), checked by the caller
+            _, q, interp = agg
+            dt = dtype_from_numpy(torch.empty(0, dtype=v.dtype).numpy()
+                                  .dtype)
+            val, _ = quantile_of_groups(v, dt, part, ctx, q, interp)
+            outs.append(val.to(torch.float32))
     return outs
 
 
@@ -289,14 +299,18 @@ def hash_groupby_u32(key: torch.Tensor, vals: Sequence[torch.Tensor],
     (gkey (M,) int64, outs, gvalid (M,) bool, ok) with M = out_capacity(n);
     each group's results sit at its run's end slot, where gvalid is set.
     When `ok` is False the outputs are garbage and the caller takes its
-    fallback. aggs[i] is "sum", "count", "min", "max" or "sumsq" (the
-    square taken after the cast to scan_dtypes[i]); scan_dtypes[i]
-    (optional) is the accumulator and output dtype of a sum/sumsq."""
+    fallback. aggs[i] is "sum", "count", "min", "max", "sumsq" (the
+    square taken after the cast to scan_dtypes[i]), "sumprod" (vals[i] is
+    a pair (a, b) and each group sums a * b) or ("quantile", q, interp)
+    (a Float32 result, computed in f64 over the group's sorted values);
+    scan_dtypes[i] (optional) is the accumulator and output dtype of a
+    sum/sumsq/sumprod. Every value is reduced from the rows' own columns,
+    so no Dekker two-product or two-float accumulator is needed."""
     for a in aggs:
-        if a not in ("sum", "count", "min", "max", "sumsq"):
-            raise NotImplementedError(
-                f"hash group-by aggregate {a!r} is not ported yet: it "
-                f"comes with {_SORTED_TIER}")
+        if a not in ("sum", "count", "min", "max", "sumsq", "sumprod") \
+                and not _is_quantile(a):
+            raise ValueError(f"hash group-by aggregate {a!r} is not part "
+                             "of the contract")
     n = key.shape[0]
     prep = hash_prep(key, valid)
     lay = hash_layout(prep)
@@ -304,7 +318,7 @@ def hash_groupby_u32(key: torch.Tensor, vals: Sequence[torch.Tensor],
     at_end = torch.where(lay.end, rank, torch.full_like(rank, n))
     outs = []
     for o, a in zip(_reduce(vals, aggs, gid, n, scan_dtypes), aggs):
-        fill = 0 if a in ("count", "sum", "sumsq") else _ident(o.dtype, a)
+        fill = _ident(o.dtype, a) if a in ("min", "max") else 0
         outs.append(torch.cat([o, torch.full((1,), fill, dtype=o.dtype,
                                              device=o.device)])[at_end])
     return fmix32_inv(lay.h), outs, lay.end, prep.ok

@@ -26,8 +26,8 @@ unsigned); a UInt32 is one word, not two. Float64 is f64 on every
 device: the port takes the JAX package's CPU branch (the full 64-bit
 encoding), never its TPU branch, which orders f64 by f32.
 
-The bit-budget packing of the JAX module (group-by and join keys) comes
-with the slices that need it (B2, C).
+The bit-budget packing of the JAX module comes with its one user, the
+distributed group-by (Slice G).
 """
 
 from __future__ import annotations

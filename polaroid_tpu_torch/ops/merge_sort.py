@@ -37,7 +37,7 @@ from ..dtypes import DataType, dtype_from_numpy
 
 __all__ = ["merge_sort_words", "merge_sort_words_plain", "sort_ops",
            "digit_histograms", "digit_histograms_plain", "radix_plan",
-           "LAUNCHES", "PASSES"]
+           "LAUNCHES", "PASSES", "RECORD"]
 
 MAX_WORDS = 32      # words per row, the index included; PT_MAX_WORDS
 TILE = 3840         # rows of a digit pass's tile; PT_TILE
@@ -49,6 +49,10 @@ DIGITS = 4          # 8-bit digits of a 32-bit word
 LAUNCHES = 0
 # digit passes the last sort on the card ran (radix_plan's count)
 PASSES = 0
+# None, or a list to which each sort on the card appends its (operands,
+# num_keys, stable, perm_only), so that a caller can hold the kernel
+# against its plain version on the inputs a query gave it
+RECORD = None
 
 
 def _check(operands: Sequence[torch.Tensor], num_keys: int,
@@ -203,6 +207,8 @@ def merge_sort_words(operands: Sequence[torch.Tensor], num_keys: int,
         out = merge_sort_words_plain(operands, num_keys, stable)
         return [out[num_keys]] if perm_only else out
     dev = _device(operands)
+    if RECORD is not None:
+        RECORD.append((list(operands), num_keys, stable, perm_only))
     from .cuda_build import check
     lib = _lib()
     words = [w.contiguous() for w in operands]

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["SPILL", "spill_slots", "segment_sum", "segment_sum_int",
-           "segment_minmax", "segment_take", "minmax_keys"]
+           "segment_prod", "segment_minmax", "segment_take", "minmax_keys"]
 
 # the signed integer type a float's order keys live in
 _KEY_TYPES = {torch.float32: torch.int32, torch.float64: torch.int64}
@@ -57,6 +57,18 @@ def segment_sum_int(x: torch.Tensor, gid: torch.Tensor, G: int
     package's `_seg_sum` scatter."""
     out = torch.zeros(G + SPILL, dtype=torch.int64, device=x.device)
     out.index_add_(0, _route(gid, G), x.to(torch.int64))
+    return out[:G]
+
+
+def segment_prod(x: torch.Tensor, gid: torch.Tensor, G: int
+                 ) -> torch.Tensor:
+    """Per-group products of an f64 or int64 row over each group's own
+    rows (1 for a group with none): int64 wraps modulo 2^64, so an
+    integer product is exact in any order. No Pallas kernel computes it:
+    the JAX package divides a running cumprod instead, which a zero or
+    an overflow in an earlier group spoils."""
+    out = torch.ones(G + SPILL, dtype=x.dtype, device=x.device)
+    out.scatter_reduce_(0, _route(gid, G), x, "prod")
     return out[:G]
 
 

@@ -554,3 +554,153 @@ def test_sorts_on_card_match_cpu(dev):
     out = df.sort("k", maintain_order=True).to_dict()
     assert TM.LAUNCHES == 0
     assert out["r"] == np.argsort(data["a"], kind="stable").tolist()
+
+
+def test_sorted_tier_group_by_on_card_matches_cpu(dev):
+    """The sorted tier on the card against the CPU run: a Float64 key, a
+    computed Int32 key and three keys above 2^32 slots (kernel F), and a
+    Float32 key (one packed torch.sort), with median, quantile, n_unique,
+    arg_max, mode, product and corr ** 2 (of integers, whose sums are
+    exact in f64 in any order); and a median over the dense tier's
+    ids."""
+    rng = np.random.default_rng(9)
+    n = 60_000
+    data = {"f": rng.integers(0, 300, n) / 4.0,
+            "g": (rng.integers(0, 200, n) / 2).astype(np.float32),
+            "a": rng.integers(0, 5000, n).astype(np.int32),
+            "b": rng.integers(0, 3, n) * 10**7,
+            "v": rng.normal(size=n), "w": rng.uniform(0.99, 1.01, n),
+            "i": rng.integers(-20, 20, n).astype(np.int32)}
+    valid = {"v": rng.uniform(size=n) < 0.9}
+
+    def q(device, keys):
+        df = frame_from_numpy(data, validity=valid, device=device)
+        c = pt.col
+        return (df.lazy().group_by(*keys)
+                .agg(c("v").median().alias("med"),
+                     c("v").quantile(0.3, "lower").alias("q3"),
+                     c("i").n_unique().alias("nu"),
+                     c("v").arg_max().alias("am"),
+                     c("i").mode().alias("mo"),
+                     c("w").product().alias("p"),
+                     c("i").product().alias("ip"),
+                     (pt.corr("i", "a") ** 2).alias("r2"),
+                     pt.len().alias("n"))
+                .collect().to_dict())
+
+    # a computed key carries the validity of the modulo's zero guard, so
+    # it sorts a null word beside its code: kernel F; the Float32 key is
+    # one word: the packed torch.sort
+    computed = (pt.col("a") % 17).cast(pt.Int32).alias("m")
+    for keys, f_launches in ((["f"], 1), (["g"], 0), ([computed], 1),
+                             (["b", "a", "f"], 1)):
+        TM.LAUNCHES = 0
+        TP.LAUNCHES = 0
+        got = q("cuda", keys)
+        # kernel F: the row sort over more than one key word, and the
+        # (group id, Float64 value) sort of the median and the quantile
+        assert TM.LAUNCHES == f_launches + 2, keys
+        assert TP.LAUNCHES >= 1
+        want = q("cpu", keys)
+        for c in got:
+            if c in ("med", "p", "r2"):
+                # None (a group with no valid value) compares as NaN
+                np.testing.assert_allclose(
+                    np.array(got[c], dtype=float),
+                    np.array(want[c], dtype=float), rtol=1e-12,
+                    atol=1e-12 if c == "r2" else 0)
+            else:
+                assert got[c] == want[c], c
+    df = frame_from_numpy(data, validity=valid, device="cuda")
+    TK.LAUNCHES = 0
+    got = df.group_by("i").agg(pt.col("v").median()).sort("i").to_dict()
+    assert TK.LAUNCHES >= 1            # the dense tier's counts
+    want = frame_from_numpy(data, validity=valid, device="cpu").group_by(
+        "i").agg(pt.col("v").median()).sort("i").to_dict()
+    assert got["i"] == want["i"]
+    np.testing.assert_allclose(got["v"], want["v"], rtol=1e-12)
+
+
+@pytest.mark.parametrize("tier", ["dense", "hash", "sorted"])
+def test_float_corr_on_card_within_its_conditioning(dev, tier):
+    """corr and corr ** 2 of random floats on the card against the CPU
+    run, on each tier, within a bound set by the formula's conditioning.
+    Each of corr's sums (n, sx, sy, sxx, syy, sxy) is an f64 sum in an
+    order that the card's scatters pick, so each lies within
+    g = (m + 2) 2^-53 of sum |t| of its exact value (m the group's
+    rows); num = n sxy - sx sy then lies within
+    2 g (n sum|xy| + sum|x| sum|y|), dx = n sxx - sx^2 within
+    2 g (n sum x^2 + (sum|x|)^2), and so corr within
+    d = dnum / sqrt(dx dy) + |corr| (ddx / dx + ddy / dy) / 2 + 4 u |corr|
+    and corr ** 2 within 2 |corr| d + d^2 of the exact value: two runs
+    differ by at most twice that. y near 1 makes dy cancel (its
+    condition number is about 2 / var(y), 6e4 here), which is where a
+    fixed 1e-12 fails."""
+    rng = np.random.default_rng(11)
+    n = 50_000
+    k = rng.integers(0, 40, n)
+    x = rng.normal(size=n)
+    y = rng.uniform(0.99, 1.01, n)
+    valid = {"x": rng.uniform(size=n) < 0.9, "y": rng.uniform(size=n) < 0.95}
+    key = {"dense": k, "hash": k * 1000, "sorted": k / 4.0}[tier]
+    data = {"key": key, "x": x, "y": y}
+
+    def q(device):
+        df = frame_from_numpy(data, validity=valid, device=device)
+        return (df.lazy().group_by("key")
+                .agg(pt.corr("x", "y").alias("r"),
+                     (pt.corr("x", "y") ** 2).alias("r2"))
+                .sort("key").collect().to_dict())
+
+    TK.LAUNCHES = TE.EXCHANGE_LAUNCHES = TH.FALLBACKS = TP.LAUNCHES = 0
+    got = q("cuda")
+    # 40 keys over a span of 39,002 slots: the hash tier, whose exchange
+    # cells overflow, so it takes the carry-sort fallback
+    launched = {"dense": TK.LAUNCHES,
+                "hash": TE.EXCHANGE_LAUNCHES + TH.FALLBACKS,
+                "sorted": TP.LAUNCHES}[tier]
+    assert launched >= 1, tier
+    want = q("cpu")
+    assert got["key"] == want["key"] == sorted(set(key.tolist()))
+    u = 2.0 ** -53
+    both = valid["x"] & valid["y"]
+    worst = 0.0
+    for j, kk in enumerate(got["key"]):
+        sel = both & (key == kk)
+        a, b = x[sel], y[sel]
+        m = int(sel.sum())
+        g = (m + 2) * u
+        sa, sb = np.abs(a).sum(), np.abs(b).sum()
+        dx = m * (a * a).sum() - a.sum() ** 2
+        dy = m * (b * b).sum() - b.sum() ** 2
+        dnum = 2 * g * (m * np.abs(a * b).sum() + sa * sb)
+        ddx = 2 * g * (m * (a * a).sum() + sa * sa)
+        ddy = 2 * g * (m * (b * b).sum() + sb * sb)
+        r = abs(want["r"][j])
+        d = dnum / np.sqrt(dx * dy) + r * (ddx / dx + ddy / dy) / 2 \
+            + 4 * u * r
+        assert abs(got["r"][j] - want["r"][j]) <= 2 * d, (tier, kk)
+        bound = 2 * (2 * r * d + d * d)
+        assert abs(got["r2"][j] - want["r2"][j]) <= bound, (tier, kk)
+        worst = max(worst, abs(got["r2"][j] - want["r2"][j]) / bound)
+    print(f"corr {tier}: largest |r2 card - r2 cpu| / bound {worst:.3g}, "
+          f"largest |r2 card - r2 cpu| "
+          f"{max(abs(p - w) for p, w in zip(got['r2'], want['r2'])):.3g}")
+
+
+def test_unique_on_card_matches_cpu(dev):
+    """unique over two keys (kernel F) and one Int32 key (the packed
+    torch.sort), with every keep, on the card against the CPU run."""
+    rng = np.random.default_rng(10)
+    n = 80_000
+    data = {"a": rng.integers(0, 300, n).astype(np.int32),
+            "b": rng.integers(0, 50, n), "r": np.arange(n)}
+    for keep in ("any", "first", "last", "none"):
+        for subset in (["a", "b"], "a"):
+            TM.LAUNCHES = 0
+            got = pt.DataFrame(data, device="cuda").unique(
+                subset=subset, keep=keep, maintain_order=True).to_dict()
+            assert TM.LAUNCHES == (1 if subset == ["a", "b"] else 0)
+            want = pt.DataFrame(data, device="cpu").unique(
+                subset=subset, keep=keep, maintain_order=True).to_dict()
+            assert got == want, (keep, subset)

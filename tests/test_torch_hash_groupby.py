@@ -256,8 +256,8 @@ def test_fallback_matches_reference(reserved):
 
 def test_domain_edges(monkeypatch):
     """A span product of 4081 slots stays dense, 4097 takes the hash
-    tier; a float key and a domain above 2^32 raise, naming the next
-    slice."""
+    tier; a float key and a domain above 2^32 take the sorted tier, and a
+    median runs on the hash tier's group ids."""
     calls = []
     orig = TH.group_ids
     monkeypatch.setattr(TH, "group_ids",
@@ -277,11 +277,23 @@ def test_domain_edges(monkeypatch):
         assert dict(zip(d["k"], d["n"])) == dict(
             zip(*np.unique(k, return_counts=True)))
         assert len(calls) == int(hashed)
-    df = pt.DataFrame({"k": np.array([0, 1 << 33]), "f": [0.5, 1.5]},
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice B2"):
-        df.lazy().group_by("k").agg(pt.len()).collect()
-    with pytest.raises(NotImplementedError, match="Slice B2"):
-        df.lazy().group_by("f").agg(pt.len()).collect()
-    with pytest.raises(NotImplementedError, match="Slice B2"):
-        df.lazy().group_by("k").agg(pt.col("f").median()).collect()
+    df = pt.DataFrame({"k": np.array([1 << 33, 0, 1 << 33]),
+                       "f": [0.5, 1.5, 2.5]}, device="cpu")
+    calls.clear()
+    out = df.lazy().group_by("k").agg(pt.len().alias("n")).collect()
+    assert out.to_dict() == {"k": [0, 1 << 33], "n": [1, 2]}
+    out = df.lazy().group_by("f").agg(pt.len().alias("n")).collect()
+    assert out.to_dict() == {"f": [0.5, 1.5, 2.5], "n": [1, 1, 1]}
+    out = df.lazy().group_by("k").agg(pt.col("f").median()).collect()
+    assert out.to_dict() == {"k": [0, 1 << 33], "f": [1.5, 1.5]}
+    assert not calls
+    k = rng.integers(0, 5000, n)
+    df = pt.DataFrame({"k": k, "f": rng.normal(size=n)}, device="cpu")
+    out = df.lazy().group_by("k").agg(pt.col("f").median()).collect()
+    assert len(calls) == 1
+    f = df.to_dict()["f"]
+    want = {g: np.median([x for x, kk in zip(f, k) if kk == g])
+            for g in np.unique(k)}
+    got = dict(zip(*out.to_dict().values()))
+    assert got.keys() == want.keys()
+    assert all(abs(got[g] - want[g]) <= 1e-12 * abs(want[g]) for g in want)

@@ -5,9 +5,12 @@ fmix32 and its inverse, the bucket exchange, `precheck`,
 data (about 2 * 8192 + 777 rows, as tests/test_hgroup.py), through
 `polaroid_tpu` on the CPU (its Pallas exchange in interpret mode) and
 `polaroid_tpu_torch` on the CPU (the kernel's plain version). Tolerances:
-exact for hashes, layouts, keys, counts, integer sums and min/max; f32
-sums within 1e-2 + 1e-4 |w| (the JAX CPU path accumulates those in f32,
-the port in f64); f64 sums of squares within rtol 1e-9.
+exact for hashes, layouts, keys, counts, integer sums, min/max and the
+lower, higher and nearest quantiles; f32 sums within 1e-2 + 1e-4 |w|
+(the JAX CPU path accumulates those in f32, the port in f64); f64 sums
+of squares and products within rtol 1e-9; linear and midpoint
+quantiles within 4 f32 ulp of the values' largest magnitude
+(interpolated in f32 there, in f64 here).
 """
 
 import numpy as np
@@ -216,11 +219,61 @@ def test_hash_groupby_u32_matches_jax(nkeys):
                                               .tolist())
 
 
+@pytest.mark.parametrize("nkeys", [2000, 200_000])
+def test_hash_groupby_u32_sumprod_and_quantile_match_jax(nkeys):
+    """"sumprod" (a pair of columns) and ("quantile", q, interp) with
+    every interpolation. Order statistics are exact; the JAX CPU path
+    interpolates in f32 and the port in f64, rounded once, so linear and
+    midpoint agree within 4 f32 ulp of the column's largest magnitude;
+    sumprod as sum and sumsq."""
+    key, f, i, valid = _hash_groupby_input(nkeys, nkeys + 1)
+    g = np.random.default_rng(nkeys).normal(0, 3, N).astype(np.float32)
+    quants = [("quantile", 0.5, "linear"), ("quantile", 0.3, "lower"),
+              ("quantile", 0.3, "higher"), ("quantile", 0.7, "midpoint"),
+              ("quantile", 0.5, "nearest"), ("quantile", 0.9, "linear"),
+              ("quantile", 0.25, "nearest")]
+    aggs = ["sumprod", "sumprod", "sumprod"] + quants
+    jv = [(f, g), (f, g), (i, i)] + [f] * 5 + [i] * 2
+    sd = [None, jnp.dtype(jnp.float64), jnp.dtype(jnp.int64)] + \
+        [None] * len(quants)
+    wk, wo, wv, wok = HG.hash_groupby_u32(
+        jnp.asarray(key), [tuple(jnp.asarray(y) for y in x)
+                           if isinstance(x, tuple) else jnp.asarray(x)
+                           for x in jv], jnp.asarray(valid),
+        aggs, scan_dtypes=sd)
+    td = [None, torch.float64, torch.int64] + [None] * len(quants)
+    gk, go, gv, ok = TH.hash_groupby_u32(
+        _t(key), [tuple(torch.from_numpy(y) for y in x)
+                  if isinstance(x, tuple) else torch.from_numpy(x)
+                  for x in jv], torch.from_numpy(valid), aggs,
+        scan_dtypes=td)
+    assert bool(wok) and bool(ok)
+    m = gv.numpy()
+    assert np.array_equal(m, np.asarray(wv))
+    assert np.array_equal(gk.numpy()[m], np.asarray(wk)[m].astype(np.int64))
+    w = [np.asarray(x)[m] for x in wo]
+    got = [x.numpy()[m] for x in go]
+    s = w[0].astype(np.float64)
+    assert np.all(np.abs(got[0] - s) <= 1e-2 + 1e-4 * np.abs(s))
+    np.testing.assert_allclose(got[1], w[1], rtol=1e-9)
+    assert got[2].dtype == np.int64 and np.array_equal(got[2], w[2])
+    for j, a in enumerate(aggs[3:], 3):
+        assert got[j].dtype == w[j].dtype == np.float32, a
+        if a[2] in ("linear", "midpoint"):
+            x = jv[j]
+            tol = 4 * np.spacing(np.float32(np.abs(x).max()))
+            assert np.all(np.abs(got[j] - w[j]) <= tol), a
+        else:
+            assert np.array_equal(got[j], w[j]), a
+
+
 def test_hash_groupby_u32_refuses_later_aggregates():
+    """Every aggregate of the JAX contract is ported (sumprod and
+    quantile came with the sorted tier); one outside it is refused."""
     key, f, _, valid = _hash_groupby_input(100, 0)
-    with pytest.raises(NotImplementedError, match="Slice B2"):
+    with pytest.raises(ValueError, match="contract"):
         TH.hash_groupby_u32(_t(key), [torch.from_numpy(f)],
-                            torch.from_numpy(valid), ["sumprod"])
+                            torch.from_numpy(valid), ["median"])
 
 
 @pytest.mark.parametrize("kind", ["uniform", "skewed"])
