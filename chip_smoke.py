@@ -12,9 +12,10 @@ Phases:
    and the least time the card could take (the bound); for the
    compaction and the segment min/max, also the device-only time of one
    call from a trace, which must hold exactly one device kernel; the
-   radix sort and the compaction also on the inputs of every launch
-   that one collect of each phase-9 query makes (recorded by their
-   wrappers);
+   segment sum, the exchange, the radix sort and the compaction also on
+   the inputs of every launch that one collect of each phase-9 query
+   and of each phase-10 join makes (recorded by their wrappers; each
+   sort timed in the mode the query called it in);
 3. the headline query q1 (filter -> with_columns -> group_by(symbol) ->
    agg(len, sum, mean) -> collect) at --rows rows, against a numpy
    oracle, with the kernels' launch counts during one collect, the
@@ -46,6 +47,18 @@ Phases:
    a median, a nearest quantile, n_unique and arg_max (N1) and unique
    over three keys (U1), each against a numpy oracle, with the kernels
    of each query's route launched, timed and traced the same way.
+10. joins: the H2O.ai db-benchmark join suite on J1_1e7_NA_0_0 data (x
+   and big of 10^7 rows; q1-q4 on the dense route, q5 on the collocated
+   route through kernel E, and q5_full, a full join on the sort-merge
+   route through kernel F over 2^25 rows) and bench.py's orders x users
+   join -> group_by (J1, 2^21 x 2^20), each against a numpy oracle (every
+   column bit for bit; J1's Float32 sums within one ulp), with the route
+   and the launches of kernels E, F and B asserted, timed and traced the
+   same way, with the host ms of each join's first collect beside the
+   median. Phase 2 also holds A, E, F and B on the inputs of every
+   launch of that first collect of each join, and times the
+   kernel-level collocated join at bench.py's shape (2^22 probes x 2^20
+   keys).
 
 The line before the last lists every ported kernel with its numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check raises,
@@ -134,18 +147,29 @@ def time_collects(lf, reps: int):
     return times
 
 
-def trace_collect(lf):
-    """One collect under torch.profiler: the device's busy ms (the sum of
-    the durations of the device-side events — kernels, memsets, copies;
-    one stream, so they do not overlap), how many there were, and the
-    five costliest by name."""
-    return trace_call(lf.collect)
+def trace_collect(lf, top_n: int = 5):
+    """One collect under torch.profiler, summarised as trace_call says."""
+    return trace_call(lf.collect, top_n=top_n)
 
 
-def trace_call(fn, top_n: int = 5, each: bool = False):
-    """fn() under torch.profiler, summarised as trace_collect says, with
-    the `top_n` costliest device events by name and, with `each`, every
-    device event in the order it ran (name, ms)."""
+def trace_call(fn, top_n: int = 5, each: bool = False, attempts: int = 6):
+    """fn() under torch.profiler: the device's busy ms (the sum of the
+    durations of the device-side events — kernels, memsets, copies; one
+    stream, so they do not overlap), how many there were, the `top_n`
+    costliest by name and, with `each`, every device event in the order
+    it ran (name, ms). A trace that recorded no device event at all (the
+    profiler can drop a window's events, at times several in a row) is
+    taken again after a pause, up to `attempts` traces in all;
+    "traces_taken" says how many were."""
+    for attempt in range(1, attempts + 1):
+        out = _one_trace(fn, top_n, each)
+        if out["device_ops"]:
+            break
+        time.sleep(0.2)
+    return {**out, "traces_taken": attempt}
+
+
+def _one_trace(fn, top_n, each):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -185,7 +209,6 @@ def make_q1_data(rows: int, seed: int):
 def check_seg_sum(args, torch, TK, data):
     """Kernel A at the q1 stash's shape: C = 4 f64 rows (len, count(price),
     sum(notional), sum(price)) over n rows and G = 1024 group slots."""
-    from polaroid_tpu_torch.ops.segment import SPILL, spill_slots
     n = args.rows
     dev = torch.device("cuda")
     G = 1024
@@ -198,33 +221,54 @@ def check_seg_sum(args, torch, TK, data):
     gid = torch.where(live, sym + 1, torch.full_like(sym, G)).to(torch.int32)
     ones = torch.ones(n, dtype=torch.float64, device=dev)
     vals = torch.stack([ones, ones, price * volume.double(), price])
+    # counts exact
+    assert torch.equal(TK.seg_sum(vals, gid, G)[:2],
+                       TK.seg_sum_plain(vals, gid, G)[:2]), \
+        "seg_sum counts differ"
+    return compare_seg_sum(args, torch, TK, vals, gid, G, trace=False)
+
+
+def compare_seg_sum(args, torch, TK, vals, gid, G, trace=True):
+    """Kernel A on (vals, gid, G) against its plain version: both add in
+    f64 in an order that varies, so each (row, group) agrees within
+    2 * n_g * 2^-53 * sum|v| of that group; times, the device-only time
+    of its kernels from a trace with `trace`, and the bound: vals and
+    gid read once, the (C, G) f64 sums written once."""
+    from polaroid_tpu_torch.ops.segment import SPILL, spill_slots
+    C, n = vals.shape
+    dev = vals.device
     got = TK.seg_sum(vals, gid, G)
     want = TK.seg_sum_plain(vals, gid, G)
-    torch.cuda.synchronize()
-    # counts exact
-    assert torch.equal(got[:2], want[:2]), "seg_sum counts differ"
-    # sums: both sides add in f64 in an order that varies, so each group
-    # agrees within 2 * n_g * 2^-53 * sum|v| of that group
     mag = TK.seg_sum_plain(vals.abs(), gid, G)
-    tol = 2 * want[0] * 2.0 ** -53 * mag
+    ones = torch.ones((1, n), dtype=torch.float64, device=dev)
+    count = TK.seg_sum_plain(ones, gid, G)
+    torch.cuda.synchronize()
+    tol = 2 * count * 2.0 ** -53 * mag
     err = (got - want).abs()
-    assert bool((err <= tol).all()), "seg_sum sums outside tolerance"
-    # the library yardstick: one index_add_, the rows outside every group
-    # spread over spill slots past G as the port's own scatters do
+    assert bool((err <= tol).all()), \
+        f"seg_sum sums outside tolerance: {float((err - tol).max())}"
+    # the library yardstick: one index_add_ (of the values in f64, cast
+    # beforehand), the rows outside every group spread over spill slots
+    # past G as the port's own scatters do
     idx = torch.where((gid >= 0) & (gid < G), gid.long(),
                       spill_slots(n, G, dev))
-    buf = torch.zeros((4, G + SPILL), dtype=torch.float64, device=dev)
+    buf = torch.zeros((C, G + SPILL), dtype=torch.float64, device=dev)
+    v64 = vals.double()
     out = {
-        "kernel": "seg_sum", "n": n, "C": 4, "G": G, "dtype": "float64",
+        "kernel": "seg_sum", "n": n, "C": C, "G": G,
+        "dtype": str(vals.dtype).split(".")[1],
         "max_abs_err": float(err.max()),
         "kernel_ms": cuda_ms(lambda: TK.seg_sum(vals, gid, G), args.reps),
         "plain_ms": cuda_ms(lambda: TK.seg_sum_plain(vals, gid, G),
                             args.reps),
-        "library_ms": cuda_ms(lambda: buf.index_add_(1, idx, vals),
+        "library_ms": cuda_ms(lambda: buf.index_add_(1, idx, v64),
                               args.reps),
     }
-    nbytes = n * (4 + 4 * 8) + 4 * G * 8
-    ops = 4 * n
+    if trace:
+        out.update(device_ms_of(lambda: TK.seg_sum(vals, gid, G),
+                                "seg_sum_kernel"))
+    nbytes = n * (4 + C * vals.element_size()) + C * G * 8
+    ops = C * n
     out["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                 ops / F32_OPS_PER_S)
     out["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= \
@@ -247,19 +291,30 @@ def check_compact(args, torch, TP, n, n_cols8, n_cols4, live_frac, seed):
 
 def one_kernel_call(fn, what):
     """The device-only ms and device events of one fn() call from a
-    trace; asserts that the call ran exactly one device kernel (no
-    torch op, memset or copy beside it). A trace that recorded no device
-    event at all (the profiler can drop a window's events, at times
-    several in a row) is taken again after a pause, up to five times;
-    the number of traces taken is returned."""
-    for attempt in range(1, 7):
-        tr = trace_call(fn, each=True)
-        if tr["device_ops"]:
-            break
-        time.sleep(0.2)
+    trace (trace_call); asserts that the call ran exactly one device
+    kernel (no torch op, memset or copy beside it)."""
+    tr = trace_call(fn, each=True)
     assert tr["device_ops"] == 1, f"one {what} call ran {tr['events']}"
     return {"trace_ms": tr["device_busy_ms"],
-            "trace_device_ops": tr["device_ops"], "traces_taken": attempt}
+            "trace_device_ops": tr["device_ops"],
+            "traces_taken": tr["traces_taken"]}
+
+
+def device_ms_of(fn, kernel: str):
+    """The device ms of the events named `kernel` in a trace of one fn()
+    call (trace_call), with the trace's device ops. If every trace came
+    back empty, the profiler (not the port) lost the window, and the
+    time is reported as None (the kernel's CUDA-event time stands
+    beside it)."""
+    tr = trace_call(fn, each=True)
+    if not tr["device_ops"]:
+        print(json.dumps({"phase": "trace_dropped", "kernel": kernel,
+                          "attempts": tr["traces_taken"]}))
+        return {"trace_ms": None, "traces_taken": tr["traces_taken"]}
+    ms = [t for n, t in tr["events"] if kernel in n]
+    assert ms, f"the trace of one call holds no {kernel}: {tr}"
+    return {"trace_ms": sum(ms), "trace_device_ops": tr["device_ops"],
+            "traces_taken": tr["traces_taken"]}
 
 
 def compare_compact(args, torch, TP, mask, words):
@@ -541,11 +596,20 @@ def h2o_key_code(torch, data, col):
 
 def check_exchange(args, torch, TE, TH, prep):
     """Kernel E at the H2O q3 collect's shape (capacity 2^24: B = 2048
-    blocks, 2 words, 10^7 live rows), bit for bit against the plain
-    version, pads included."""
+    blocks, 2 words, 10^7 live rows)."""
     assert bool(prep.ok), "the q3 exchange input overflows a cell"
     words, fills = TH.exchange_words(prep)
-    starts, counts = prep.starts, prep.counts
+    return compare_exchange(args, torch, TE, prep.starts, prep.counts,
+                            words, fills)
+
+
+def compare_exchange(args, torch, TE, starts, counts, words, fills,
+                     trace=False):
+    """Kernel E on (starts, counts, words, fills) bit for bit against its
+    plain version, pads included; times, the device-only time of one
+    call from a trace with `trace`, and the bound: each kept row's words
+    read once, every slot of every word written once, and the extents
+    read."""
     B = starts.shape[0]
     got = TE.bucket_exchange(starts, counts, words, fills)
     want = TE.bucket_exchange_plain(starts, counts, words, fills)
@@ -553,8 +617,8 @@ def check_exchange(args, torch, TE, TH, prep):
     for g, w in zip(got, want):
         assert torch.equal(g, w), "bucket_exchange differs from its plain " \
             "version"
-    # the library yardstick: one index_copy_ of the kept rows of both
-    # words to their slots, computed beforehand
+    # the library yardstick: one index_copy_ of the kept rows of every
+    # word to their slots, computed beforehand
     s = starts.long()
     c = counts.long().clamp(max=TE.CAP)
     j = torch.arange(TE.CAP, device=s.device)
@@ -579,6 +643,9 @@ def check_exchange(args, torch, TE, TH, prep):
         "library_ms": cuda_ms(lambda: lib_out.index_copy_(1, dst, vals),
                               args.reps),
     }
+    if trace:
+        out.update(device_ms_of(lambda: TE.bucket_exchange(
+            starts, counts, words, fills), "exchange_kernel"))
     nbytes = 4 * W * (live + TE.K * B * TE.CAP) + 2 * 4 * B * TE.K
     out["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
     out["bound_by"] = "bytes"
@@ -647,18 +714,24 @@ def check_merge_sort(args, torch, TM, h2o):
     return out
 
 
-def compare_merge_sort(args, torch, TM, words, nk):
-    """Kernel F on the key words a query gave it: the permutation alone
-    (the route the group-by and unique take) and every word out, each bit
-    for bit against the plain version; times of the permutation-only
-    route, the plain version and one stable torch.sort of an int64 of n
-    (the lowest key word packed with the row); the digit passes run. The
-    bound of the permutation-only route: each key word read once (4 bytes
-    a row) and the permutation written once (8)."""
+def compare_merge_sort(args, torch, TM, words, nk, stable=True,
+                       perm_only=True):
+    """Kernel F on the words a query gave it, in the mode the query called
+    it in: the permutation alone (the route the group-by and unique take)
+    or every word out (the sort-merge join's merged sort, its side row
+    riding as a tail word). Both modes are held bit for bit against the
+    plain version. Times of the recorded mode (`kernel_ms`, and its
+    device-only time from a trace), of the permutation-only route
+    (`perm_only_ms`), the plain version and one stable torch.sort of an
+    int64 of n (the lowest key word packed with the row); the digit
+    passes run. The bound counts the bytes the recorded mode moves, a
+    32-bit word being 4 bytes: each key word read once and the
+    permutation written once (8 bytes a row) alone; every word read and
+    written once, and the permutation written when the sort is stable,
+    with every word out."""
     n = words[0].shape[0]
     want = TM.merge_sort_words_plain(words, nk)
     perm = TM.merge_sort_words(words, nk, perm_only=True)
-    digit_passes = TM.PASSES
     got = TM.merge_sort_words(words, nk)
     torch.cuda.synchronize()
     assert len(perm) == 1 and torch.equal(perm[0], want[nk]), \
@@ -666,56 +739,86 @@ def compare_merge_sort(args, torch, TM, words, nk):
     for g, w in zip(got, want):
         assert torch.equal(g, w), "merge_sort_words differs from its plain " \
             "version"
+
+    def recorded():
+        return TM.merge_sort_words(words, nk, stable=stable,
+                                   perm_only=perm_only)
+    recorded()
+    digit_passes = TM.PASSES
     packed = (words[nk - 1] << 31) | torch.arange(n, device=words[0].device)
+    tr = trace_call(recorded)
     out = {
-        "kernel": "merge_sort", "n": n, "num_keys": nk,
+        "kernel": "merge_sort", "n": n, "num_keys": nk, "words": len(words),
+        "mode": "perm_only" if perm_only else "every_word",
         "digit_passes": digit_passes, "max_abs_err": 0.0,
-        "kernel_ms": cuda_ms(lambda: TM.merge_sort_words(
+        "kernel_ms": cuda_ms(recorded, args.reps),
+        "trace_ms": tr["device_busy_ms"] if tr["device_ops"] else None,
+        "trace_device_ops": tr["device_ops"],
+        "traces_taken": tr["traces_taken"],
+        "perm_only_ms": cuda_ms(lambda: TM.merge_sort_words(
             words, nk, perm_only=True), args.reps),
         "plain_ms": cuda_ms(lambda: TM.merge_sort_words_plain(words, nk),
                             args.reps),
         "library_ms": cuda_ms(lambda: torch.sort(packed, stable=True),
                               args.reps),
     }
-    nbytes = 4 * nk * n + 8 * n
+    if perm_only:
+        nbytes = 4 * nk * n + 8 * n
+    else:
+        nbytes = 2 * 4 * len(words) * n + (8 * n if stable else 0)
     out["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+    out["perm_only_bound_ms"] = 1e3 * (4 * nk * n + 8 * n) / HBM_BYTES_PER_S
     out["bound_by"] = "bytes"
     return out
 
 
-def record_kernel_inputs(torch, TM, TP, lf):
-    """The inputs of every launch of kernels F and B in one collect of
-    `lf` (the wrappers' RECORD lists): [(words, num_keys)] and [(mask,
-    words)]."""
-    TM.RECORD, TP.RECORD = [], []
+def record_kernel_inputs(torch, TK, TE, TM, TP, lf):
+    """The inputs of every launch of kernels A, E, F and B in one collect
+    of `lf` (the wrappers' RECORD lists): [(vals, gid, G)], [(starts,
+    counts, words, fills)], [(words, num_keys, stable, perm_only)] and
+    [(mask, words)], and the host ms of that collect, fenced."""
+    TK.RECORD, TE.RECORD, TM.RECORD, TP.RECORD = [], [], [], []
     try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         lf.collect()
         torch.cuda.synchronize()
-        return [(w, nk) for w, nk, _, _ in TM.RECORD], TP.RECORD
+        ms = (time.perf_counter() - t0) * 1e3
+        return TK.RECORD, TE.RECORD, TM.RECORD, TP.RECORD, ms
     finally:
-        TM.RECORD = TP.RECORD = None
+        TK.RECORD = TE.RECORD = TM.RECORD = TP.RECORD = None
 
 
-def check_sorted_tier_kernels(args, torch, TM, TP, queries):
-    """Kernels F and B at the shapes phase 9 gives them: every launch of
-    one collect of each phase-9 query, on the inputs that collect gave
-    it, held against the plain version (compare_merge_sort,
-    compare_compact); returns {kernel: {"query#i": numbers}}."""
-    out = {"merge_sort": {}, "compact_words": {}}
-    for name, lf, _ in queries:
-        sorts, compactions = record_kernel_inputs(torch, TM, TP, lf)
-        for i, (words, nk) in enumerate(sorts):
-            m = compare_merge_sort(args, torch, TM, words, nk)
-            out["merge_sort"][f"{name}#{i}"] = m
+def check_recorded_kernels(args, torch, TK, TE, TM, TP, queries):
+    """Kernels A, E, F and B at the shapes the queries give them: every
+    launch of one collect of each (name, lazy frame), on the inputs that
+    collect gave it, held against the plain version (compare_seg_sum,
+    compare_exchange, compare_merge_sort, compare_compact); returns
+    ({kernel: {"query#i": numbers}}, {query: host ms of that collect,
+    the first of its frames when no collect of them came before})."""
+    out = {"seg_sum": {}, "bucket_exchange": {}, "merge_sort": {},
+           "compact_words": {}}
+    first_ms = {}
+    for name, lf in queries:
+        sums, exchanges, sorts, compactions, first_ms[name] = \
+            record_kernel_inputs(torch, TK, TE, TM, TP, lf)
+        checks = [("seg_sum", a, lambda a: compare_seg_sum(
+            args, torch, TK, *a)) for a in sums] + \
+            [("bucket_exchange", e, lambda e: compare_exchange(
+                args, torch, TE, *e, trace=True)) for e in exchanges] + \
+            [("merge_sort", x, lambda x: compare_merge_sort(
+                args, torch, TM, *x)) for x in sorts] + \
+            [("compact_words", c, lambda c: compare_compact(
+                args, torch, TP, *c)) for c in compactions]
+        seen = {}
+        for kernel, inputs, check in checks:
+            i = seen[kernel] = seen.get(kernel, -1) + 1
+            m = check(inputs)
+            out[kernel][f"{name}#{i}"] = m
             print(json.dumps({"phase": "kernel", "shape": f"{name}#{i}",
                               **m}))
-        for i, (mask, words) in enumerate(compactions):
-            m = compare_compact(args, torch, TP, mask, words)
-            out["compact_words"][f"{name}#{i}"] = m
-            print(json.dumps({"phase": "kernel", "shape": f"{name}#{i}",
-                              **m}))
-        del sorts, compactions
-    return out
+        del sums, exchanges, sorts, compactions, checks
+    return out, first_ms
 
 
 def make_h2o_data(rows: int, seed: int):
@@ -1161,6 +1264,285 @@ def check_sorted_tier(name, out, data, valid):
     return ng, errs
 
 
+# --- phase 10: joins ---------------------------------------------------------
+
+J1_ORDERS, J1_USERS = 1 << 21, 1 << 20     # bench.py:694's engine join
+
+
+def id_dict(keys):
+    """A sorted StringDict of the strings "id<k>" over the distinct
+    positive ints `keys`, and each k's code (an int32 array indexed by k):
+    the strings' order is that of the decimal digits padded on the right,
+    a string before the longer ones it prefixes, so no string is sorted."""
+    import numpy as np
+    from polaroid_tpu_torch.strings import StringDict
+    keys = np.unique(keys)
+    digits = 1 + sum((keys >= 10 ** i).astype(np.int64) for i in range(1, 12))
+    ks = keys[np.lexsort((digits, keys * 10 ** (12 - digits)))]
+    lut = np.full(int(keys.max()) + 1, -1, np.int32)
+    lut[ks] = np.arange(len(ks), dtype=np.int32)
+    return StringDict(np.char.add("id", ks.astype(str)).astype(object)), lut
+
+
+def make_join_data(rows: int, seed: int):
+    """J1_1e7_NA_0_0 of the H2O.ai db-benchmark's join suite, as its
+    _data/join-datagen.R defines it, from `seed`: x and big of `rows`
+    rows, small of 10, medium of rows / 1000. Each key of n values (id1:
+    10, id2: rows / 1000, id3: rows) is drawn from 1.1 n values; x draws
+    from the first n, the right tables from the first 0.9 n and the last
+    0.1 n, so about 90% of x's rows match. small is unique on id1,
+    medium on id2 (so on id5), big on id3. id4, id5, id6 are the strings
+    "id<id1>", "id<id2>", "id<id3>", held as codes into sorted
+    dictionaries: one over id1's and one over id3's whole key space,
+    shared by the tables; id5 has x's own (over x's values) and the right
+    tables' (over theirs), so a join on it merges two dictionaries. v1,
+    v2 are uniform on [0, 100) (Float64). Returns (tables of numpy
+    columns, {(table, column): StringDict}); J1's orders and users (the
+    bench's engine join) ride along."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def split(n):
+        key = rng.permutation(np.arange(1, n * 11 // 10 + 1))
+        return key[:n], np.concatenate([key[:n * 9 // 10], key[n:]])
+
+    n1, n2 = 10, max(rows // 1000, 10)
+    (x1, r1), (x2, r2), (x3, r3) = split(n1), split(n2), split(rows)
+    i32 = np.int32
+    t = {
+        "x": {"id1": rng.choice(x1, rows), "id2": rng.choice(x2, rows),
+              "id3": rng.choice(x3, rows)},
+        "small": {"id1": rng.permutation(r1)},
+        "medium": {"id1": rng.choice(r1, n2), "id2": rng.permutation(r2)},
+        "big": {"id1": rng.choice(r1, rows), "id2": rng.choice(r2, rows),
+                "id3": rng.permutation(r3)},
+    }
+    d4, lut4 = id_dict(np.arange(1, n1 * 11 // 10 + 1))
+    d6, lut6 = id_dict(np.arange(1, rows * 11 // 10 + 1))
+    d5x, lut5x = id_dict(x2)
+    d5r, lut5r = id_dict(r2)
+    dicts = {}
+    for name, cols in t.items():
+        ids = dict(cols)
+        for c in ids:
+            cols[c] = ids[c].astype(i32)
+        cols["id4"] = lut4[ids["id1"]]
+        dicts[name, "id4"] = d4
+        if "id2" in ids:
+            cols["id5"] = (lut5x if name == "x" else lut5r)[ids["id2"]]
+            dicts[name, "id5"] = d5x if name == "x" else d5r
+        if "id3" in ids:
+            cols["id6"] = lut6[ids["id3"]]
+            dicts[name, "id6"] = d6
+        cols["v1" if name == "x" else "v2"] = rng.uniform(0, 100, len(
+            ids["id1"]))
+    t["orders"] = {"user_id": rng.integers(0, J1_USERS, J1_ORDERS),
+                   "amount": rng.uniform(1, 500, J1_ORDERS)
+                   .astype(np.float32)}
+    t["users"] = {"user_id": rng.permutation(J1_USERS),
+                  "country": rng.integers(0, 30, J1_USERS).astype(i32)}
+    return t, dicts
+
+
+def join_frames(pl, tables, dicts, device):
+    from polaroid_tpu_torch.testing import frame_from_numpy
+    return {name: frame_from_numpy(
+        cols, device=device,
+        strings={c: d for (tn, c), d in dicts.items() if tn == name})
+        for name, cols in tables.items()}
+
+
+def join_queries(pl, f):
+    """(name, lazy frame, route, launches, (left, right)) of phase 10:
+    the route the port must take (`ops/join.ROUTES`), the exact launches
+    of kernels E, F and B that one collect must make, and the input
+    tables."""
+    x, small, medium, big = (f[k].lazy() for k in ("x", "small", "medium",
+                                                     "big"))
+    m1 = {"bucket_exchange": 0, "merge_sort": 0, "compact_words": 1}
+    return [
+        ("q1", x.join(small, on="id1"), "dense_m1", m1, ("x", "small")),
+        ("q2", x.join(medium, on="id2"), "dense_m1", m1, ("x", "medium")),
+        ("q3", x.join(medium, on="id2", how="left"), "dense_m1", m1,
+         ("x", "medium")),
+        ("q4", x.join(medium, on="id5"), "dense_m1", m1, ("x", "medium")),
+        ("q5", x.join(big, on="id3"), "collocated",
+         {"bucket_exchange": 1, "merge_sort": 0, "compact_words": 1},
+         ("x", "big")),
+        ("q5_full", x.join(big, on="id3", how="full"), "sortmerge_expand",
+         {"bucket_exchange": 0, "merge_sort": 1, "compact_words": 0},
+         ("x", "big")),
+        # the bench's engine join (BASELINE.md's orders x users pipeline,
+        # with one group key as bench.py cuts it): the collocated join,
+        # then the dense tier (kernel A) and its compaction
+        ("J1", f["orders"].lazy().join(f["users"].lazy(), on="user_id")
+         .group_by("country").agg(pl.len().alias("n"),
+                                  pl.col("amount").sum().alias("s")),
+         "collocated",
+         {"bucket_exchange": 1, "merge_sort": 0, "compact_words": 2},
+         ("orders", "users")),
+    ]
+
+
+def m1_oracle(left, right, lk, rk, rkey, how):
+    """numpy's m:1 join: right rows unique on rk; left rows in order
+    (all of them for a left join); right columns named as the port names
+    them (the key `rkey` coalesced). Returns (columns, validity)."""
+    import numpy as np
+    lut = np.full(int(max(lk.max(), rk.max())) + 1, -1, np.int64)
+    lut[rk] = np.arange(len(rk))
+    ridx = lut[lk]
+    hit = ridx >= 0
+    rows = hit if how == "inner" else np.ones(len(lk), bool)
+    cols = {n: v[rows] for n, v in left.items()}
+    valid = {}
+    for n, v in right.items():
+        if n == rkey:
+            continue
+        name = f"{n}_right" if n in left else n
+        cols[name] = v[ridx[rows].clip(0)]
+        if how == "left":
+            valid[name] = hit[rows]
+    return cols, valid
+
+
+def full_oracle(left, right, key):
+    """numpy's full join on a key unique on the right (no coalesce)."""
+    import numpy as np
+    lk, rk = left[key], right[key]
+    lut = np.full(int(max(lk.max(), rk.max())) + 1, -1, np.int64)
+    lut[rk] = np.arange(len(rk))
+    ridx = lut[lk]
+    hit = ridx >= 0
+    rmatched = np.zeros(len(rk), bool)
+    rmatched[ridx[hit]] = True
+    nl, only_r = len(lk), np.nonzero(~rmatched)[0]
+    lrow = np.concatenate([np.arange(nl), np.zeros(len(only_r), np.int64)])
+    rrow = np.concatenate([ridx.clip(0), only_r])
+    lvalid = np.arange(len(lrow)) < nl
+    rvalid = np.concatenate([hit, np.ones(len(only_r), bool)])
+    cols, valid = {}, {}
+    for n, v in left.items():
+        cols[n], valid[n] = v[lrow], lvalid
+    for n, v in right.items():
+        name = f"{n}_right" if n in left else n
+        cols[name], valid[name] = v[rrow], rvalid
+    return cols, valid
+
+
+def canonical(cols, valid, keys):
+    """The rows ordered by the `keys` arrays (the first most significant):
+    (columns, validity) permuted alike."""
+    import numpy as np
+    order = np.lexsort(list(reversed(keys)))
+    return ({k: v[order] for k, v in cols.items()},
+            {k: v[order] for k, v in valid.items()})
+
+
+def host_ordered(got, keys):
+    """host_columns' (data, validity) pairs ordered by the `keys`
+    arrays."""
+    import numpy as np
+    order = np.lexsort(list(reversed(keys)))
+    return {k: (d[order], None if v is None else v[order])
+            for k, (d, v) in got.items()}
+
+
+def check_join(name, out, tables, dicts):
+    """A phase-10 result against numpy, every column bit for bit and its
+    nulls exact; the join order is unspecified for q5 and q5_full, so
+    both sides are ordered by (key, v1, v2) first; the string columns
+    keep their source's dictionary. J1: counts exact, the Float32 sums
+    within one f32 ulp of numpy's f64 sums rounded to Float32. Returns
+    the output rows."""
+    import numpy as np
+    got = host_columns(out)
+    if name == "J1":
+        o, u = tables["orders"], tables["users"]
+        country = np.empty(J1_USERS, np.int32)
+        country[u["user_id"]] = u["country"]
+        c = country[o["user_id"]]
+        n = np.bincount(c, minlength=30)
+        s = np.bincount(c, weights=o["amount"].astype(np.float64),
+                        minlength=30).astype(np.float32)
+        order = np.argsort(got["country"][0])
+        keys = got["country"][0][order]
+        assert np.array_equal(keys, np.nonzero(n)[0]), "J1: countries"
+        assert np.array_equal(got["n"][0][order], n[keys]), "J1: counts"
+        gs = got["s"][0][order]
+        assert gs.dtype == np.float32, f"J1: s is {gs.dtype}"
+        ulps = np.abs(gs.astype(np.float64) - s[keys]) / np.spacing(s[keys])
+        assert ulps.max() <= 1, f"J1: sums {ulps.max()} ulp off"
+        return len(keys)
+    x = tables["x"]
+    if name in ("q1", "q2", "q3"):
+        right = tables["small" if name == "q1" else "medium"]
+        key = "id1" if name == "q1" else "id2"
+        want, valid = m1_oracle(x, right, x[key], right[key], key,
+                                "left" if name == "q3" else "inner")
+    elif name == "q4":
+        # id5 equal <=> id2 equal ("id" + id2)
+        right = tables["medium"]
+        want, valid = m1_oracle(x, right, x["id2"], right["id2"], "id5",
+                                "inner")
+    elif name == "q5":
+        want, valid = m1_oracle(x, tables["big"], x["id3"],
+                                tables["big"]["id3"], "id3", "inner")
+        want, valid = canonical(want, valid, [want["id3"], want["v1"]])
+        got = host_ordered(got, [got["id3"][0], got["v1"][0]])
+    else:
+        want, valid = full_oracle(x, tables["big"], "id3")
+
+        def keys(cols, val):
+            lv, rv = val("id3"), val("id3_right")
+            return [np.where(lv, cols("id3"), cols("id3_right")),
+                    np.where(lv, cols("v1"), -1.0),
+                    np.where(rv, cols("v2"), -1.0)]
+        want, valid = canonical(want, valid, keys(want.get, valid.get))
+        got = host_ordered(got, keys(lambda k: got[k][0],
+                                     lambda k: got[k][1]))
+    assert list(out.columns) == list(want), f"{name}: {out.columns}"
+    check_rows(name, got, want, valid)
+    right = {"q1": "small", "q5": "big", "q5_full": "big"}.get(name,
+                                                               "medium")
+    for k, c in out._table.cols.items():
+        if c.dtype.is_string:
+            table, base = ("x", k) if not k.endswith("_right") else \
+                (right, k[:-len("_right")])
+            assert c.sdict is dicts[table, base], f"{name}: {k}'s dictionary"
+    return len(next(iter(want.values())))
+
+
+def check_lookup_join(args, torch, TE):
+    """The kernel-level join at bench.py:589-608's shape, 2^22 probes x
+    2^20 unique build keys: `lookup_join_collocated`, held against the
+    values (every probe key is built), timed, and traced for kernel E's
+    own device time."""
+    from polaroid_tpu_torch.ops.hjoin import lookup_join_collocated
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    nb, npr = 1 << 20, 1 << 22
+    bkey = torch.randperm(nb, generator=g, device=dev)
+    bval = torch.rand(nb, generator=g, device=dev)
+    pkey = torch.randint(0, nb, (npr,), generator=g, device=dev)
+    pidx, value, hit, live, ok = lookup_join_collocated(bkey, bval, pkey)
+    assert bool(ok), "the lookup join refused its input"
+    want = torch.empty_like(bval)
+    want[bkey] = bval
+    assert int(live.sum()) == npr and bool((hit == live).all()), \
+        "lookup join: a probe row is missing or has no build row"
+    assert torch.equal(value[live], want[pkey[pidx[live]]]), \
+        "lookup join: values differ"
+    ex = device_ms_of(lambda: lookup_join_collocated(bkey, bval, pkey),
+                      "exchange_kernel")
+    return {"probes": npr, "build": nb,
+            "ms": cuda_ms(lambda: lookup_join_collocated(bkey, bval, pkey),
+                          args.reps),
+            "exchange_device_ms": ex["trace_ms"],
+            "trace_device_ops": ex.get("trace_device_ops"),
+            "traces_taken": ex["traces_taken"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1202,6 +1584,16 @@ def main() -> int:
                       "sources": [f"polaroid_tpu_torch/csrc/{s}.cu"
                                   for s in B.SOURCES]}))
 
+    # phase 10's data, made before the first trace: on the H100 hosts this
+    # script was measured on, a trace taken more than several seconds
+    # after the one before it records no device event, and none after it
+    # does either, so no long host step runs between traces
+    t0 = time.perf_counter()
+    jtables, jdicts = make_join_data(H2O_ROWS, args.seed)
+    jframes = join_frames(pl, jtables, jdicts, "cuda")
+    print(json.dumps({"phase": "join_data", "rows": H2O_ROWS,
+                      "seconds": time.perf_counter() - t0}))
+
     # --- 2. each kernel against its plain version -------------------------
     data = make_q1_data(args.rows, args.seed)
     seg = check_seg_sum(args, torch, TK, data)
@@ -1238,12 +1630,25 @@ def main() -> int:
     del prep, lay, sv, newg
     msort = check_merge_sort(args, torch, TM, h2o)
     print(json.dumps({"phase": "kernel", **msort}))
-    # kernels F and B at every shape that phase 9's collects give them
+    # kernels E, F and B at every shape that phase 9's collects give them
     import numpy as np
     hdf = pl.DataFrame(h2o, device="cuda")
     ndf, valid = with_null_copies(pl, hdf, h2o, args.seed)
-    tier_kernels = check_sorted_tier_kernels(
-        args, torch, TM, TP, sorted_tier_queries(pl, hdf, ndf))
+    recorded, _ = check_recorded_kernels(
+        args, torch, TK, TE, TM, TP,
+        [(name, lf) for name, lf, _ in sorted_tier_queries(pl, hdf, ndf)])
+    # kernels A, E, F and B at every shape that phase 10's joins give
+    # them (this is each join's first collect: its host ms is printed in
+    # phase 10), and the kernel-level join at bench.py's shape
+    jqueries = join_queries(pl, jframes)
+    shapes, first_collect_ms = check_recorded_kernels(
+        args, torch, TK, TE, TM, TP,
+        [(name, lf) for name, lf, *_ in jqueries])
+    for kernel, by_shape in shapes.items():
+        recorded[kernel].update(by_shape)
+    lookup = check_lookup_join(args, torch, TE)
+    print(json.dumps({"phase": "kernel", "shape": "lookup_join_4m_x_1m",
+                      **lookup}))
 
     # --- 3. q1 end to end ---------------------------------------------------
     df = pl.DataFrame(data, device="cuda")
@@ -1375,6 +1780,47 @@ def main() -> int:
                           "trace": trace_collect(lfs)}))
     del ndf
 
+    # --- 10. joins: the H2O join suite and the orders x users pipeline --
+    # every query's collects and trace first, the numpy oracles (seconds
+    # of host work each) after them
+    from polaroid_tpu_torch.ops import join as TJ
+    results = []
+    for name, lfj, route, want, sides in jqueries:
+        reset_launches(TK, TP, TE, TH, TM)
+        TJ.ROUTES.clear()
+        outj = lfj.collect()
+        jl = read_launches(TK, TP, TE, TH, TM)
+        assert dict(TJ.ROUTES) == {route: 1}, \
+            f"{name} took {dict(TJ.ROUTES)}, not {route}"
+        for kernel, count in want.items():
+            assert jl[kernel] == count, \
+                f"{name} launched {kernel} {jl[kernel]} times, not {count}"
+        assert jl["fallbacks"] == 0, f"{name} took the fallback"
+        if name == "J1":
+            assert jl["seg_sum"] >= 1, "J1 did not group on the dense tier"
+        runs.append(jl)
+        tr = trace_collect(lfj, top_n=12)
+        times = time_collects(lfj, args.reps)
+        results.append((name, outj, route, jl, sides, times, tr))
+    for name, outj, route, jl, sides, times, tr in results:
+        nout = check_join(name, outj, jtables, jdicts)
+        med = statistics.median(times)
+        print(json.dumps({
+            "phase": "join", "query": name,
+            "rows": [len(next(iter(jtables[t].values()))) for t in sides],
+            "note": "bench.py's cut of the BASELINE.md pipeline: one group "
+                    "key" if name == "J1" else "J1_1e7_NA_0_0",
+            "out_rows": nout, "route": route, "launches": jl,
+            "first_collect_ms": first_collect_ms[name],
+            "median_ms": med, "ms": times,
+            "note_ms": "the median is of warm collects: a later collect "
+                       "of the same frames reuses what the first one "
+                       "built on the host (a string key's merged "
+                       "dictionary)",
+            "idle_share": 1 - tr["device_busy_ms"] / med
+            if tr["device_ops"] else None, "trace": tr}))
+    del results
+
     # --- result ---------------------------------------------------------------
     def launches(name):
         return sum(r[name] for r in runs)
@@ -1391,29 +1837,40 @@ def main() -> int:
         return {"ms": m["kernel_ms"],
                 **{k: m[k] for k in ("plain_ms", "bound_ms", "library_ms",
                                      "trace_ms", "live", "digit_passes",
-                                     "num_keys") if k in m}}
+                                     "num_keys", "n", "slots", "mode",
+                                     "perm_only_ms", "perm_only_bound_ms",
+                                     "C", "G")
+                 if k in m}}
 
     compact_entry = entry("compact_words", "compact.cu",
                           "polaroid_tpu/ops/pallas_partition.py:281",
                           comp_full)
     for shape, m in (("h2o_q3_layout", comp_hash),
                      ("h2o_fallback_sort", comp_carry),
-                     *tier_kernels["compact_words"].items()):
+                     *recorded["compact_words"].items()):
         compact_entry[shape] = shape_entry(m)
     msort_entry = entry("merge_sort", "radix_sort.cu",
                         "polaroid_tpu/ops/merge_sort.py:216", msort)
-    for shape, m in tier_kernels["merge_sort"].items():
+    for shape, m in recorded["merge_sort"].items():
         msort_entry[shape] = shape_entry(m)
+    exch_entry = entry("bucket_exchange", "exchange.cu",
+                       "polaroid_tpu/ops/exchange.py:116", exch)
+    for shape, m in recorded["bucket_exchange"].items():
+        exch_entry[shape] = shape_entry(m)
+    exch_entry["lookup_join_4m_x_1m"] = {
+        k: lookup[k] for k in ("ms", "exchange_device_ms")}
+    seg_entry = entry("seg_sum", "seg_sum.cu",
+                      "polaroid_tpu/ops/pallas_kernels.py:120", seg)
+    for shape, m in recorded["seg_sum"].items():
+        seg_entry[shape] = shape_entry(m)
     kernels = [
-        entry("seg_sum", "seg_sum.cu",
-              "polaroid_tpu/ops/pallas_kernels.py:120", seg),
+        seg_entry,
         compact_entry,
         entry("seg_minmax", "seg_minmax.cu",
               "polaroid_tpu/ops/pallas_kernels.py:177", mm_max),
         entry("gather", "gather.cu",
               "polaroid_tpu/ops/pallas_kernels.py:231", gat),
-        entry("bucket_exchange", "exchange.cu",
-              "polaroid_tpu/ops/exchange.py:116", exch),
+        exch_entry,
         msort_entry,
     ]
     print(json.dumps({"kernels": kernels}))

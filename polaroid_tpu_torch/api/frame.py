@@ -9,7 +9,7 @@ package default (`Config.device`, "cuda") unless the caller passes
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -46,6 +46,22 @@ def _to_exprs(args, kwargs=None) -> List[Expr]:
         e = _to_exprs([a])[0]
         flat.append(e.alias(name))
     return flat
+
+
+def _join_keys(on, how: str, left_on, right_on):
+    """(left_on, right_on) as lists from `on` or the pair; none for a
+    cross join."""
+    if on is not None:
+        left_on = right_on = [on] if isinstance(on, str) else list(on)
+    elif how != "cross":
+        if left_on is None or right_on is None:
+            raise ComputeError("join requires `on` or `left_on`+`right_on`")
+        left_on = [left_on] if isinstance(left_on, str) else list(left_on)
+        right_on = [right_on] if isinstance(right_on, str) \
+            else list(right_on)
+    else:
+        left_on = right_on = []
+    return left_on, right_on
 
 
 def _per_key(flag, nk: int) -> List[bool]:
@@ -218,6 +234,41 @@ class DataFrame:
             (list(subset) if subset is not None else None)
         return DataFrame._from_table(C.compact(
             unique_table(self._table, names, keep, maintain_order)))
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner", *,
+             left_on=None, right_on=None, suffix: str = "_right",
+             join_nulls: bool = False, nulls_equal: bool = False,
+             coalesce: Optional[bool] = None,
+             maintain_order: Optional[str] = None,
+             validate: str = "m:m") -> "DataFrame":
+        """Equi-join on `on` (or `left_on`/`right_on`) of every kind:
+        inner, left, right, full (outer), semi, anti, cross
+        (`ops/join.join_tables`). Nulls match nulls only with
+        `join_nulls`/`nulls_equal`; `validate` ("1:1", "1:m", "m:1")
+        checks that the named side's keys are unique."""
+        from ..ops.join import join_tables
+        left_on, right_on = _join_keys(on, how, left_on, right_on)
+        return DataFrame._from_table(join_tables(
+            self._table, other._table, left_on, right_on, how, suffix,
+            join_nulls or nulls_equal, coalesce, maintain_order, validate))
+
+    def vstack(self, other: "DataFrame") -> "DataFrame":
+        from ..ops.concat import vstack_tables
+        return DataFrame._from_table(
+            vstack_tables([self._table, other._table]))
+
+    def hstack(self, other: "DataFrame") -> "DataFrame":
+        """The columns of both frames side by side (both compacted, the
+        smaller capacity grown to the larger); a column of `other`
+        replaces one of the same name."""
+        if not isinstance(other, DataFrame):
+            raise ComputeError("hstack expects a DataFrame")
+        t, ot = C.compact(self._table), C.compact(other._table)
+        cap = max(t.capacity, ot.capacity)
+        t, ot = C.grow_to(t, cap), C.grow_to(ot, cap)
+        for name in ot.names:
+            t = t.with_column(name, ot.cols[name])
+        return DataFrame._from_table(t)
 
     def group_by(self, *by, maintain_order: bool = False, **named_by):
         from .groupby import GroupBy

@@ -4,7 +4,10 @@ and `len` live in `expr/expr.py`, as in the JAX package."""
 
 from __future__ import annotations
 
+from typing import Sequence
+
 from ..dtypes import Float64
+from ..errors import ComputeError
 from ..expr.expr import Expr, col
 
 
@@ -41,3 +44,31 @@ def cov(a, b, ddof: int = 1) -> Expr:
     n = ax.count()
     return (((ax * bx).sum() - ax.sum() * bx.sum() / n)
             / (n - ddof)).alias("cov")
+
+
+def concat(items: Sequence, how: str = "vertical", rechunk: bool = False):
+    """Frames (or lazy frames, as a union node) stacked vertically
+    ("vertical", "vertical_relaxed"), by the union of their columns
+    ("diagonal", "diagonal_relaxed"), or side by side ("horizontal")."""
+    items = list(items)
+    if not items:
+        raise ComputeError("concat needs at least one item")
+    from .frame import DataFrame
+    from .lazyframe import LazyFrame
+    from ..plan import logical as L
+    if isinstance(items[0], LazyFrame):
+        if how == "horizontal":
+            return LazyFrame._from_plan(L.HConcat([i._plan for i in items]))
+        return LazyFrame._from_plan(L.Union([i._plan for i in items], how))
+    if how in ("vertical", "vertical_relaxed", "diagonal",
+               "diagonal_relaxed"):
+        from ..ops.concat import vstack_tables
+        hw = "vertical" if how.startswith("vertical") else "diagonal"
+        return DataFrame._from_table(
+            vstack_tables([i._table for i in items], hw))
+    if how == "horizontal":
+        out = items[0]
+        for i in items[1:]:
+            out = out.hstack(i)
+        return out
+    raise ComputeError(f"unknown concat strategy {how!r}")

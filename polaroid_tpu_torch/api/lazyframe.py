@@ -9,12 +9,12 @@ and compacts the result on the device.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from ..expr.expr import Expr, col as _col
 from ..plan import logical as L
 from ..plan.optimizer import optimize
-from .frame import _per_key
+from .frame import _join_keys, _per_key
 
 
 def _to_exprs(args, kwargs=None) -> List[Expr]:
@@ -107,6 +107,19 @@ class LazyFrame:
 
     def head(self, n: int = 5) -> "LazyFrame":
         return LazyFrame._from_plan(L.Slice(self._plan, 0, n))
+
+    def join(self, other: "LazyFrame", on=None, how: str = "inner", *,
+             left_on=None, right_on=None, suffix: str = "_right",
+             join_nulls: bool = False, nulls_equal: bool = False,
+             coalesce: Optional[bool] = None,
+             maintain_order: Optional[str] = None,
+             validate: str = "m:m") -> "LazyFrame":
+        """A join node (see `DataFrame.join`). Unlike the JAX package's
+        lazy join, it keeps `validate`."""
+        left_on, right_on = _join_keys(on, how, left_on, right_on)
+        return LazyFrame._from_plan(L.Join(
+            self._plan, other._plan, left_on, right_on, how, suffix,
+            join_nulls or nulls_equal, coalesce, maintain_order, validate))
 
     def unique(self, subset=None, keep: str = "any",
                maintain_order: bool = False) -> "LazyFrame":

@@ -315,6 +315,13 @@ class Table:
             return idx < self.nrows_dev
         return idx < 0
 
+    def live_key(self):
+        """What identifies the live rows: the mask tensor, the host row
+        count or the device row count. Cached stats remember it."""
+        if self.valid is not None:
+            return self.valid
+        return self._nrows if self._nrows is not None else self.nrows_dev
+
     def count_rows(self) -> int:
         """Host-synced live row count (caches into nrows)."""
         if self._nrows is None:

@@ -13,28 +13,54 @@ no stats and takes the sorted tier, as the JAX package's does.
 
 from __future__ import annotations
 
-from typing import List
-
-import torch
+from typing import Dict, List, Optional
 
 from ..batch import Table
 from ..expr import meta
 from ..expr.eval import eval_expr
 from ..ops import compact as C
 from ..ops import sort as S
+from ..ops.concat import vstack_tables
 from ..ops.groupby import group_by_agg, unique_table
+from ..ops.join import join_tables, minmax_masked
 from ..plan import logical as L
 
 # nodes applied on top of their input table, as one chain under a group-by
 _CHAIN = ("filter", "select", "with_columns")
 # the slice of the port that brings a plan node not ported yet
-_NEXT_SLICE = {"join": "Slice C (joins)"}
+_NEXT_SLICE = {"iejoin": "Slice D (windows and time)"}
 
 
-def execute(plan: L.Plan) -> Table:
+def execute(plan: L.Plan, cache: Optional[Dict[int, Table]] = None
+            ) -> Table:
+    """The plan's result table. `cache` holds the results of the shared
+    subplans (`cache` nodes, which the optimizer puts where one subplan
+    occurs twice, as in a self-join) for one run."""
+    if cache is None:
+        cache = {}
     k = plan.kind
     if k == "df_scan":
         return plan.table
+    if k == "cache":
+        if plan.cache_id not in cache:
+            cache[plan.cache_id] = execute(plan.input, cache)
+        return cache[plan.cache_id]
+    if k == "join":
+        return join_tables(execute(plan.left, cache),
+                           execute(plan.right, cache), plan.left_on,
+                           plan.right_on, plan.how, plan.suffix,
+                           plan.join_nulls, plan.coalesce,
+                           plan.maintain_order, plan.validate)
+    if k == "union":
+        how = "vertical" if plan.how.startswith("vertical") else "diagonal"
+        return vstack_tables([execute(p, cache) for p in plan.inputs], how)
+    if k == "hconcat":
+        from ..api.frame import DataFrame
+        tables = [execute(p, cache) for p in plan.inputs]
+        df = DataFrame._from_table(tables[0])
+        for t in tables[1:]:
+            df = df.hstack(DataFrame._from_table(t))
+        return df._table
     if k == "group_by":
         # the chain of elementwise nodes below the group-by runs on top
         # of its input, after the stats pre-pass has seen that input
@@ -44,15 +70,15 @@ def execute(plan: L.Plan) -> Table:
             chain.append(inp)
             inp = inp.input
         chain.reverse()
-        t = execute(inp)
+        t = execute(inp, cache)
         _ensure_groupby_stats(chain, t)
         for node in chain:
             t = _apply_node(node, t)
         return t
     if k in _CHAIN:
-        return _apply_node(plan, execute(plan.input))
+        return _apply_node(plan, execute(plan.input, cache))
     if k == "sort":
-        t = execute(plan.input)
+        t = execute(plan.input, cache)
         vals = [eval_expr(b, t, "select") for b in plan.by]
         if plan.slice_ is not None and plan.slice_[0] == 0:
             return S.top_k_table(t, vals, plan.slice_[1], plan.descending,
@@ -60,11 +86,11 @@ def execute(plan: L.Plan) -> Table:
         return S.sort_table(t, vals, plan.descending, plan.nulls_last,
                             plan.maintain_order)
     if k == "slice":
-        return C.slice_rows(execute(plan.input), plan.offset,
+        return C.slice_rows(execute(plan.input, cache), plan.offset,
                             plan.length)
     if k == "distinct":
-        return unique_table(execute(plan.input), plan.subset, plan.keep,
-                            plan.maintain_order)
+        return unique_table(execute(plan.input, cache), plan.subset,
+                            plan.keep, plan.maintain_order)
     raise NotImplementedError(
         f"plan node {k!r} is not ported yet: it comes with "
         f"{_NEXT_SLICE.get(k, 'a later slice of the port')}")
@@ -85,14 +111,6 @@ def _apply_node(node: L.Plan, table: Table) -> Table:
                         node.maintain_order)
 
 
-def _live_key(table: Table):
-    """What identifies the live rows of `table`: its mask tensor, its
-    host row count or its device row count."""
-    if table.valid is not None:
-        return table.valid
-    return table._nrows if table._nrows is not None else table.nrows_dev
-
-
 def _ensure_groupby_stats(nodes: List[L.Plan], table: Table) -> None:
     """Host pre-pass: cache bucketed min/max on integer key columns so the
     group-by can take the dense O(n) path. One device sync per column,
@@ -103,7 +121,7 @@ def _ensure_groupby_stats(nodes: List[L.Plan], table: Table) -> None:
     they were taken over and are taken again for others. The JAX package
     reuses them for any table, and then groups keys outside the cached
     range into the edge slot (ROADMAP Queue 3)."""
-    live = _live_key(table)
+    live = table.live_key()
     redefined = set()
     for node in nodes:
         if node.kind in ("select", "with_columns"):
@@ -132,15 +150,7 @@ def _ensure_groupby_stats(nodes: List[L.Plan], table: Table) -> None:
             mask = table.row_mask()
             if c.validity is not None:
                 mask = mask & c.validity
-            x = c.data.to(torch.int64)
-            big = torch.iinfo(torch.int64)
-            # (min, max) in ONE readback
-            packed = torch.stack([
-                torch.where(mask, x, torch.full_like(x, big.max)).min(),
-                torch.where(mask, x, torch.full_like(x, big.min)).max()])
-            mn, mx = (int(v) for v in packed.tolist())
-            if mx < mn:
-                mn, mx = 0, 0
+            mn, mx = minmax_masked(c.data, mask)
             # bucket bounds so stats stay stable across similar batches
             B = 16
             c.stats = {"min": (mn // B) * B, "max": ((mx // B) + 1) * B - 1,

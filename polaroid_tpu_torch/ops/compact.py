@@ -100,6 +100,26 @@ def shrink_to(table: Table, nrows: int) -> Table:
                  device=table.device)
 
 
+def grow_to(table: Table, capacity: int) -> Table:
+    """Pad a table to a larger capacity bucket (pad rows are dead; a
+    string pad holds the null code)."""
+    if capacity <= table.capacity:
+        return table
+    pad = capacity - table.capacity
+
+    def grown(x: torch.Tensor, fill) -> torch.Tensor:
+        return torch.cat([x, x.new_full((pad,), fill)])
+
+    cols = {name: Column(c.dtype,
+                         grown(c.data, -1 if c.dtype.is_string else 0),
+                         None if c.validity is None
+                         else grown(c.validity, False), c.sdict)
+            for name, c in table.cols.items()}
+    valid = None if table.valid is None else grown(table.valid, False)
+    return Table(list(table.names), cols, capacity, table._nrows, valid,
+                 nrows_dev=table.nrows_dev, device=table.device)
+
+
 def slice_rows(table: Table, offset: int, length: Optional[int]) -> Table:
     """head/tail/slice on live rows. Negative offset counts from the end."""
     t = compact(table)

@@ -31,7 +31,7 @@ from .segment import segment_minmax, segment_sum, segment_take
 
 __all__ = ["seg_sum", "seg_sum_plain", "seg_minmax", "seg_minmax_plain",
            "gather", "gather_plain", "MAX_GROUPS", "LAUNCHES",
-           "MINMAX_LAUNCHES", "GATHER_LAUNCHES"]
+           "MINMAX_LAUNCHES", "GATHER_LAUNCHES", "RECORD"]
 
 # the dense group-by's key-domain limit (the JAX package's
 # _MXU_GROUP_LIMIT): one block's C x G f64 partials must fit shared memory
@@ -43,6 +43,10 @@ _SMEM_BYTES = 232448
 LAUNCHES = 0
 MINMAX_LAUNCHES = 0
 GATHER_LAUNCHES = 0
+# None, or a list to which each `seg_sum` call on the card appends its
+# (vals, gid, G), so that a caller can hold the kernel against its plain
+# version on the inputs a query gave it
+RECORD = None
 
 
 def seg_sum_plain(vals: torch.Tensor, gid: torch.Tensor, G: int
@@ -78,6 +82,8 @@ def seg_sum(vals: torch.Tensor, gid: torch.Tensor, G: int) -> torch.Tensor:
         return seg_sum_plain(vals, gid, G)
     if vals.device.type != "cuda":
         raise ValueError(f"seg_sum: unsupported device {vals.device}")
+    if RECORD is not None:
+        RECORD.append((vals, gid, G))
     from .cuda_build import check, library
     lib = library("seg_sum")
     fn = lib.pt_seg_sum_f32 if vals.dtype == torch.float32 \

@@ -24,7 +24,7 @@ from typing import List, Sequence
 import torch
 
 __all__ = ["S", "K", "CAP", "bucket_exchange", "bucket_exchange_plain",
-           "EXCHANGE_LAUNCHES"]
+           "EXCHANGE_LAUNCHES", "RECORD"]
 
 S = 8192          # block rows; must equal PT_S in csrc/exchange.cu
 K = 32            # buckets per exchange; PT_K
@@ -33,6 +33,10 @@ MAX_WORDS = 8     # words per launch; PT_MAX_WORDS
 # kernel launches made by `bucket_exchange` (reset by callers that count
 # them)
 EXCHANGE_LAUNCHES = 0
+# None, or a list to which each call on the card appends its (starts,
+# counts, words, fills), so that a caller can hold the kernel against its
+# plain version on the inputs a query gave it
+RECORD = None
 
 
 def _i32(fill: int) -> int:
@@ -113,6 +117,8 @@ def bucket_exchange(starts: torch.Tensor, counts: torch.Tensor,
     if starts.device.type != "cuda":
         raise ValueError(f"bucket_exchange: unsupported device "
                          f"{starts.device}")
+    if RECORD is not None:
+        RECORD.append((starts, counts, list(words), list(fills)))
     from .cuda_build import check, library
     lib = library("exchange")
     geo = (ctypes.c_int * 4)()

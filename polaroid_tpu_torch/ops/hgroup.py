@@ -44,7 +44,7 @@ from .hashing import U32_MASK, fmix32
 from .segment import SPILL, spill_slots
 
 __all__ = ["FILL", "FALLBACKS", "fmix32_inv", "precheck", "out_capacity",
-           "hash_prep", "exchange_words", "hash_layout", "group_ids",
+           "hash_prep", "cell_extents", "exchange_words", "hash_layout", "group_ids",
            "hash_group_ids", "carry_sort", "carry_group_ids",
            "hash_groupby_u32", "local_groupby_carry"]
 
@@ -105,7 +105,19 @@ def hash_prep(key: torch.Tensor, valid: torch.Tensor) -> HashPrep:
     if npad != n:
         h = torch.cat([h, torch.full((npad - n,), FILL, dtype=torch.int64,
                                      device=dev)])
-    live = h != FILL
+    counts, starts = cell_extents(h, h != FILL)
+    ok = (counts.max() <= CAP) & ~badkey
+    return HashPrep(h, counts, starts, ok)
+
+
+def cell_extents(h: torch.Tensor, live: torch.Tensor):
+    """(counts, starts), each (B, K) int32, of the (block, bucket) cells
+    of (B * S,) int64 words below 2^32, bucketed by their top 5 bits:
+    the live rows of each cell, and the exclusive prefix of those counts
+    along K (a cell's first row once its block is sorted)."""
+    npad = h.shape[0]
+    B = npad // S
+    dev = h.device
     block = torch.arange(npad, dtype=torch.int64, device=dev) // S
     # dead and pad rows go to spill slots past the cells (segment.py)
     cell = torch.where(live, block * K + (h >> (32 - _LOG_K)),
@@ -115,8 +127,7 @@ def hash_prep(key: torch.Tensor, valid: torch.Tensor) -> HashPrep:
                                           device=dev))
     counts = counts[:B * K].view(B, K)
     starts = (torch.cumsum(counts, 1, dtype=torch.int32) - counts)
-    ok = (counts.max() <= CAP) & ~badkey
-    return HashPrep(h, counts, starts.contiguous(), ok)
+    return counts, starts.contiguous()
 
 
 def precheck(key: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -331,7 +331,8 @@ class Join(Plan):
     def __init__(self, left: Plan, right: Plan, left_on: List[str],
                  right_on: List[str], how: str, suffix: str = "_right",
                  join_nulls: bool = False, coalesce: Optional[bool] = None,
-                 maintain_order: Optional[str] = None):
+                 maintain_order: Optional[str] = None,
+                 validate: str = "m:m"):
         super().__init__()
         self.left = left
         self.right = right
@@ -343,6 +344,7 @@ class Join(Plan):
         self.join_nulls = join_nulls
         self.coalesce = coalesce
         self.maintain_order = maintain_order
+        self.validate = validate
 
     def _compute_schema(self) -> Schema:
         ls = self.left.schema()
@@ -375,7 +377,8 @@ class Join(Plan):
 
     def with_inputs(self, inputs):
         return Join(inputs[0], inputs[1], self.left_on, self.right_on,
-                    self.how, self.suffix, self.join_nulls, self.coalesce)
+                    self.how, self.suffix, self.join_nulls, self.coalesce,
+                    self.maintain_order, self.validate)
 
     def __repr__(self):
         return f"JOIN[{self.how} on {self.left_on}]"

@@ -724,10 +724,8 @@ def push_projection(plan: L.Plan, needed: Optional[Set[str]]) -> L.Plan:
                     rn.add(base)
                 elif n in rs:
                     rn.add(n)
-        out = L.Join(push_projection(plan.left, ln),
-                     push_projection(plan.right, rn),
-                     plan.left_on, plan.right_on, plan.how, plan.suffix,
-                     plan.join_nulls, plan.coalesce)
+        out = plan.with_inputs([push_projection(plan.left, ln),
+                                push_projection(plan.right, rn)])
         if needed is not None and set(out.schema()) - needed:
             keep = [n for n in out.schema() if n in needed]
             if keep:

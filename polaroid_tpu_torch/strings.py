@@ -24,7 +24,7 @@ _DICT_COUNTER = [0]
 class StringDict:
     """Immutable sorted dictionary of unique strings (or bytes)."""
 
-    __slots__ = ("values", "version")
+    __slots__ = ("values", "version", "_last_merge")
 
     def __init__(self, values: np.ndarray):
         # values must be sorted and unique, dtype=object
@@ -32,6 +32,8 @@ class StringDict:
         # monotonic id, usable as a cache key (id() can be reused by GC)
         _DICT_COUNTER[0] += 1
         self.version = _DICT_COUNTER[0]
+        # (other's version, merge result) of the last `merge`
+        self._last_merge = None
 
     def __len__(self) -> int:
         return len(self.values)
@@ -65,11 +67,19 @@ class StringDict:
     def merge(self, other: "StringDict"
               ) -> Tuple["StringDict", np.ndarray, np.ndarray]:
         """Union two dictionaries. Returns (merged, remap_self, remap_other)
-        where remap_x maps an old code to its new code (int32)."""
+        where remap_x maps an old code to its new code (int32). A
+        dictionary never changes, so it keeps the result of its last
+        merge, for as long as it lives: a join or comparison of two string
+        columns repeated over the same frames merges once."""
+        last = self._last_merge
+        if last is not None and last[0] == other.version:
+            return last[1]
         merged = np.union1d(self.values, other.values).astype(object)
         remap_a = np.searchsorted(merged, self.values).astype(np.int32)
         remap_b = np.searchsorted(merged, other.values).astype(np.int32)
-        return StringDict(merged), remap_a, remap_b
+        hit = (StringDict(merged), remap_a, remap_b)
+        self._last_merge = (other.version, hit)
+        return hit
 
 
 EMPTY_DICT = StringDict(np.array([], dtype=object))

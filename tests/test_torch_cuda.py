@@ -704,3 +704,102 @@ def test_unique_on_card_matches_cpu(dev):
             want = pt.DataFrame(data, device="cpu").unique(
                 subset=subset, keep=keep, maintain_order=True).to_dict()
             assert got == want, (keep, subset)
+
+
+def test_collocated_exchange_on_card_matches_plain(dev):
+    """Kernel E at the join's layout (w and the row word, the probe side
+    three times the build side), bit for bit against its plain version
+    on the inputs the collocated join gave it; and the kernel-level join
+    on the card against the CPU run, as row multisets."""
+    from polaroid_tpu_torch.ops import hjoin as TJH
+    g = torch.Generator().manual_seed(3)
+    nb, npr = 1 << 16, 3 << 16
+    bkey = torch.randperm(1 << 20, generator=g)[:nb]
+    bval = torch.rand(nb, generator=g)
+    pkey = torch.randint(0, 1 << 20, (npr,), generator=g)
+    pkey[::97] = bkey[5]                 # a run longer than 256 rows
+    TE.RECORD = []
+    try:
+        got = TJH.lookup_join_collocated(bkey.to(dev), bval.to(dev),
+                                         pkey.to(dev))
+        torch.cuda.synchronize()
+        rec = TE.RECORD
+    finally:
+        TE.RECORD = None
+    assert len(rec) == 1 and bool(got[4])
+    starts, counts, words, fills = rec[0]
+    for a, b in zip(TE.bucket_exchange(starts, counts, words, fills),
+                    TE.bucket_exchange_plain(starts.cpu(), counts.cpu(),
+                                             [w.cpu() for w in words],
+                                             fills)):
+        assert torch.equal(a.cpu(), b)
+    want = TJH.lookup_join_collocated(bkey, bval, pkey)
+
+    def rows(out):
+        pidx, value, hit, live = (t.cpu() for t in out[:4])
+        return sorted(zip(pidx[live].tolist(), value[live].tolist(),
+                          hit[live].tolist()))
+    assert rows(got) == rows(want)
+
+
+def test_merge_sort_kernel_at_the_full_joins_shape(dev):
+    """Kernel F over 2^25 rows, the merged sort of H2O q5_full (capL +
+    capR = 2^24 + 2^24): (dead, key, side tag) with the side row riding
+    along, every word bit for bit against the plain version."""
+    n = 1 << 25
+    g = torch.Generator(device=dev).manual_seed(4)
+    dead = (torch.rand(n, generator=g, device=dev) < 0.4).to(torch.int64)
+    key = torch.randint(0, 11_000_000, (n,), generator=g, device=dev)
+    tag = (torch.arange(n, device=dev) >= n // 2).to(torch.int64)
+    side = torch.arange(n, device=dev) & ((n // 2) - 1)
+    words = [dead, key, tag, side]
+    before = TM.LAUNCHES
+    got = TM.merge_sort_words(words, 3)
+    torch.cuda.synchronize()
+    assert TM.LAUNCHES == before + 1
+    want = TM.merge_sort_words_plain(words, 3)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    perm = TM.merge_sort_words(words, 3, perm_only=True)[0]
+    assert torch.equal(perm, want[3])
+
+
+def test_joins_on_card_match_cpu(dev):
+    """Every join route on the card against the CPU run (rows as
+    multisets; the m:1 routes in order), with the route the same on
+    both devices."""
+    from polaroid_tpu_torch.ops import join as TJ
+    rng = np.random.default_rng(11)
+    n = 1 << 15
+    left = {"k": rng.integers(0, 300_000, n).astype(np.int32),
+            "w": rng.integers(0, 300, n), "f": rng.normal(size=n),
+            "a": rng.normal(size=n)}
+    rk = rng.permutation(300_000)[:1 << 14].astype(np.int32)
+    right = {"k": rk, "w": rk.astype(np.int64) % 300,
+             "f": np.round(rng.normal(size=1 << 14), 1),
+             "b": rng.integers(0, 9, 1 << 14).astype(np.int32)}
+    cases = [("k", "inner", "collocated"), ("k", "left", "collocated"),
+             ("w", "inner", "dense_expand"), ("w", "semi", "dense_semi_anti"),
+             ("f", "inner", "sortmerge_expand"),
+             ("f", "anti", "sortmerge_semi_anti"),
+             ("k", "full", "sortmerge_expand")]
+    for key, how, route in cases:
+        outs = []
+        for device in ("cuda", "cpu"):
+            lf = frame_from_numpy(left, device=device)
+            rf = frame_from_numpy(right, device=device)
+            TJ.ROUTES.clear()
+            out = lf.join(rf, on=key, how=how).to_dict()
+            assert dict(TJ.ROUTES) == {route: 1}, (key, how, device)
+            outs.append(sorted(zip(*out.values()), key=repr))
+        assert outs[0] == outs[1], (key, how)
+    # the sort-merge m:1 route, in left order
+    uk = {"f": np.unique(right["f"]), "c": np.arange(len(np.unique(
+        right["f"])))}
+    outs = []
+    for device in ("cuda", "cpu"):
+        TJ.ROUTES.clear()
+        outs.append(frame_from_numpy(left, device=device).join(
+            frame_from_numpy(uk, device=device), on="f").to_dict())
+        assert dict(TJ.ROUTES) == {"sortmerge_m1": 1}
+    assert outs[0] == outs[1]

@@ -424,15 +424,17 @@ def _phase9_frames(rows: int = 200_000):
 
 
 def _garbage(alloc, gen):
-    """`alloc` whose result is filled with garbage first: NaN or 1e300
-    for floats, random bits for integers, random bools."""
+    """`alloc` whose result is filled with garbage first: NaN or the
+    dtype's largest finite value for floats, random bits for integers,
+    random bools."""
     import torch
 
     def filled(*args, **kwargs):
         t = alloc(*args, **kwargs)
         if t.is_floating_point():
             t.copy_(torch.where(torch.rand(t.shape, generator=gen) < 0.5,
-                                float("nan"), 1e300).to(t.dtype))
+                                float("nan"), torch.finfo(t.dtype).max)
+                    .to(t.dtype))
         elif t.dtype == torch.bool:
             t.copy_(torch.rand(t.shape, generator=gen) < 0.5)
         else:
