@@ -13,9 +13,9 @@ Phases:
    compaction and the segment min/max, also the device-only time of one
    call from a trace, which must hold exactly one device kernel; the
    segment sum, the exchange, the radix sort and the compaction also on
-   the inputs of every launch that one collect of each phase-9 query
-   and of each phase-10 join makes (recorded by their wrappers; each
-   sort timed in the mode the query called it in);
+   the inputs of every launch that one collect of each phase-9 query,
+   each phase-10 join and each phase-11 window query makes (recorded by
+   their wrappers; each sort timed in the mode the query called it in);
 3. the headline query q1 (filter -> with_columns -> group_by(symbol) ->
    agg(len, sum, mean) -> collect) at --rows rows, against a numpy
    oracle, with the kernels' launch counts during one collect, the
@@ -59,6 +59,15 @@ Phases:
    launch of that first collect of each join, and times the
    kernel-level collocated join at bench.py's shape (2^22 probes x 2^20
    keys).
+11. windows and .over(): H2O q8 exactly as bench.py writes it
+   (rank("ordinal", descending=True).over("id6") -> filter(r <= 2)), W1
+   aggregates broadcast to rows and W2 order-dependent windows over
+   partitions on the H2O frame at 10^7 rows, W3 per-symbol pct_change,
+   rolling mean and std, cum_sum, ewm_mean and forward_fill on the q1
+   data at --rows rows, and W4 plain rolling mean and max, cum_sum, rank
+   and forward_fill after a filter, each against a numpy oracle, with
+   the launches of kernels F and B asserted, timed and traced the same
+   way.
 
 The line before the last lists every ported kernel with its numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check raises,
@@ -1513,6 +1522,326 @@ def check_join(name, out, tables, dicts):
     return len(next(iter(want.values())))
 
 
+# --- phase 11: windows and .over() -------------------------------------------
+
+W_WINDOW = 20               # the finance windows' length (rows)
+W_ALPHA = 0.1               # the ewm's smoothing factor
+
+
+def with_null_price(pl, df, data, seed: int):
+    """The q1 frame plus pricen: price with NULL_SHARE of its rows null,
+    drawn from the seed; returns the frame and pricen's host validity."""
+    import numpy as np
+    from polaroid_tpu_torch.batch import Column
+    rng = np.random.default_rng(seed + 2)
+    valid = rng.uniform(size=len(data["price"])) >= NULL_SHARE
+    t = df._table
+    t = t.with_column("pricen", Column.from_host(
+        data["price"], capacity=t.capacity, device=t.device,
+        validity=valid))
+    return pl.DataFrame._from_table(t), valid
+
+
+def window_queries(pl, hdf, qdf):
+    """(name, lazy frame, kernels it must launch) of phase 11: q8 exactly
+    as bench.py writes it, W1 aggregates broadcast to rows and W2
+    order-dependent windows over the H2O frame's partitions, W3
+    per-symbol finance windows on the q1 data, W4 plain windows over the
+    whole column after a filter. Every `.over()` builds the sorted
+    layout (kernel B at its run starts; kernel F when more than one word
+    is sorted); W4's live order after the filter is a kernel-B
+    compaction."""
+    c = pl.col
+    w = W_WINDOW
+    h, q = hdf.lazy(), qdf.lazy()
+    qf = q.filter(c("volume") > 1000)
+    FB, B = ("merge_sort", "compact_words"), ("compact_words",)
+    return [
+        ("q8", h.with_columns(
+            c("v3").rank("ordinal", descending=True).over("id6")
+            .alias("r")).filter(c("r") <= 2).select("id6", "v3"), FB),
+        ("W1_center", h.select(
+            (c("v3") - c("v3").mean().over("id6")).alias("x")), B),
+        ("W1_sum", h.select(c("v1").sum().over("id1", "id2").alias("x")),
+         FB),
+        ("W1_len", h.select(pl.len().over("id4").alias("x")), B),
+        ("W2_cum_sum", h.select(c("v3").cum_sum().over("id4").alias("x")),
+         B),
+        ("W2_shift", h.select(c("v3").shift(1).over("id3").alias("x")), B),
+        ("W2_diff", h.select(c("v1").diff().over("id6").alias("x")), B),
+        ("W2_rank_dense", h.select(
+            c("v3").rank("dense").over("id1", "id2").alias("x")), FB),
+        ("W2_cum_sum_ordered", h.select(
+            c("v3").cum_sum().over("id4", order_by="id3").alias("x")), FB),
+        ("W3_pct_change", q.select(
+            c("price").pct_change().over("symbol").alias("x")), B),
+        ("W3_rolling_mean", q.select(
+            c("price").rolling_mean(w).over("symbol").alias("x")), B),
+        ("W3_rolling_std", q.select(
+            c("price").rolling_std(w).over("symbol").alias("x")), B),
+        ("W3_cum_sum", q.select(
+            c("volume").cum_sum().over("symbol").alias("x")), B),
+        ("W3_ewm_mean", q.select(
+            c("price").ewm_mean(alpha=W_ALPHA).over("symbol").alias("x")),
+         B),
+        ("W3_forward_fill", q.select(
+            c("pricen").forward_fill().over("symbol").alias("x")), B),
+        ("W4_rolling_mean", qf.select(c("price").rolling_mean(w).alias("x")),
+         B),
+        ("W4_rolling_max", qf.select(c("price").rolling_max(w).alias("x")),
+         B),
+        ("W4_cum_sum", qf.select(
+            c("price").cast(pl.Float64).cum_sum().alias("x")), B),
+        ("W4_rank", qf.select(c("price").rank().alias("x")), B),
+        ("W4_forward_fill", qf.select(c("pricen").forward_fill()
+                                      .alias("x")), B),
+    ]
+
+
+def _layout(*keys, groups=None):
+    """numpy's stable sort by the key columns (the first most
+    significant), grouped by the first `groups` of them (all by
+    default): (order, sorted group id, each group's start, each sorted
+    row's position in its group)."""
+    import numpy as np
+    n = len(keys[0])
+    order = np.lexsort(tuple(reversed(keys))) if len(keys) > 1 \
+        else np.argsort(keys[0], kind="stable")
+    diff = np.zeros(n, dtype=bool)
+    diff[0] = True
+    for k in keys[:groups]:
+        sk = k[order]
+        diff[1:] |= sk[1:] != sk[:-1]
+    gid = np.cumsum(diff) - 1
+    starts = np.flatnonzero(diff)
+    return order, gid, starts, np.arange(n) - starts[gid]
+
+
+def _unsort(order, vals):
+    import numpy as np
+    out = np.empty_like(vals)
+    out[order] = vals
+    return out
+
+
+def _rolling_f64(xs, pos, w):
+    """Each sorted row's trailing window of w rows in f64: its sum, its
+    variance (ddof 1, two passes), its sum of squares, and whether the
+    window lies in the row's group (pos >= w - 1)."""
+    import numpy as np
+    from numpy.lib.stride_tricks import sliding_window_view
+    x = xs.astype(np.float64)
+    full = pos >= w - 1
+    s = np.zeros(len(x))
+    m = np.zeros(len(x))
+    win = sliding_window_view(x, w)
+    s[w - 1:] = win.sum(1)
+    mean = s / w
+    dev = win - mean[w - 1:, None]
+    m[w - 1:] = (dev * dev).sum(1) / (w - 1)
+    sq = np.zeros(len(x))
+    sq[w - 1:] = (win * win).sum(1)
+    return s, m, sq, full
+
+
+def _cum_bound(xs, gid, starts):
+    """4·n·2^-53·Σ|x| of each sorted row's partition (n rows)."""
+    import numpy as np
+    n = np.diff(np.r_[starts, len(xs)])
+    a = np.add.reduceat(np.abs(xs.astype(np.float64)), starts)
+    return (4 * n * 2.0 ** -53 * a)[gid]
+
+
+def window_oracle(name, h2o, q1, pricen_valid):
+    """numpy's answer to a phase-11 query: {column: values}, {column:
+    validity}, and a tolerance per column (None: bit for bit; else an
+    array of absolute bounds, or "ulp32" for one Float32 ulp)."""
+    import numpy as np
+    import scipy.signal
+    if name == "q8":
+        order, gid, starts, pos = _layout(h2o["id6"], -h2o["v3"],
+                                           groups=1)
+        keep = _unsort(order, pos) < 2
+        return {"id6": h2o["id6"][keep], "v3": h2o["v3"][keep]}, {}, {}
+    if name.startswith(("W1", "W2")):
+        d = h2o
+        n = len(d["v3"])
+        if name == "W1_center":
+            order, gid, starts, _ = _layout(d["id6"])
+            cnt = np.diff(np.r_[starts, n])
+            mean = np.add.reduceat(d["v3"][order], starts) / cnt
+            m = _unsort(order, mean[gid])
+            return {"x": d["v3"] - m}, {}, \
+                {"x": 1e-12 * np.abs(m) + 2.0 ** -52 * np.abs(d["v3"])}
+        if name == "W1_sum":
+            order, gid, starts, _ = _layout(d["id1"], d["id2"])
+            s = np.add.reduceat(d["v1"][order].astype(np.int64), starts)
+            return {"x": _unsort(order, s[gid])}, {}, {}
+        if name == "W1_len":
+            order, gid, starts, _ = _layout(d["id4"])
+            cnt = np.diff(np.r_[starts, n])
+            return {"x": _unsort(order, cnt[gid].astype(np.int64))}, {}, {}
+        if name in ("W2_cum_sum", "W2_cum_sum_ordered"):
+            keys = (d["id4"],) if name == "W2_cum_sum" else (d["id4"],
+                                                             d["id3"])
+            order, gid, starts, _ = _layout(*keys, groups=1)
+            xs = d["v3"][order]
+            cs = np.concatenate([np.cumsum(p) for p in
+                                 np.split(xs, starts[1:])])
+            return {"x": _unsort(order, cs)}, {}, \
+                {"x": _unsort(order, _cum_bound(xs, gid, starts))}
+        if name in ("W2_shift", "W2_diff"):
+            key, col = ("id3", "v3") if name == "W2_shift" else ("id6", "v1")
+            order, gid, starts, pos = _layout(d[key])
+            xs = d[col][order]
+            prev = np.r_[xs[:1], xs[:-1]]
+            out = prev if name == "W2_shift" else xs - prev
+            return {"x": _unsort(order, out)}, \
+                {"x": _unsort(order, pos > 0)}, {}
+        if name == "W2_rank_dense":
+            # v3 has no ties (phase 8 asserts it): dense == ordinal
+            order, gid, starts, pos = _layout(d["id1"], d["id2"], d["v3"],
+                                              groups=2)
+            return {"x": _unsort(order, pos + 1).astype(np.int64)}, {}, {}
+    x, sym = q1["price"], q1["symbol"]
+    if name.startswith("W3"):
+        order, gid, starts, pos = _layout(sym)
+        xs = x[order]
+        w = W_WINDOW
+        if name == "W3_pct_change":
+            prev = np.r_[xs[:1], xs[:-1]]
+            return {"x": _unsort(order, xs / prev - np.float32(1))}, \
+                {"x": _unsort(order, pos > 0)}, {"x": "ulp32"}
+        if name in ("W3_rolling_mean", "W3_rolling_std"):
+            s, var, sq, full = _rolling_f64(xs, pos, w)
+            valid = _unsort(order, full)
+            if name == "W3_rolling_mean":
+                return {"x": _unsort(order, s / w)}, {"x": valid}, \
+                    {"x": "ulp32"}
+            return {"x": _unsort(order, var)}, {"x": valid}, \
+                {"x": ("var32", _unsort(order, 8 * w * 2.0 ** -53 * sq))}
+        if name == "W3_cum_sum":
+            vs = q1["volume"][order].astype(np.int64)
+            cs = np.cumsum(vs)
+            base = np.r_[0, cs][starts]
+            return {"x": _unsort(order, (cs - base[gid]).astype(np.int32))}, \
+                {}, {}
+        if name == "W3_ewm_mean":
+            a = 1.0 - W_ALPHA
+            out = np.empty(len(xs))
+            for s0, s1 in zip(starts, np.r_[starts[1:], len(xs)]):
+                part = xs[s0:s1].astype(np.float64)
+                num = scipy.signal.lfilter([1.0], [1.0, -a], part)
+                den = scipy.signal.lfilter([1.0], [1.0, -a],
+                                           np.ones(len(part)))
+                out[s0:s1] = num / den
+            return {"x": _unsort(order, out)}, {}, \
+                {"x": 8 * np.log2(len(xs)) * 2.0 ** -24 *
+                 np.abs(_unsort(order, out))}
+        if name == "W3_forward_fill":
+            vs = pricen_valid[order]
+            idx = np.where(vs, np.arange(len(xs)), -1)
+            last = np.maximum.accumulate(idx)
+            has = last >= starts[gid]
+            return {"x": _unsort(order, xs[np.maximum(last, 0)])}, \
+                {"x": _unsort(order, has)}, {}
+    live = q1["volume"] > 1000
+    xl = x[live]
+    n = len(xl)
+    w = W_WINDOW
+    pos = np.arange(n)
+    if name == "W4_rolling_mean":
+        s, _, _, full = _rolling_f64(xl, pos, w)
+        return {"x": s / w}, {"x": full}, {"x": "ulp32"}
+    if name == "W4_rolling_max":
+        from numpy.lib.stride_tricks import sliding_window_view
+        m = np.full(n, xl[0])
+        m[w - 1:] = sliding_window_view(xl, w).max(1)
+        return {"x": m}, {"x": pos >= w - 1}, {}
+    if name == "W4_cum_sum":
+        x64 = xl.astype(np.float64)
+        return {"x": np.cumsum(x64)}, {}, \
+            {"x": np.full(n, 4 * n * 2.0 ** -53 * np.abs(x64).sum())}
+    if name == "W4_rank":
+        order = np.argsort(xl, kind="stable")
+        sx = xl[order]
+        new = np.r_[True, sx[1:] != sx[:-1]]
+        starts = np.flatnonzero(new)
+        ends = np.r_[starts[1:], n]
+        gid = np.cumsum(new) - 1
+        avg = (starts + 1 + ends) / 2.0
+        return {"x": _unsort(order, avg[gid])}, {}, {}
+    if name == "W4_forward_fill":
+        vl = pricen_valid[live]
+        last = np.maximum.accumulate(np.where(vl, pos, -1))
+        return {"x": xl[np.maximum(last, 0)]}, {"x": last >= 0}, {}
+    raise KeyError(name)
+
+
+def check_window(name, got, h2o, q1, pricen_valid):
+    """A phase-11 result (host_columns) against numpy: the rows and nulls
+    exact; integers, counts, ranks, shifts, fills, min/max and q8's rows
+    bit for bit; Float64 within the bound window_oracle gives (W1: 1e-12
+    of the group mean; cum_sum over a partition of n rows:
+    4·n·2^-53·Σ|x|); Float32 means and pct_change within one f32 ulp of
+    numpy's f64 (or f32) value; Float32 rolling std with its square
+    within 8·w·2^-53·Σx² of the window's variance, plus the f32
+    rounding; the Float32 ewm within 8·log2(n)·2^-24 of its value.
+    Returns the largest error of each inexact column, against its
+    bound."""
+    import numpy as np
+    want, valid, tol = window_oracle(name, h2o, q1, pricen_valid)
+    assert sorted(got) == sorted(want), f"{name}: columns {sorted(got)}"
+    errs = {}
+    for k, w in want.items():
+        g, gv = got[k]
+        assert len(g) == len(w), f"{name}: {k} has {len(g)} rows, want " \
+            f"{len(w)}"
+        wv = valid.get(k)
+        if wv is None:
+            assert gv is None or gv.all(), f"{name}: {k} has nulls"
+            wv = np.ones(len(w), dtype=bool)
+        else:
+            assert gv is not None and np.array_equal(gv, wv), \
+                f"{name}: the nulls of {k} differ"
+        g, w = g[wv], w[wv]
+        t = tol.get(k)
+        if t is None:
+            assert g.dtype.kind == w.dtype.kind or g.dtype.kind in "iu", \
+                f"{name}: {k} is {g.dtype}, want {w.dtype}"
+            if g.dtype.kind == "f":
+                assert g.dtype == w.dtype and np.array_equal(
+                    g.view(f"u{g.itemsize}"), w.view(f"u{w.itemsize}")), \
+                    f"{name}: {k} differs"
+            else:
+                assert np.array_equal(g.astype(np.int64),
+                                      w.astype(np.int64)), \
+                    f"{name}: {k} differs"
+            continue
+        g64 = g.astype(np.float64)
+        if isinstance(t, str):      # one f32 ulp
+            assert g.dtype == np.float32, f"{name}: {k} is {g.dtype}"
+            bound = np.spacing(np.abs(w.astype(np.float32))).astype(
+                np.float64)
+            err = np.abs(g64 - w)
+        elif isinstance(t, tuple):  # f32 std against the window variance
+            assert g.dtype == np.float32, f"{name}: {k} is {g.dtype}"
+            var_bound = t[1][wv]
+            bound = var_bound + 2 * g64 * np.spacing(g).astype(np.float64) \
+                + np.spacing(g).astype(np.float64) ** 2
+            err = np.abs(g64 * g64 - w)
+        else:
+            bound = t[wv]
+            err = np.abs(g64 - w)
+        bad = ~(err <= bound)
+        assert not bad.any(), \
+            f"{name}: {k} outside its bound at {int(bad.sum())} rows " \
+            f"(first {np.flatnonzero(bad)[:5].tolist()})"
+        errs[k] = [float(err.max()) if len(err) else 0.0,
+                   float(bound[np.argmax(err)]) if len(err) else 0.0]
+    return len(next(iter(want.values()))), errs
+
+
 def check_lookup_join(args, torch, TE):
     """The kernel-level join at bench.py:589-608's shape, 2^22 probes x
     2^20 unique build keys: `lookup_join_collocated`, held against the
@@ -1646,12 +1975,20 @@ def main() -> int:
         [(name, lf) for name, lf, *_ in jqueries])
     for kernel, by_shape in shapes.items():
         recorded[kernel].update(by_shape)
+    # kernels F and B at every shape that phase 11's windows give them
+    df = pl.DataFrame(data, device="cuda")
+    qdf, pricen_valid = with_null_price(pl, df, data, args.seed)
+    wqueries = window_queries(pl, hdf, qdf)
+    shapes, _ = check_recorded_kernels(
+        args, torch, TK, TE, TM, TP,
+        [(name, lf) for name, lf, _ in wqueries])
+    for kernel, by_shape in shapes.items():
+        recorded[kernel].update(by_shape)
     lookup = check_lookup_join(args, torch, TE)
     print(json.dumps({"phase": "kernel", "shape": "lookup_join_4m_x_1m",
                       **lookup}))
 
     # --- 3. q1 end to end ---------------------------------------------------
-    df = pl.DataFrame(data, device="cuda")
     lf = q1_frame(pl, df)
     reset_launches(TK, TP, TE, TH, TM)
     out = lf.collect()
@@ -1817,6 +2154,35 @@ def main() -> int:
                        "of the same frames reuses what the first one "
                        "built on the host (a string key's merged "
                        "dictionary)",
+            "idle_share": 1 - tr["device_busy_ms"] / med
+            if tr["device_ops"] else None, "trace": tr}))
+    del results
+
+    # --- 11. windows and .over() at 10^7 and 2^23 rows ------------------------
+    # every query's collects and trace first (its result copied to the
+    # host), the numpy oracles after them
+    results = []
+    for name, lfw, must in wqueries:
+        reset_launches(TK, TP, TE, TH, TM)
+        outw = lfw.collect()
+        wl = read_launches(TK, TP, TE, TH, TM)
+        for kernel in must:
+            assert wl[kernel] >= 1, f"{name} did not launch {kernel}"
+        assert wl["fallbacks"] == 0, f"{name} took the fallback"
+        runs.append(wl)
+        got = host_columns(outw)
+        del outw
+        tr = trace_collect(lfw, top_n=8)
+        times = time_collects(lfw, args.reps)
+        results.append((name, got, wl, times, tr))
+    for name, got, wl, times, tr in results:
+        nout, errs = check_window(name, got, h2o, data, pricen_valid)
+        med = statistics.median(times)
+        print(json.dumps({
+            "phase": "window", "query": name,
+            "rows": H2O_ROWS if name.startswith(("q8", "W1", "W2"))
+            else args.rows, "out_rows": nout, "launches": wl,
+            "largest_error": errs, "median_ms": med, "ms": times,
             "idle_share": 1 - tr["device_busy_ms"] / med
             if tr["device_ops"] else None, "trace": tr}))
     del results

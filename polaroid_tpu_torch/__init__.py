@@ -9,7 +9,9 @@ for Hopper (csrc/), built with nvcc at first use.
 The port runs filter -> with_columns -> group_by -> agg -> collect over
 any key (the dense, hash and sorted tiers, with median, quantile,
 n_unique, mode, arg_min/arg_max, product and corr/cov), unique, sort,
-top_k, head, equi-joins of every kind (`join`) and `concat`. The rest of the JAX package's surface comes with later
+top_k, head, equi-joins of every kind (`join`), `concat`, and the
+order-dependent window expressions (shift, cum_*, rolling, ewm, rank,
+fills) with `.over()`. The rest of the JAX package's surface comes with later
 slices (see ROADMAP.md).
 """
 
@@ -29,7 +31,8 @@ from .expr.expr import Expr, col, len_ as len, lit  # noqa: E402
 from .api.frame import DataFrame  # noqa: E402
 from .api.series import Series  # noqa: E402
 from .api.lazyframe import LazyFrame  # noqa: E402
-from .api.functions import concat, corr, cov, from_dict  # noqa: E402
+from .api.functions import concat, corr, cov, from_dict, rolling_corr, \
+    rolling_cov  # noqa: E402
 from . import testing  # noqa: E402
 
 __version__ = "0.1.0"
@@ -37,6 +40,7 @@ __version__ = "0.1.0"
 __all__ = [
     "DataFrame", "LazyFrame", "Series", "Expr", "Config", "CONFIG",
     "col", "lit", "len", "from_dict", "corr", "cov", "concat",
+    "rolling_cov", "rolling_corr",
     "Int8", "Int16", "Int32", "Int64", "UInt8", "UInt16", "UInt32", "UInt64",
     "Float32", "Float64", "Boolean", "String", "Utf8", "Date", "Datetime",
     "Duration", "Null", "DataType",

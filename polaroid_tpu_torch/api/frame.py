@@ -146,6 +146,9 @@ class DataFrame:
             return DataFrame._from_table(
                 Table([], {}, capacity_for(0), 0, None, device=t.device))
         any_row = any(not s for _, _, s in results)
+        if any(not isinstance(v, Column) and v.live is not None
+               for _, v, _ in results):
+            return self._select_compacted(results)
         cap = t.capacity if any_row else capacity_for(1)
         names, cols = [], {}
         for name, v, _ in results:
@@ -161,11 +164,46 @@ class DataFrame:
         return DataFrame._from_table(Table(names, cols, cap, 1, None,
                                            device=t.device))
 
+    def _select_compacted(self, results) -> "DataFrame":
+        """A select whose results have rows of their own (a Val's `live`
+        marks them: `.over(mapping_strategy="explode")`): each column is
+        compacted to its rows (kernel B), and all must count the same."""
+        from ..errors import ShapeError
+        t = self._table
+        base = t.row_mask()
+        n_out, cols, names = None, {}, []
+        for name, v, scalar in results:
+            if name in cols:
+                raise DuplicateError(f"duplicate column name {name!r}")
+            col = v if isinstance(v, Column) else val_to_column(v, t.capacity)
+            if not scalar:
+                m = base if isinstance(v, Column) or v.live is None \
+                    else v.live.expand(t.capacity)
+                one = Table([name], {name: col}, t.capacity, None, m,
+                            device=t.device)
+                packed, count = C.compact_device(one)
+                col = packed.cols[name]
+                c = int(count)
+                if n_out is not None and c != n_out:
+                    raise ShapeError(f"select: column lengths differ ({c} "
+                                     f"vs {n_out})")
+                n_out = c
+            names.append(name)
+            cols[name] = col
+        out = Table(names, cols, t.capacity, 1 if n_out is None else n_out,
+                    None, device=t.device)
+        return DataFrame._from_table(C.shrink_to(out, out.nrows))
+
     def with_columns(self, *exprs, **named_exprs) -> "DataFrame":
         es = meta.expand_exprs(_to_exprs(exprs, named_exprs), self.schema)
         t = self._table
         for e in es:
             v = eval_expr(e, t, "select")
+            if v.live is not None:
+                from ..errors import InvalidOperationError
+                raise InvalidOperationError(
+                    f"{meta.output_name(e)!r}: an expression that changes "
+                    "the frame's length works only in a select")
             t = t.with_column(meta.output_name(e),
                               val_to_column(v, t.capacity))
         return DataFrame._from_table(t)
@@ -185,6 +223,20 @@ class DataFrame:
                     f"filter predicate must be Boolean, got {v.dtype!r}")
             mask = mask & (v.data & v.valid_or_true()).expand(t.capacity)
         return DataFrame._from_table(t.with_valid(mask, None))
+
+    def shift(self, n: int = 1, *, fill_value=None) -> "DataFrame":
+        return self.with_columns([_col(c).shift(n, fill_value=fill_value)
+                                  for c in self.columns])
+
+    def interpolate(self) -> "DataFrame":
+        return self.with_columns([_col(c).interpolate()
+                                  for c in self.columns
+                                  if self.schema[c].is_numeric])
+
+    def fill_null(self, value=None, strategy: Optional[str] = None
+                  ) -> "DataFrame":
+        return self.with_columns([_col(n).fill_null(value, strategy=strategy)
+                                  for n in self.columns])
 
     # --- row ops --------------------------------------------------------
     def head(self, n: int = 5) -> "DataFrame":

@@ -46,6 +46,24 @@ def cov(a, b, ddof: int = 1) -> Expr:
             / (n - ddof)).alias("cov")
 
 
+def rolling_cov(a, b, *, window_size: int, min_samples=None,
+                ddof: int = 1) -> Expr:
+    """Covariance of two columns over fixed trailing windows."""
+    return Expr("rolling_pair", (_col_of(a), _col_of(b)), stat="cov",
+                window_size=window_size, min_samples=min_samples, ddof=ddof)
+
+
+def rolling_corr(a, b, *, window_size: int, min_samples=None,
+                 ddof: int = 1) -> Expr:
+    """Pearson correlation of two columns over fixed trailing windows."""
+    return Expr("rolling_pair", (_col_of(a), _col_of(b)), stat="corr",
+                window_size=window_size, min_samples=min_samples, ddof=ddof)
+
+
+def _col_of(a) -> Expr:
+    return col(a) if isinstance(a, str) else a
+
+
 def concat(items: Sequence, how: str = "vertical", rechunk: bool = False):
     """Frames (or lazy frames, as a union node) stacked vertically
     ("vertical", "vertical_relaxed"), by the union of their columns

@@ -108,6 +108,20 @@ class LazyFrame:
     def head(self, n: int = 5) -> "LazyFrame":
         return LazyFrame._from_plan(L.Slice(self._plan, 0, n))
 
+    def shift(self, n: int = 1, *, fill_value=None) -> "LazyFrame":
+        return self.with_columns([_col(c).shift(n, fill_value=fill_value)
+                                  for c in self.columns])
+
+    def interpolate(self) -> "LazyFrame":
+        return self.with_columns([_col(c).interpolate()
+                                  for c, dt in self._plan.schema().items()
+                                  if dt.is_numeric])
+
+    def fill_null(self, value=None, strategy: Optional[str] = None
+                  ) -> "LazyFrame":
+        return self.with_columns([_col("*").fill_null(value,
+                                                      strategy=strategy)])
+
     def join(self, other: "LazyFrame", on=None, how: str = "inner", *,
              left_on=None, right_on=None, suffix: str = "_right",
              join_nulls: bool = False, nulls_equal: bool = False,

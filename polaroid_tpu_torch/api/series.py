@@ -58,6 +58,17 @@ class Series:
         return DataFrame._from_table(t).sort(name, descending=descending) \
             .get_column(name)
 
+    def _apply(self, make_expr) -> "Series":
+        """make_expr(col) evaluated over this series as a one-column
+        frame, as the JAX package's Series does."""
+        from ..batch import Table
+        from ..expr.expr import col
+        from .frame import DataFrame
+        name = self.name or ""
+        t = Table([name], {name: self._col}, self._col.capacity, len(self))
+        return DataFrame._from_table(t).select(
+            make_expr(col(name)).alias(name)).get_column(name)
+
     def to_numpy(self) -> np.ndarray:
         return np.asarray(self._col.to_numpy(len(self)))
 
@@ -68,3 +79,24 @@ class Series:
         vals = self.to_list()
         more = "..." if len(vals) > 10 else ""
         return f"Series({self.name!r}, {vals[:10]}{more})"
+
+
+def _window_method(name: str):
+    def method(self, *args, **kwargs) -> "Series":
+        return self._apply(lambda c: getattr(c, name)(*args, **kwargs))
+    method.__name__ = name
+    method.__doc__ = f"`Expr.{name}` over the series."
+    return method
+
+
+# the order-dependent expressions, as Series methods
+for _name in ("shift", "diff", "pct_change", "cum_sum", "cum_min",
+              "cum_max", "cum_prod", "cum_count", "rolling_sum",
+              "rolling_mean", "rolling_min", "rolling_max", "rolling_std",
+              "rolling_var", "rolling_median", "rolling_quantile",
+              "rolling_skew", "rolling_kurtosis", "rolling_rank",
+              "ewm_mean", "ewm_std", "ewm_var", "rank", "forward_fill",
+              "backward_fill", "interpolate", "fill_null", "reverse",
+              "rle_id", "peak_min", "peak_max", "arg_sort"):
+    setattr(Series, _name, _window_method(_name))
+del _name

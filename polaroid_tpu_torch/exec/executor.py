@@ -28,7 +28,7 @@ from ..plan import logical as L
 # nodes applied on top of their input table, as one chain under a group-by
 _CHAIN = ("filter", "select", "with_columns")
 # the slice of the port that brings a plan node not ported yet
-_NEXT_SLICE = {"iejoin": "Slice D (windows and time)"}
+_NEXT_SLICE = {"iejoin": "Slice D3 (as-of and inequality joins)"}
 
 
 def execute(plan: L.Plan, cache: Optional[Dict[int, Table]] = None

@@ -5,10 +5,12 @@ column references, literals, arithmetic, comparisons, Kleene boolean
 logic, casts between numeric types, aliases and null propagation. Every
 operation is a torch op over whole fixed-capacity columns; dead rows
 compute garbage that is never read as a result. Scalars are (1,) tensors
-that broadcast.
+that broadcast. The order-dependent ops (`window`, `fill_null`,
+`rolling_cov`/`rolling_corr`) live in `expr/window.py`, and `.over()` in
+`ops/window_over.py`.
 
-The rest of that file (windows, strings, temporal, lists, aggregations
-in a select context) comes with later slices and raises
+The rest of that file (strings, temporal, lists, aggregations in a
+select context) comes with later slices and raises
 NotImplementedError here. `expr.filter(pred)` is ported inside a
 group-by aggregation: it keeps every row and narrows the rows that take
 part in the aggregate (`Val.live`), as the JAX package's does.
@@ -34,6 +36,10 @@ __all__ = ["Val", "eval_expr", "val_to_column"]
 
 _CMP_OPS = {"eq", "neq", "lt", "le", "gt", "ge"}
 _BOOL_OPS = {"and", "or", "xor"}
+# expression kinds evaluated by expr/window.py, and their functions there
+_WINDOW_KINDS = {"window": "eval_window", "fill_null": "eval_fill_null",
+                 "fill_null_strategy": "eval_fill_null_strategy",
+                 "rolling_pair": "eval_rolling_pair"}
 
 
 class Val:
@@ -347,6 +353,16 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
                           plive if v.live is None else v.live & plive)
     if k == "table_len":
         return Val(UInt32, table.row_mask().sum().view(1), None, None, True)
+    if k in _WINDOW_KINDS:
+        from . import window as W
+        return getattr(W, _WINDOW_KINDS[k])(e, table, ctx)
+    if k == "over":
+        from ..ops.window_over import eval_over
+        return eval_over(e, table, ctx)
+    if k == "cumulative_eval":
+        raise NotImplementedError(
+            "cumulative_eval is not ported yet: it comes with Slice E (the "
+            "expression surface)")
     raise NotImplementedError(
         f"expression kind {k!r} is not ported yet (later slices of the "
         "port bring the rest of expr/eval.py)")

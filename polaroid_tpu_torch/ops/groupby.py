@@ -217,18 +217,36 @@ class SortedGroupContext(HashGroupContext):
     with no gather per column and no run of equal ids for the atomics to
     contend on. `keys` holds each key's (data, validity) at its group's
     first row and `group_start` that row, for the first `ngroups` slots
-    (cap after)."""
+    (cap after).
 
-    __slots__ = ("keys",)
+    The sorted layout itself stays for the windows (`ops/window_over.py`):
+    `perm` (sorted slot -> row), `live_sorted`, `newgrp` (a group starts
+    at the slot), `sgid` (each slot's group id, cap for dead slots),
+    `run_start` (each group's first sorted slot, for the first `ngroups`
+    groups) and `sorted_extra` (the ordering words below the key, sorted)."""
+
+    __slots__ = ("keys", "perm", "live_sorted", "newgrp", "sgid",
+                 "run_start", "sorted_extra")
 
     def __init__(self, gid, live, cap, group_count, ngroups, group_start,
-                 keys):
+                 keys, layout):
         super().__init__(gid, live, cap, group_count, None, ngroups)
         self._group_start = group_start
         self.keys = keys
+        (self.perm, self.live_sorted, self.newgrp, self.sgid,
+         self.run_start, self.sorted_extra) = layout
 
     def key_order(self):
         return None
+
+    def group_end(self) -> torch.Tensor:
+        """The row of each group's last sorted slot (-1 for an empty
+        slot): the last row in the order of the ordering words, and with
+        none the group's last row."""
+        inside = self.group_count > 0
+        last = (self.run_start.to(torch.int64) + self.group_count - 1) \
+            .clamp(0, self.cap - 1)
+        return torch.where(inside, self.perm[last].to(torch.int32), -1)
 
 
 def _aggs_have_quantile(agg_exprs) -> bool:
@@ -370,12 +388,15 @@ def _key_bits(data: torch.Tensor) -> torch.Tensor:
     return data
 
 
-def _sort_rows(key_vals: Sequence[Val], mask: torch.Tensor):
-    """The rows sorted by (dead, key words), stably: (perm, live_sorted,
-    sorted keys as (data, validity) per key, newgrp). One key word goes
-    to one packed torch.sort and its sorted word is decoded back; more
-    go to kernel F, which returns the permutation alone, and the key
-    columns are gathered by it."""
+def _sort_rows(key_vals: Sequence[Val], mask: torch.Tensor,
+               extra_words: Sequence[torch.Tensor] = ()):
+    """The rows sorted by (dead, key words, extra words), stably: (perm,
+    live_sorted, sorted keys as (data, validity) per key, newgrp). One
+    key word and no extra word go to one packed torch.sort and the sorted
+    word is decoded back; more go to kernel F, which returns the
+    permutation alone, and the key columns are gathered by it. Groups
+    are runs of equal keys: the extra words only order the rows within
+    each group."""
     cap = mask.shape[0]
     words = [(~mask).to(torch.int64)]
     keys = []
@@ -384,7 +405,8 @@ def _sort_rows(key_vals: Sequence[Val], mask: torch.Tensor):
         validity = None if v.validity is None else v.validity.expand(cap)
         keys.append((data, validity))
         words.extend(encode_key_words(data, v.dtype, validity, False, False))
-    if len(words) == 2 and cap < (1 << 31):
+    words.extend(extra_words)
+    if len(words) == 2 and not extra_words and cap < (1 << 31):
         dead_s, key_s, perm = fused_argsort_dead_key(words[0], words[1])
         live_sorted = dead_s == 0
         skeys = [(decode_orderable(key_s, key_vals[0].dtype, False), None)]
@@ -404,20 +426,29 @@ def _sort_rows(key_vals: Sequence[Val], mask: torch.Tensor):
     return perm, live_sorted, skeys, differs & live_sorted
 
 
-def build_groups(key_vals: Sequence[Val], mask: torch.Tensor
-                 ) -> SortedGroupContext:
+def build_groups(key_vals: Sequence[Val], mask: torch.Tensor,
+                 extra_words: Sequence[torch.Tensor] = (),
+                 row_gid: bool = True) -> SortedGroupContext:
     """The sorted tier's layout of any keys (see SortedGroupContext).
     One compaction (kernel B) at the run starts gives each group's first
     row, its first sorted slot and its keys, with no host sync: the
-    group count stays on the device."""
+    group count stays on the device. `extra_words` (32-bit words as
+    int64, `keycode.encode_key_words`) order the rows within each group,
+    below the key; the layout keeps them sorted (`sorted_extra`), and a
+    group's first row is then its first in that order. row_gid=False
+    leaves `gid` None: a window on the sorted layout reduces nothing by
+    row."""
     cap = mask.shape[0]
     dev = mask.device
-    perm, live_sorted, skeys, newgrp = _sort_rows(key_vals, mask)
+    perm, live_sorted, skeys, newgrp = _sort_rows(key_vals, mask,
+                                                  extra_words)
     ngroups = newgrp.sum()
     sgid = torch.where(live_sorted, torch.cumsum(newgrp, 0) - 1,
                        torch.full_like(perm, cap)).to(torch.int32)
-    gid = torch.empty(cap, dtype=torch.int32, device=dev)
-    gid.scatter_(0, perm, sgid)
+    gid = None
+    if row_gid:
+        gid = torch.empty(cap, dtype=torch.int32, device=dev)
+        gid.scatter_(0, perm, sgid)
     idx = torch.arange(cap, dtype=torch.int32, device=dev)
     words = [perm, idx]
     for data, validity in skeys:
@@ -438,7 +469,9 @@ def build_groups(key_vals: Sequence[Val], mask: torch.Tensor
         keys.append((kd, None if validity is None else next(it) != 0))
     return SortedGroupContext(
         gid, mask, cap, count, ngroups,
-        torch.where(inside, first, torch.full_like(first, cap)), keys)
+        torch.where(inside, first, torch.full_like(first, cap)), keys,
+        (perm, live_sorted, newgrp, sgid, start,
+         tuple(w[perm] for w in extra_words)))
 
 
 # ---------------------------------------------------------------------------

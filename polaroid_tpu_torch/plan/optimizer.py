@@ -496,7 +496,10 @@ def push_predicates(plan: L.Plan, pending: Optional[List[Expr]] = None) -> L.Pla
         return push_predicates(plan.input, pending + conj)
 
     if k in ("select", "with_columns") and pending:
-        pt = _passthrough_names(plan)
+        # a window or an aggregate reads the rows around each row: a
+        # filter below it would change what it reads
+        pt = _passthrough_names(plan) if all(
+            meta.is_elementwise(e) for e in plan.exprs) else set()
         down, stay = [], []
         for c in pending:
             roots = meta.root_names(c)

@@ -803,3 +803,48 @@ def test_joins_on_card_match_cpu(dev):
             frame_from_numpy(uk, device=device), on="f").to_dict())
         assert dict(TJ.ROUTES) == {"sortmerge_m1": 1}
     assert outs[0] == outs[1]
+
+
+PHASE11 = ["q8", "W1_center", "W1_sum", "W1_len", "W2_cum_sum",
+           "W2_shift", "W2_diff", "W2_rank_dense", "W2_cum_sum_ordered",
+           "W3_pct_change", "W3_rolling_mean", "W3_rolling_std",
+           "W3_cum_sum", "W3_ewm_mean", "W3_forward_fill",
+           "W4_rolling_mean", "W4_rolling_max", "W4_cum_sum", "W4_rank",
+           "W4_forward_fill"]
+
+
+def _phase11_frames(device, rows=1 << 16):
+    import chip_smoke as CS
+    h2o = CS.make_h2o_data(rows, 0)
+    q1 = CS.make_q1_data(rows, 0)
+    hdf = pt.DataFrame(h2o, device=device)
+    qdf, pv = CS.with_null_price(pt, pt.DataFrame(q1, device=device), q1,
+                                 0)
+    queries = {n: (lf, must) for n, lf, must in
+               CS.window_queries(pt, hdf, qdf)}
+    return CS, h2o, q1, pv, queries
+
+
+@pytest.mark.parametrize("name", PHASE11)
+def test_window_query_on_card_matches_cpu(dev, name):
+    """chip_smoke.py's phase-11 query at 2^16 rows on the card: the
+    kernels of its route launched (F and B where the smoke asserts
+    them), the smoke's numpy oracle met, and the columns the oracle
+    holds bit for bit equal to the CPU run's."""
+    CS, h2o, q1, pv, cuda_q = _phase11_frames("cuda")
+    _, _, _, _, cpu_q = _phase11_frames("cpu")
+    lf, must = cuda_q[name]
+    TM.LAUNCHES = TP.LAUNCHES = 0
+    got = CS.host_columns(lf.collect())
+    torch.cuda.synchronize()
+    launches = {"merge_sort": TM.LAUNCHES, "compact_words": TP.LAUNCHES}
+    for kernel in must:
+        assert launches[kernel] >= 1, (name, kernel, launches)
+    _, errs = CS.check_window(name, got, h2o, q1, pv)
+    want = CS.host_columns(cpu_q[name][0].collect())
+    for k, (data, validity) in want.items():
+        if k not in errs:
+            assert got[k][0].tobytes() == data.tobytes(), (name, k)
+        assert (validity is None) == (got[k][1] is None), (name, k)
+        if validity is not None:
+            assert np.array_equal(validity, got[k][1]), (name, k)
