@@ -14,8 +14,9 @@ Phases:
    call from a trace, which must hold exactly one device kernel; the
    segment sum, the exchange, the radix sort and the compaction also on
    the inputs of every launch that one collect of each phase-9 query,
-   each phase-10 join and each phase-11 window query makes (recorded by
-   their wrappers; each sort timed in the mode the query called it in);
+   each phase-10 join, each phase-11 window query and each phase-12
+   time query makes (recorded by their wrappers; each sort timed in the
+   mode the query called it in);
 3. the headline query q1 (filter -> with_columns -> group_by(symbol) ->
    agg(len, sum, mean) -> collect) at --rows rows, against a numpy
    oracle, with the kernels' launch counts during one collect, the
@@ -68,6 +69,20 @@ Phases:
    and forward_fill after a filter, each against a numpy oracle, with
    the launches of kernels F and B asserted, timed and traced the same
    way.
+12. time, on 2^23 trades (the q1 columns plus ts, whole milliseconds
+   drawn over the 10 NYSE regular sessions of 2024-03-04..15, in arrival
+   order): T1 1-minute OHLCV bars, 5-minute VWAP and TWAP by symbol (the
+   reference's polars-timeseries functions), T2 overlapping 5-minute
+   windows every minute, T3 the 5-minute rolling group-by, T4 range
+   windows per symbol (mean, max, median by ts) and over the whole
+   column (a 1-minute volume sum, an ewm with a 30 s half-life), T5
+   calendar fields (the New York hour across the DST change, weekday,
+   hourly truncation, date, the per-symbol gap, the session label) and
+   the trading-hours filter, each against a numpy oracle, with the
+   launches of kernels F, B and A asserted, timed and traced the same
+   way, with the host ms of each query's first collect. Phase 2 also
+   holds F, B and A on the inputs of every launch of that first
+   collect.
 
 The line before the last lists every ported kernel with its numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check raises,
@@ -1789,8 +1804,20 @@ def check_window(name, got, h2o, q1, pricen_valid):
     rounding; the Float32 ewm within 8·log2(n)·2^-24 of its value.
     Returns the largest error of each inexact column, against its
     bound."""
-    import numpy as np
     want, valid, tol = window_oracle(name, h2o, q1, pricen_valid)
+    return compare_columns(name, got, want, valid, tol)
+
+
+def compare_columns(name, got, want, valid, tol):
+    """A result's columns (host_columns) against an oracle's: {column:
+    values}, {column: validity} (absent: no nulls) and {column:
+    tolerance}: None bit for bit (strings by value), "ulp32" one Float32
+    ulp of the f64 value, ("var32", bound) a Float32 std whose square lies
+    within `bound` of the variance (plus the f32 rounding), ("f32",
+    bound) a Float32 value within `bound` plus one ulp of the f64 value,
+    or an array of absolute bounds. Returns the row count and the largest
+    error of each inexact column, against its bound."""
+    import numpy as np
     assert sorted(got) == sorted(want), f"{name}: columns {sorted(got)}"
     errs = {}
     for k, w in want.items():
@@ -1809,7 +1836,10 @@ def check_window(name, got, h2o, q1, pricen_valid):
         if t is None:
             assert g.dtype.kind == w.dtype.kind or g.dtype.kind in "iu", \
                 f"{name}: {k} is {g.dtype}, want {w.dtype}"
-            if g.dtype.kind == "f":
+            if g.dtype.kind == "O" or w.dtype.kind == "O":
+                assert np.array_equal(g.astype(object), w.astype(object)), \
+                    f"{name}: {k} differs"
+            elif g.dtype.kind == "f":
                 assert g.dtype == w.dtype and np.array_equal(
                     g.view(f"u{g.itemsize}"), w.view(f"u{w.itemsize}")), \
                     f"{name}: {k} differs"
@@ -1824,6 +1854,11 @@ def check_window(name, got, h2o, q1, pricen_valid):
             bound = np.spacing(np.abs(w.astype(np.float32))).astype(
                 np.float64)
             err = np.abs(g64 - w)
+        elif isinstance(t, tuple) and t[0] == "f32":
+            assert g.dtype == np.float32, f"{name}: {k} is {g.dtype}"
+            bound = t[1][wv] + np.spacing(np.abs(w.astype(np.float32))) \
+                .astype(np.float64)
+            err = np.abs(g64 - w)
         elif isinstance(t, tuple):  # f32 std against the window variance
             assert g.dtype == np.float32, f"{name}: {k} is {g.dtype}"
             var_bound = t[1][wv]
@@ -1832,7 +1867,9 @@ def check_window(name, got, h2o, q1, pricen_valid):
             err = np.abs(g64 * g64 - w)
         else:
             bound = t[wv]
-            err = np.abs(g64 - w)
+            both_nan = np.isnan(g64) & np.isnan(w)    # 0 / 0 on both sides
+            err = np.where(both_nan, 0.0, np.abs(g64 - w))
+            bound = np.where(both_nan, 0.0, bound)
         bad = ~(err <= bound)
         assert not bad.any(), \
             f"{name}: {k} outside its bound at {int(bad.sum())} rows " \
@@ -1840,6 +1877,384 @@ def check_window(name, got, h2o, q1, pricen_valid):
         errs[k] = [float(err.max()) if len(err) else 0.0,
                    float(bound[np.argmax(err)]) if len(err) else 0.0]
     return len(next(iter(want.values()))), errs
+
+
+# --- phase 12: time ------------------------------------------------------------
+
+SESSION_MS = 23_400_000     # an NYSE regular session, 09:30-16:00, in ms
+# the 10 regular sessions of 2024-03-04..15 open at 09:30 America/New_York:
+# 14:30Z before the US DST change of 2024-03-10, 13:30Z after it
+SESSION_OPENS = ["2024-03-04T14:30", "2024-03-05T14:30", "2024-03-06T14:30",
+                 "2024-03-07T14:30", "2024-03-08T14:30", "2024-03-11T13:30",
+                 "2024-03-12T13:30", "2024-03-13T13:30", "2024-03-14T13:30",
+                 "2024-03-15T13:30"]
+DST_2024_US = 1710054000_000_000   # 2024-03-10T07:00Z in µs
+MINUTE_US = 60_000_000
+BAR_PERIOD = 5                     # T2's and T3's windows, in minutes
+MEDIAN_SAMPLE = 1 << 14            # rows whose window median numpy checks
+
+
+def make_trades_data(rows: int, seed: int):
+    """The q1 columns (make_q1_data) plus ts, a Datetime("us") column of
+    whole milliseconds, ascending (arrival order), drawn uniformly over
+    the 10 NYSE regular sessions of 2024-03-04..15."""
+    import numpy as np
+    data = make_q1_data(rows, seed)
+    rng = np.random.default_rng(seed + 3)
+    ms = np.sort(rng.integers(0, len(SESSION_OPENS) * SESSION_MS, rows))
+    opens = np.array(SESSION_OPENS, dtype="datetime64[us]").astype(np.int64)
+    data["ts"] = opens[ms // SESSION_MS] + (ms % SESSION_MS) * 1000
+    return data
+
+
+def trades_frame(pl, data, device="cuda"):
+    """The trades as a frame: symbol, price, volume, ts."""
+    cols = {k: v for k, v in data.items() if k != "ts"}
+    cols["ts"] = data["ts"].astype("datetime64[us]")
+    return pl.DataFrame(cols, device=device)
+
+
+def time_queries(pl, tdf):
+    """(name, lazy frame, kernels it must launch, kernels it must not) of
+    phase 12: T1 the reference's finance bars (OHLCV by symbol and
+    minute through the lazy fast path, 5-minute VWAP, TWAP by symbol),
+    T2 overlapping 5-minute windows every minute, T3 the 5-minute
+    rolling group-by, T4 range windows per symbol and over the whole
+    time-ordered column, T5 calendar fields, time zones, the session
+    labels and the trading-hours filter."""
+    from polaroid_tpu_torch import timeseries as TS
+    c = pl.col
+    lf = tdf.lazy()
+    FB, B, AB = ("merge_sort", "compact_words"), ("compact_words",), \
+        ("seg_sum", "compact_words")
+    period = f"{BAR_PERIOD}m"
+    ts = c("ts")
+    return [
+        ("T1_ohlcv", TS.resample_ohlcv(lf, every="1m", time_column="ts",
+                                       by="symbol"), FB, ()),
+        ("T1_vwap", TS.vwap(lf, by="symbol", every=period,
+                            time_column="ts"), FB, ()),
+        ("T1_twap", TS.twap(lf, time_column="ts", by="symbol"), AB,
+         ("merge_sort",)),
+        ("T2_overlap", lf.group_by_dynamic(
+            "ts", every="1m", period=period, group_by="symbol").agg(
+                c("price").mean().alias("mean"),
+                c("price").max().alias("max"), pl.len().alias("n")), FB, ()),
+        ("T3_rolling", lf.rolling("ts", period=period, group_by="symbol")
+         .agg(c("volume").sum().alias("volume"),
+              c("price").mean().alias("mean"), c("price").max().alias("max"),
+              c("price").std().alias("std"),
+              c("price").first().alias("first"),
+              c("price").last().alias("last"), pl.len().alias("n")),
+         FB, ()),
+        ("T4_mean_by", lf.select(c("price").rolling_mean_by("ts", period)
+                                 .over("symbol").alias("x")), B,
+         ("merge_sort",)),
+        ("T4_max_by", lf.select(c("price").rolling_max_by("ts", period)
+                                .over("symbol").alias("x")), B,
+         ("merge_sort",)),
+        ("T4_median_by", lf.select(c("price").rolling_median_by("ts", period)
+                                   .over("symbol").alias("x")), B,
+         ("merge_sort",)),
+        ("T4_sum_by", lf.select(c("volume").rolling_sum_by("ts", "1m")
+                                .alias("x")), (),
+         ("merge_sort", "compact_words", "seg_sum")),
+        ("T4_ewm_by", lf.select(c("price").ewm_mean_by("ts", half_life="30s")
+                                .alias("x")), (),
+         ("merge_sort", "compact_words", "seg_sum")),
+        ("T5_calendar", TS.filter_trading_hours(lf.with_columns(
+            ts.dt.replace_time_zone("UTC")
+            .dt.convert_time_zone("America/New_York").dt.hour().alias("h"),
+            ts.dt.weekday().alias("wd"), ts.dt.truncate("1h").alias("tr"),
+            ts.dt.date().alias("d"),
+            (ts - ts.shift(1).over("symbol")).dt.total_microseconds()
+            .alias("gap"), TS.session_id("ts")), "us", "ts"), B,
+         ("merge_sort",)),
+    ]
+
+
+def _runs(*keys):
+    """The rows ordered stably by the keys (the first most significant)
+    and the starts of their runs of equal keys: (order, starts, ends,
+    run of each ordered row)."""
+    import numpy as np
+    n = len(keys[0])
+    order = np.lexsort(tuple(reversed(keys)))
+    new = np.zeros(n, dtype=bool)
+    new[0] = True
+    for k in keys:
+        sk = k[order]
+        new[1:] |= sk[1:] != sk[:-1]
+    starts = np.flatnonzero(new)
+    return order, starts, np.r_[starts[1:], n], np.cumsum(new) - 1
+
+
+def _p23(price):
+    """Each f32 price in [1, 200) times 2^23: an exact int64."""
+    import numpy as np
+    return (price.astype(np.float64) * 2.0 ** 23).astype(np.int64)
+
+
+def _mean_bound(n, abs_sum):
+    """2·⌈log2 n⌉·2^-53·Σ|x| / n: a mean's f64 error bound."""
+    import numpy as np
+    lg = np.ceil(np.log2(np.maximum(n, 1)))
+    return 2 * lg * 2.0 ** -53 * abs_sum / np.maximum(n, 1)
+
+
+def _symbol_windows(d):
+    """Each row's 5-minute window within its symbol, (t - 5m, t] with the
+    ties of t past the row, on the (symbol, ts) layout: (order, lo, hi),
+    from one np.searchsorted over a combined (symbol, ts) key."""
+    import numpy as np
+    order = np.lexsort((d["ts"], d["symbol"]))
+    off = d["ts"][order] - d["ts"].min() + 1
+    key = (d["symbol"][order].astype(np.int64) << 42) | off
+    base = d["symbol"][order].astype(np.int64) << 42
+    target = base | np.maximum(off - BAR_PERIOD * MINUTE_US, 0)
+    return order, np.searchsorted(key, target, "right"), \
+        np.searchsorted(key, key, "right")
+
+
+def _window_stats(x, lo, hi):
+    """Per window [lo, hi) of the f32 values x: exact mean (from int64
+    sums of x·2^23), max and the two-pass variance in longdouble, by one
+    pass per window slot."""
+    import numpy as np
+    n = hi - lo
+    cs = np.r_[0, np.cumsum(_p23(x))]
+    s = (cs[hi] - cs[lo]).astype(np.longdouble) / 2.0 ** 23
+    mean = s / n
+    mx = x[lo].copy()
+    dev2 = np.zeros(len(lo), dtype=np.longdouble)
+    sq = np.zeros(len(lo))
+    for k in range(int(n.max())):
+        inside = k < n
+        v = x[np.minimum(lo + k, len(x) - 1)]
+        mx = np.where(inside, np.maximum(mx, v), mx)
+        dv = v.astype(np.longdouble) - mean
+        dev2 += np.where(inside, dv * dv, 0)
+        sq += np.where(inside, v.astype(np.float64) ** 2, 0)
+    var = dev2 / np.maximum(n - 1, 1)
+    return n, s, mean, mx, var, sq
+
+
+def _ewm_by(x, t, half_life_us):
+    """The time-decayed ewm y_i = d_i y_{i-1} + (1 - d_i) x_i, d_i =
+    2^(-(t_i - t_{i-1}) / half_life), y_0 = x_0, evaluated in order: the
+    rows in blocks run in lockstep, once for each block's affine map and
+    once more from each block's true entry state."""
+    import numpy as np
+    n = len(x)
+    B = 2048
+    m = -(-n // B)
+    pad = m * B - n
+    f = np.r_[x.astype(np.float64), np.zeros(pad)].reshape(m, B)
+    dt = np.r_[0.0, np.diff(t).astype(np.float64), np.zeros(pad)]
+    d = np.exp2(-dt / half_life_us)
+    d[0] = 0.0
+    d[n:] = 1.0
+    d = d.reshape(m, B)
+    A = np.ones(m)
+    Bv = np.zeros(m)
+    for j in range(B):
+        A = A * d[:, j]
+        Bv = d[:, j] * Bv + (1 - d[:, j]) * f[:, j]
+    entry = np.zeros(m)
+    y = 0.0
+    for i in range(m):
+        entry[i] = y
+        y = A[i] * y + Bv[i]
+    out = np.empty((m, B))
+    y = entry
+    for j in range(B):
+        y = d[:, j] * y + (1 - d[:, j]) * f[:, j]
+        out[:, j] = y
+    return out.reshape(-1)[:n]
+
+
+def time_oracle(name, d, got=None):
+    """numpy's answer to a phase-12 query on the trades data, as
+    window_oracle gives it: ({column: values}, {column: validity},
+    {column: tolerance})."""
+    import numpy as np
+    ts, sym, price, vol = d["ts"], d["symbol"], d["price"], d["volume"]
+    n = len(ts)
+    if name in ("T1_ohlcv", "T1_vwap"):
+        every = (1 if name == "T1_ohlcv" else BAR_PERIOD) * MINUTE_US
+        bucket = ts // every * every
+        order, starts, ends, _ = _runs(sym, bucket)
+        p = price[order]
+        v = vol[order].astype(np.int64)
+        keys = {"symbol": sym[order][starts], "ts": bucket[order][starts]}
+        if name == "T1_ohlcv":
+            return {**keys, "open": p[starts], "close": p[ends - 1],
+                    "high": np.maximum.reduceat(p, starts),
+                    "low": np.minimum.reduceat(p, starts),
+                    "volume": np.add.reduceat(v, starts)}, {}, {}
+        pv = np.add.reduceat(_p23(p) * v, starts)
+        vs = np.add.reduceat(v, starts)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            w = (pv.astype(np.longdouble) / 2.0 ** 23 / vs).astype(np.float64)
+        return {**keys, "vwap": w, "total_volume": vs}, {}, \
+            {"vwap": 1e-12 * np.abs(w)}
+    if name == "T1_twap":
+        order, starts, ends, run = _runs(sym)
+        t = ts[order]
+        dtu = np.r_[t[1:] - t[:-1], 0]
+        dtu[ends - 1] = 0
+        p = price[order].astype(np.longdouble)
+        num = np.add.reduceat(p * dtu, starts)
+        den = np.add.reduceat(dtu, starts)
+        w = (num / den).astype(np.float64)
+        return {"symbol": sym[order][starts], "twap": w}, {}, \
+            {"twap": 1e-12 * np.abs(w)}
+    if name == "T2_overlap":
+        m0 = ts // MINUTE_US
+        order, starts, ends, _ = _runs(sym, m0)
+        p = price[order]
+        bs, bm = sym[order][starts].astype(np.int64), m0[order][starts]
+        base = bm.min() - BAR_PERIOD
+        bkey = (bs << 32) | (bm - base)
+        bcnt = ends - starts
+        bsum = np.add.reduceat(_p23(p), starts)
+        babs = np.add.reduceat(np.abs(p.astype(np.float64)), starts)
+        bmax = np.maximum.reduceat(p, starts)
+        wins = np.unique((bkey[:, None] - np.arange(BAR_PERIOD)).ravel())
+        cnt = np.zeros(len(wins), dtype=np.int64)
+        tot = np.zeros(len(wins), dtype=np.int64)
+        ab = np.zeros(len(wins))
+        mx = np.full(len(wins), -np.inf, dtype=np.float32)
+        for j in range(BAR_PERIOD):
+            i = np.minimum(np.searchsorted(bkey, wins + j), len(bkey) - 1)
+            hit = bkey[i] == wins + j
+            cnt += np.where(hit, bcnt[i], 0)
+            tot += np.where(hit, bsum[i], 0)
+            ab += np.where(hit, babs[i], 0)
+            mx = np.where(hit, np.maximum(mx, bmax[i]), mx)
+        mean = (tot.astype(np.longdouble) / 2.0 ** 23 / cnt).astype(
+            np.float64)
+        return {"symbol": (wins >> 32).astype(np.uint32),
+                "ts": ((wins & 0xFFFFFFFF) + base) * MINUTE_US,
+                "mean": mean, "max": mx, "n": cnt}, {}, \
+            {"mean": ("f32", _mean_bound(cnt, ab))}
+    if name in ("T3_rolling", "T4_mean_by", "T4_max_by", "T4_median_by"):
+        order, lo, hi = _symbol_windows(d)
+        p = price[order]
+        if name == "T4_median_by":
+            rng = np.random.default_rng(7)
+            rows = rng.choice(n, MEDIAN_SAMPLE, replace=False)
+            want = np.array([np.median(p[a:b]) for a, b in
+                             zip(lo[rows], hi[rows])], dtype=np.float32)
+            return {"x": want}, {}, {}, order[rows]
+        cnt, s, mean, mx, var, sq = _window_stats(p, lo, hi)
+        ab = np.abs(s).astype(np.float64)
+        mb = ("f32", _unsort(order, _mean_bound(cnt, ab)))
+        mean64 = _unsort(order, mean.astype(np.float64))
+        if name == "T4_mean_by":
+            return {"x": mean64}, {}, {"x": mb}
+        if name == "T4_max_by":
+            return {"x": _unsort(order, mx)}, {}, {}
+        cv = np.r_[0, np.cumsum(vol[order].astype(np.int64))]
+        return {"symbol": sym, "ts": ts,
+                "volume": _unsort(order, cv[hi] - cv[lo]),
+                "mean": mean64, "max": _unsort(order, mx),
+                "std": _unsort(order, var.astype(np.float64)),
+                "first": _unsort(order, p[lo]),
+                "last": _unsort(order, p[hi - 1]),
+                "n": _unsort(order, cnt)}, \
+            {"std": _unsort(order, cnt > 1)}, \
+            {"mean": mb, "std": ("var32", _unsort(
+                order, 8 * cnt * 2.0 ** -53 * sq))}
+    if name == "T4_sum_by":
+        lo = np.searchsorted(ts, ts - MINUTE_US, "right")
+        hi = np.searchsorted(ts, ts, "right")
+        cv = np.r_[0, np.cumsum(vol.astype(np.int64))]
+        return {"x": (cv[hi] - cv[lo]).astype(np.int32)}, {}, {}
+    if name == "T4_ewm_by":
+        y = _ewm_by(price, ts, 30 * 1_000_000)
+        return {"x": y}, {}, {"x": 8 * np.log2(n) * 2.0 ** -24 * np.abs(y)}
+    if name == "T5_calendar":
+        hour = ts // 3_600_000_000 % 24
+        keep = (hour >= 13) & (hour < 21)
+        local = ts - np.where(ts < DST_2024_US, 5, 4) * 3_600_000_000
+        order, starts, ends, _ = _runs(sym)
+        t = ts[order]
+        gap = np.r_[0, t[1:] - t[:-1]]
+        first = np.zeros(n, dtype=bool)
+        first[starts] = True
+        session = np.where((hour >= 13) & (hour < 21), "us", np.where(
+            (hour >= 7) & (hour < 13), "europe", "asia")).astype(object)
+        days = ts // 86_400_000_000
+        want = {"symbol": sym, "price": price, "volume": vol, "ts": ts,
+                "h": local // 3_600_000_000 % 24,
+                "wd": (days + 3) % 7 + 1,
+                "tr": ts // 3_600_000_000 * 3_600_000_000, "d": days,
+                "gap": _unsort(order, gap), "session": session}
+        return {k: v[keep] for k, v in want.items()}, \
+            {"gap": _unsort(order, ~first)[keep]}, {}
+    raise KeyError(name)
+
+
+def check_time(name, got, d):
+    """A phase-12 result (host_columns; String columns decoded) against
+    time_oracle; T4_median_by on its sampled rows."""
+    out = time_oracle(name, d, got)
+    if len(out) == 4:
+        want, valid, tol, rows = out
+        got = {k: (g[rows], None if gv is None else gv[rows])
+               for k, (g, gv) in got.items()}
+        _, errs = compare_columns(name, got, want, valid, tol)
+        return len(d["ts"]), errs
+    return compare_columns(name, got, *out)
+
+
+def decoded_columns(out):
+    """host_columns with each String column decoded by its dictionary."""
+    got = host_columns(out)
+    for k, c in out._table.cols.items():
+        if c.dtype.is_string:
+            codes, valid = got[k]
+            got[k] = (c.sdict.decode(codes), valid)
+    return got
+
+
+def run_time_phase(args, torch, TK, TP, TE, TH, TM, tqueries, tdata,
+                   first_ms, runs):
+    """Phase 12: every query's collect with its launches asserted, its
+    result copied to the host, a trace and the timed collects; then the
+    numpy oracles."""
+    import numpy as np
+    results = []
+    for name, lft, must, never in tqueries:
+        reset_launches(TK, TP, TE, TH, TM)
+        outt = lft.collect()
+        tl = read_launches(TK, TP, TE, TH, TM)
+        for kernel in must:
+            assert tl[kernel] >= 1, f"{name} did not launch {kernel}"
+        for kernel in never:
+            assert tl[kernel] == 0, f"{name} launched {kernel}"
+        assert tl["fallbacks"] == 0, f"{name} took the fallback"
+        runs.append(tl)
+        got = decoded_columns(outt)
+        del outt
+        tr = trace_collect(lft, top_n=8)
+        times = time_collects(lft, args.reps)
+        results.append((name, got, tl, times, tr))
+    for name, got, tl, times, tr in results:
+        nout, errs = check_time(name, got, tdata)
+        for k, (g, _) in got.items():
+            if g.dtype.kind == "f":
+                assert np.isfinite(g).all() or name == "T1_vwap", \
+                    f"{name}: {k} is not finite"
+        med = statistics.median(times)
+        print(json.dumps({
+            "phase": "time", "query": name, "rows": len(tdata["ts"]),
+            "out_rows": nout, "launches": tl, "largest_error": errs,
+            "first_collect_ms": first_ms.get(name),
+            "median_ms": med, "ms": times,
+            "idle_share": 1 - tr["device_busy_ms"] / med
+            if tr["device_ops"] else None, "trace": tr}))
 
 
 def check_lookup_join(args, torch, TE):
@@ -1982,6 +2397,15 @@ def main() -> int:
     shapes, _ = check_recorded_kernels(
         args, torch, TK, TE, TM, TP,
         [(name, lf) for name, lf, _ in wqueries])
+    for kernel, by_shape in shapes.items():
+        recorded[kernel].update(by_shape)
+    # kernels F, B and A at every shape that phase 12's time queries give
+    # them (each query's first collect: its host ms is printed in phase 12)
+    tdata = make_trades_data(args.rows, args.seed)
+    tqueries = time_queries(pl, trades_frame(pl, tdata))
+    shapes, time_first_ms = check_recorded_kernels(
+        args, torch, TK, TE, TM, TP,
+        [(name, lf) for name, lf, *_ in tqueries])
     for kernel, by_shape in shapes.items():
         recorded[kernel].update(by_shape)
     lookup = check_lookup_join(args, torch, TE)
@@ -2186,6 +2610,11 @@ def main() -> int:
             "idle_share": 1 - tr["device_busy_ms"] / med
             if tr["device_ops"] else None, "trace": tr}))
     del results
+
+    # --- 12. time at 2^23 rows --------------------------------------------------
+    run_time_phase(args, torch, TK, TP, TE, TH, TM, tqueries, tdata,
+                   time_first_ms, runs)
+    del tqueries
 
     # --- result ---------------------------------------------------------------
     def launches(name):

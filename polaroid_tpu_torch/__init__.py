@@ -11,7 +11,10 @@ any key (the dense, hash and sorted tiers, with median, quantile,
 n_unique, mode, arg_min/arg_max, product and corr/cov), unique, sort,
 top_k, head, equi-joins of every kind (`join`), `concat`, and the
 order-dependent window expressions (shift, cum_*, rolling, ewm, rank,
-fills) with `.over()`. The rest of the JAX package's surface comes with later
+fills) with `.over()`, and time: temporal casts and arithmetic, the `dt`
+namespace with time zones, range windows (`rolling_*_by`),
+`group_by_dynamic`, `rolling`, `upsample`, `when/then` and the finance
+functions of `timeseries`. The rest of the JAX package's surface comes with later
 slices (see ROADMAP.md).
 """
 
@@ -27,20 +30,27 @@ from .errors import (  # noqa: E402
     ColumnNotFoundError, ComputeError, DuplicateError, InvalidOperationError,
     PolaroidError, SchemaError, ShapeError,
 )
-from .expr.expr import Expr, col, len_ as len, lit  # noqa: E402
+from .expr.expr import Expr, col, len_ as len, lit, when  # noqa: E402
 from .api.frame import DataFrame  # noqa: E402
 from .api.series import Series  # noqa: E402
 from .api.lazyframe import LazyFrame  # noqa: E402
 from .api.functions import concat, corr, cov, from_dict, rolling_corr, \
     rolling_cov  # noqa: E402
-from . import testing  # noqa: E402
+from .api.functions import date, date_range, date_ranges, datetime, \
+    datetime_range, datetime_ranges, duration, from_epoch, time, \
+    time_range, time_ranges  # noqa: E402
+from .dtypes import Time  # noqa: E402
+from . import testing, timeseries  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
     "DataFrame", "LazyFrame", "Series", "Expr", "Config", "CONFIG",
     "col", "lit", "len", "from_dict", "corr", "cov", "concat",
-    "rolling_cov", "rolling_corr",
+    "rolling_cov", "rolling_corr", "when", "date", "date_range",
+    "date_ranges", "datetime", "datetime_range", "datetime_ranges",
+    "duration", "from_epoch", "time", "time_range", "time_ranges",
+    "timeseries", "Time",
     "Int8", "Int16", "Int32", "Int64", "UInt8", "UInt16", "UInt32", "UInt64",
     "Float32", "Float64", "Boolean", "String", "Utf8", "Date", "Datetime",
     "Duration", "Null", "DataType",

@@ -326,6 +326,79 @@ class DataFrame:
         from .groupby import GroupBy
         return GroupBy(self, _to_exprs(by, named_by), maintain_order)
 
+    def group_by_dynamic(self, index_column: str, *, every: str,
+                         period: Optional[str] = None,
+                         offset: Optional[str] = None, closed: str = "left",
+                         group_by=None, start_by: str = "window"):
+        """Windows of the index column (`every` apart, `period` long,
+        moved by `offset`) grouped with the `group_by` keys
+        (`ops/temporal_window.dynamic_group_by`)."""
+        from ..ops.temporal_window import dynamic_group_by
+        keys = _to_exprs((group_by,)) if group_by is not None else []
+        frame = self
+
+        class _Dynamic:
+            def agg(_self, *aggs, **named):
+                es = meta.expand_exprs(_to_exprs(aggs, named), frame.schema)
+                return DataFrame._from_table(dynamic_group_by(
+                    frame._table, index_column, every, period, offset,
+                    closed, keys, es, start_by))
+        return _Dynamic()
+
+    def rolling(self, index_column: str, *, period: str, group_by=None,
+                closed: str = "right"):
+        """Each row's aggregates over its trailing window of the index
+        column within its `group_by` group
+        (`ops/temporal_window.rolling_agg`)."""
+        from ..ops.temporal_window import rolling_agg
+        keys = _to_exprs((group_by,)) if group_by is not None else []
+        frame = self
+
+        class _Rolling:
+            def agg(_self, *aggs, **named):
+                es = meta.expand_exprs(_to_exprs(aggs, named), frame.schema)
+                return DataFrame._from_table(rolling_agg(
+                    frame._table, index_column, period, keys, es, closed))
+        return _Rolling()
+
+    def upsample(self, time_column: str, *, every: str) -> "DataFrame":
+        """Rows at every `every` from the first to the last time, the
+        frame's columns joined on (nulls where no row has that time), as
+        the JAX package's `upsample`: the grid is built on the host."""
+        from ..dtypes import Date
+        from ..ops.temporal import parse_every
+        t = C.compact(self._table)
+        n = t.count_rows()
+        if n == 0:
+            return self
+        c = t.column(time_column)
+        vals = c.data[:n].cpu().numpy()
+        _, ns = parse_every(every)
+        if c.dtype == Date:
+            step = max(ns // (86_400 * 1_000_000_000), 1)
+            grid = np.arange(vals.min(), vals.max() + 1, step,
+                             dtype=np.int64).astype("datetime64[D]")
+        else:
+            lo = np.datetime64(int(vals.min()), c.dtype.time_unit) \
+                .astype("datetime64[us]")
+            hi = np.datetime64(int(vals.max()), c.dtype.time_unit) \
+                .astype("datetime64[us]")
+            step = np.timedelta64(max(ns // 1000, 1), "us")
+            grid = np.arange(lo, hi + np.timedelta64(1, "us"), step)
+        gdf = DataFrame({time_column: grid}, schema={time_column: c.dtype},
+                        device=self.device)
+        return gdf.join(self, on=time_column, how="left")
+
+    def join_asof(self, *args, **kwargs):
+        raise NotImplementedError(
+            "join_asof is not ported yet: it comes with Slice D3 (as-of and "
+            "inequality joins)")
+
+    def join_where(self, *args, **kwargs):
+        raise NotImplementedError(
+            "join_where is not ported yet: it comes with Slice D3 (as-of "
+            "and inequality joins)")
+
     def lazy(self):
         from .lazyframe import LazyFrame
         return LazyFrame._from_table(self._table)

@@ -90,3 +90,157 @@ def concat(items: Sequence, how: str = "vertical", rechunk: bool = False):
             out = out.hstack(i)
         return out
     raise ComputeError(f"unknown concat strategy {how!r}")
+
+
+# --- time (Slice D2) ------------------------------------------------------
+
+def _wrap_col(x) -> Expr:
+    if isinstance(x, Expr):
+        return x
+    if isinstance(x, str):
+        return col(x)
+    return Expr("lit", value=x, dtype=None)
+
+
+def _month_advance(d, n: int):
+    """A date or datetime moved by n months, the day saturated to the
+    month's end."""
+    m = d.month - 1 + n
+    y = d.year + m // 12
+    m = m % 12 + 1
+    leap = y % 4 == 0 and (y % 100 != 0 or y % 400 == 0)
+    last = [31, 29 if leap else 28, 31, 30, 31, 30, 31, 31, 30, 31, 30,
+            31][m - 1]
+    return d.replace(year=y, month=m, day=min(d.day, last))
+
+
+def date_range(start, end, interval: str = "1d", *, closed: str = "both",
+               eager: bool = False):
+    """Dates (or datetimes, when an end is a datetime) from start to end
+    every `interval`, built on the host. eager=True gives a Series; the
+    lazy form is a list literal, which comes with Slice E."""
+    import datetime as _dt
+    import numpy as np
+    from ..ops.temporal import parse_every
+    from .series import Series
+    kind, n = parse_every(interval)
+    is_dt = isinstance(start, _dt.datetime) or isinstance(end, _dt.datetime)
+    if kind == "months":
+        def advance(d):
+            return _month_advance(d, n)
+    else:
+        delta = _dt.timedelta(microseconds=n / 1000) if is_dt else \
+            _dt.timedelta(days=n // (86_400 * 1_000_000_000))
+
+        def advance(d):
+            return d + delta
+    out = []
+    cur = start
+    while cur <= end:
+        out.append(cur)
+        nxt = advance(cur)
+        if nxt == cur:
+            break
+        cur = nxt
+    if closed == "left":
+        out = [d for d in out if d != end]
+    elif closed == "none":
+        out = out[1:-1]
+    elif closed == "right":
+        out = [d for d in out if d != start]
+    if eager:
+        return Series("literal", out)
+    return Expr("lit", value=np.asarray(
+        [(d - _dt.date(1970, 1, 1)).days for d in out]), dtype=None)
+
+
+def datetime_range(start, end, interval: str = "1d", *,
+                   closed: str = "both", eager: bool = False, **kw):
+    return date_range(start, end, interval, closed=closed, eager=eager)
+
+
+def date_ranges(start, end, interval: str = "1d", **kw):
+    raise NotImplementedError(
+        "date_ranges is not ported yet: it returns a List column, which "
+        "comes with Slice E (the expression surface)")
+
+
+def datetime_ranges(start, end, interval: str = "1d", **kw):
+    raise NotImplementedError(
+        "datetime_ranges is not ported yet: it returns a List column, which "
+        "comes with Slice E (the expression surface)")
+
+
+def time_range(start=None, end=None, interval: str = "1h", *,
+               eager: bool = False, **kw):
+    """Times of day from start to end every `interval` (a Time column:
+    nanoseconds since midnight)."""
+    import datetime as _dt
+    import numpy as np
+    from ..dtypes import Time
+    from ..ops.temporal import parse_every
+    from .series import Series
+    s = start or _dt.time(0)
+    e = end or _dt.time(23, 59, 59, 999999)
+    _, ns = parse_every(interval)
+
+    def nanos(t):
+        return (t.hour * 3600 + t.minute * 60 + t.second) * 10 ** 9 \
+            + t.microsecond * 1000
+    out = list(range(nanos(s), nanos(e) + 1, max(ns, 1)))
+    if eager:
+        return Series("literal", out, dtype=Time)
+    return Expr("lit", value=np.asarray(out, np.int64), dtype=Time) \
+        .alias("time")
+
+
+def time_ranges(*args, **kwargs):
+    raise ComputeError("time_ranges (per-row) not supported; use time_range")
+
+
+def datetime(year, month, day, hour=0, minute=0, second=0, microsecond=0,
+             *, time_unit: str = "us", eager=False) -> Expr:
+    """A Datetime from calendar fields (expressions, column names or
+    ints) by the civil calendar on the device."""
+    return Expr("datetime_components",
+                (_wrap_col(year), _wrap_col(month), _wrap_col(day)),
+                hour=hour, minute=minute, second=second,
+                microsecond=microsecond, time_unit=time_unit)
+
+
+def duration(*, weeks=0, days=0, hours=0, minutes=0, seconds=0,
+             milliseconds=0, microseconds=0, time_unit: str = "us") -> Expr:
+    import datetime as _dt
+    from ..dtypes import Duration
+    parts = (weeks, days, hours, minutes, seconds, milliseconds,
+             microseconds)
+    if not all(isinstance(p, (int, float)) for p in parts):
+        raise ComputeError("pl.duration with expression parts not "
+                           "supported yet")
+    td = _dt.timedelta(weeks=weeks, days=days, hours=hours, minutes=minutes,
+                       seconds=seconds, milliseconds=milliseconds,
+                       microseconds=microseconds)
+    return Expr("lit", value=td, dtype=Duration(time_unit))
+
+
+def date(year, month, day) -> Expr:
+    import datetime as _dt
+    if all(isinstance(v, int) for v in (year, month, day)):
+        return Expr("lit", value=_dt.date(year, month, day), dtype=None)
+    return Expr("dt", (datetime(year, month, day),), op="date")
+
+
+def time(hour=0, minute=0, second=0, microsecond=0) -> Expr:
+    from ..dtypes import Time
+    ns = ((int(hour) * 3600 + int(minute) * 60 + int(second))
+          * 1_000_000_000 + int(microsecond) * 1000)
+    return Expr("lit", value=ns, dtype=Time)
+
+
+def from_epoch(column, time_unit: str = "us") -> Expr:
+    from ..dtypes import Datetime
+    e = _wrap_col(column)
+    if time_unit == "s":
+        e = e * 1_000_000
+        time_unit = "us"
+    return e.cast(Datetime(time_unit))

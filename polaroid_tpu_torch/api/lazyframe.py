@@ -142,6 +142,33 @@ class LazyFrame:
         return LazyFrame._from_plan(
             L.Distinct(self._plan, names, keep, maintain_order))
 
+    def group_by_dynamic(self, index_column: str, *, every: str,
+                         period: Optional[str] = None,
+                         offset: Optional[str] = None, closed: str = "left",
+                         group_by=None, start_by: str = "window"):
+        """Dynamic windows (see `DataFrame.group_by_dynamic`). Windows
+        that do not overlap lower to a group-by on the truncated index
+        and a sort by the keys, which every optimizer pass sees through;
+        overlapping ones to a map_function node."""
+        return _LazyDynamic(self, index_column, every, period, offset,
+                            closed, group_by, start_by)
+
+    def rolling(self, index_column: str, *, period: str, group_by=None,
+                closed: str = "right"):
+        """Rolling windows (see `DataFrame.rolling`), as a map_function
+        node."""
+        return _LazyRolling(self, index_column, period, group_by, closed)
+
+    def join_asof(self, *args, **kwargs):
+        raise NotImplementedError(
+            "join_asof is not ported yet: it comes with Slice D3 (as-of and "
+            "inequality joins)")
+
+    def join_where(self, *args, **kwargs):
+        raise NotImplementedError(
+            "join_where is not ported yet: it comes with Slice D3 (as-of "
+            "and inequality joins)")
+
     def lazy(self) -> "LazyFrame":
         return self
 
@@ -167,3 +194,76 @@ class LazyGroupBy:
         return LazyFrame._from_plan(
             L.GroupBy(self._lf._plan, self._keys, _to_exprs(aggs, named),
                       self._maintain_order))
+
+
+class _LazyDynamic:
+    def __init__(self, lf, index_column, every, period, offset, closed,
+                 group_by, start_by):
+        self._lf = lf
+        self._args = (index_column, every, period, offset, closed)
+        self._group_by = group_by
+        self._start_by = start_by
+
+    def _keys(self) -> List[Expr]:
+        gb = self._group_by
+        return _to_exprs((gb,)) if gb is not None else []
+
+    def agg(self, *aggs, **named) -> LazyFrame:
+        from ..expr import meta
+        index_column, every, period, offset, closed = self._args
+        plan = self._lf._plan
+        if (period is None or period == every) and closed == "left":
+            from ..ops.temporal_window import bucket_expr
+            ins = plan.schema()
+            b = bucket_expr(index_column, ins[index_column], every,
+                            offset).alias(index_column)
+            gkeys = self._keys() + [b]
+            es = meta.expand_exprs(_to_exprs(aggs, named), ins)
+            gb = L.GroupBy(plan, gkeys, list(es), False)
+            names = [meta.output_name(k) for k in gkeys]
+            return LazyFrame._from_plan(L.Sort(
+                gb, [_col(n) for n in names], [False] * len(names),
+                [False] * len(names), False, None))
+        keys = self._keys()
+
+        def fn(t):
+            from ..ops.temporal_window import dynamic_group_by
+            es = meta.expand_exprs(_to_exprs(aggs, named), dict(t.schema))
+            return dynamic_group_by(t, index_column, every, period, offset,
+                                    closed, keys, es, self._start_by)
+
+        def schema_fn(ins):
+            out = {meta.output_name(k): meta.output_dtype(k, ins)
+                   for k in keys}
+            out[index_column] = ins[index_column]
+            for a in meta.expand_exprs(_to_exprs(aggs, named), ins):
+                out[meta.output_name(a)] = meta.output_dtype(a, ins)
+            return out
+        return LazyFrame._from_plan(L.MapFunction(plan, fn, schema_fn, False,
+                                                  "group_by_dynamic"))
+
+
+class _LazyRolling:
+    def __init__(self, lf, index_column, period, group_by, closed):
+        self._lf = lf
+        self._args = (index_column, period, group_by, closed)
+
+    def agg(self, *aggs, **named) -> LazyFrame:
+        from ..expr import meta
+        index_column, period, group_by, closed = self._args
+        keys = _to_exprs((group_by,)) if group_by is not None else []
+
+        def fn(t):
+            from ..ops.temporal_window import rolling_agg
+            es = meta.expand_exprs(_to_exprs(aggs, named), dict(t.schema))
+            return rolling_agg(t, index_column, period, keys, es, closed)
+
+        def schema_fn(ins):
+            out = {meta.output_name(k): meta.output_dtype(k, ins)
+                   for k in keys}
+            out[index_column] = ins[index_column]
+            for a in meta.expand_exprs(_to_exprs(aggs, named), ins):
+                out[meta.output_name(a)] = meta.output_dtype(a, ins)
+            return out
+        return LazyFrame._from_plan(L.MapFunction(
+            self._lf._plan, fn, schema_fn, False, "rolling"))

@@ -69,6 +69,11 @@ class Series:
         return DataFrame._from_table(t).select(
             make_expr(col(name)).alias(name)).get_column(name)
 
+    @property
+    def dt(self) -> "_DtNamespace":
+        """The `dt` namespace over the series."""
+        return _DtNamespace(self)
+
     def to_numpy(self) -> np.ndarray:
         return np.asarray(self._col.to_numpy(len(self)))
 
@@ -79,6 +84,20 @@ class Series:
         vals = self.to_list()
         more = "..." if len(vals) > 10 else ""
         return f"Series({self.name!r}, {vals[:10]}{more})"
+
+
+class _DtNamespace:
+    """`Expr.dt.<op>(...)` over a series, as a one-column frame."""
+
+    def __init__(self, s: Series):
+        self._s = s
+
+    def __getattr__(self, op: str):
+        def method(*args, **kwargs) -> Series:
+            return self._s._apply(
+                lambda c: getattr(c.dt, op)(*args, **kwargs))
+        method.__name__ = op
+        return method
 
 
 def _window_method(name: str):

@@ -23,12 +23,15 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+import datetime as _pydt
+
 import numpy as np
 import torch
 
 from .config import CONFIG, capacity_for
 from .dtypes import (
-    Boolean, DataType, Datetime, Duration, Float64, Int64, Null, String,
+    Boolean, DataType, Date, Datetime, Duration, Float64, Int64, Null,
+    String,
     dtype_from_numpy, physical_numpy_dtype,
 )
 from .errors import ColumnNotFoundError, ShapeError
@@ -216,6 +219,12 @@ def _coerce_host_values(values, dtype: Optional[DataType]):
             dt = Float64
         elif isinstance(v0, (str, bytes)):
             dt = String
+        elif isinstance(v0, _pydt.datetime):
+            dt = Datetime("us")
+        elif isinstance(v0, _pydt.date):
+            dt = Date
+        elif isinstance(v0, _pydt.timedelta):
+            dt = Duration("us")
         else:
             raise NotImplementedError(
                 f"host values of type {type(v0).__name__} are not ported yet")
@@ -224,6 +233,15 @@ def _coerce_host_values(values, dtype: Optional[DataType]):
         return codes, mask, dt, sdict
     if dt == Null:
         return np.zeros(len(seq), dtype=bool), mask, Boolean, None
+    if dt.is_temporal and any(isinstance(v, (_pydt.date, _pydt.timedelta,
+                                             _pydt.time))
+                              for v in non_null[:1]):
+        # Python dates, datetimes (a naive one read as UTC) and
+        # timedeltas, in the dtype's units, exactly
+        from .expr.eval import _temporal_count
+        vals = np.array([_temporal_count(v, dt) if v is not None else 0
+                         for v in seq], dtype=physical_numpy_dtype(dt))
+        return vals, mask, dt, None
     stor = physical_numpy_dtype(dt)
     vals = np.array([v if v is not None else 0 for v in seq]).astype(stor)
     return vals, mask, dt, None

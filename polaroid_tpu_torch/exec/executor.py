@@ -91,6 +91,10 @@ def execute(plan: L.Plan, cache: Optional[Dict[int, Table]] = None
     if k == "distinct":
         return unique_table(execute(plan.input, cache), plan.subset,
                             plan.keep, plan.maintain_order)
+    if k == "map_function":
+        # an opaque Table -> Table function (the lazy rolling and the
+        # overlapping group_by_dynamic build one)
+        return plan.fn(execute(plan.input, cache))
     raise NotImplementedError(
         f"plan node {k!r} is not ported yet: it comes with "
         f"{_NEXT_SLICE.get(k, 'a later slice of the port')}")

@@ -2,22 +2,24 @@
 
 The port of the elementwise part of the JAX package's `expr/eval.py`:
 column references, literals, arithmetic, comparisons, Kleene boolean
-logic, casts between numeric types, aliases and null propagation. Every
-operation is a torch op over whole fixed-capacity columns; dead rows
-compute garbage that is never read as a result. Scalars are (1,) tensors
-that broadcast. The order-dependent ops (`window`, `fill_null`,
-`rolling_cov`/`rolling_corr`) live in `expr/window.py`, and `.over()` in
-`ops/window_over.py`.
+logic, casts between numeric and temporal types, temporal literals and
+arithmetic (Date, Datetime, Duration), `pl.datetime` from expressions,
+`when/then/otherwise`, aliases and null propagation. Every operation is
+a torch op over whole fixed-capacity columns; dead rows compute garbage
+that is never read as a result. Scalars are (1,) tensors that
+broadcast. The order-dependent ops (`window`, `fill_null`,
+`rolling_cov`/`rolling_corr`) live in `expr/window.py`, `.over()` in
+`ops/window_over.py` and the `dt` namespace in `expr/dt.py`.
 
-The rest of that file (strings, temporal, lists, aggregations in a
-select context) comes with later slices and raises
-NotImplementedError here. `expr.filter(pred)` is ported inside a
+The rest of that file (strings, lists, aggregations in a select
+context) comes with later slices and raises NotImplementedError here. `expr.filter(pred)` is ported inside a
 group-by aggregation: it keeps every row and narrows the rows that take
 part in the aggregate (`Val.live`), as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import datetime as _pydt
 import math
 from typing import Optional, Tuple
 
@@ -25,9 +27,10 @@ import numpy as np
 import torch
 
 from ..batch import Column, Table, storage_torch_dtype
-from ..dtypes import Boolean, DataType, Float32, Float64, Int64, Null, \
-    UInt32, supertype
+from ..dtypes import Boolean, DataType, Date, Datetime, Duration, Float32, \
+    Float64, Int64, Null, String, UInt32, supertype
 from ..errors import InvalidOperationError
+from ..ops import temporal as T
 from ..strings import EMPTY_DICT, NULL_CODE, StringDict
 from . import meta
 from .expr import Expr
@@ -127,14 +130,34 @@ def _cast(v: Val, dtype: DataType) -> Val:
         return Val(dst, data, torch.zeros(v.data.shape, dtype=torch.bool,
                                           device=v.data.device),
                    EMPTY_DICT if dst.is_string else None, v.is_scalar)
-    if src.is_string or dst.is_string or src.is_temporal or \
-            dst.is_temporal:
+    if src.is_string or dst.is_string:
         raise NotImplementedError(
-            f"cast {src!r} -> {dst!r} is not ported yet")
+            f"cast {src!r} -> {dst!r} is not ported yet: casts to and from "
+            "strings come with Slice E (the expression surface)")
+    if src == Date and isinstance(dst, Datetime):
+        data = v.data.to(torch.int64) * T.per_day(dst.time_unit)
+        return Val(dst, data, v.validity, None, v.is_scalar)
+    if isinstance(src, Datetime) and dst == Date:
+        return Val(dst, T.epoch_to_days(v.data, src.time_unit), v.validity,
+                   None, v.is_scalar)
+    if (isinstance(src, Datetime) and isinstance(dst, Datetime)) or \
+            (isinstance(src, Duration) and isinstance(dst, Duration)):
+        return Val(dst, rescale_time(v.data, src.time_unit, dst.time_unit),
+                   v.validity, None, v.is_scalar)
     if dst.is_bool:
         return Val(dst, v.data != 0, v.validity, None, v.is_scalar)
     return Val(dst, v.data.to(storage_torch_dtype(dst)), v.validity, None,
                v.is_scalar)
+
+
+def rescale_time(data: torch.Tensor, src_unit: str, dst_unit: str
+                 ) -> torch.Tensor:
+    """Epoch or duration counts from one time unit to another (a coarser
+    unit floors)."""
+    s, d = T.UNIT_PER_SECOND[src_unit], T.UNIT_PER_SECOND[dst_unit]
+    if d >= s:
+        return data * (d // s)
+    return torch.div(data, s // d, rounding_mode="floor")
 
 
 # ---------------------------------------------------------------------------
@@ -149,15 +172,66 @@ def _lit_val(value, dtype: Optional[DataType], device) -> Val:
                    torch.zeros((1,), dtype=stor, device=device),
                    torch.zeros((1,), dtype=torch.bool, device=device),
                    EMPTY_DICT if dt.is_string else None, True)
-    if isinstance(value, (list, tuple, np.ndarray)) or dt.is_temporal:
+    if isinstance(value, (list, tuple, np.ndarray)):
         raise NotImplementedError(
-            f"literal {type(value).__name__} of {dt!r} is not ported yet")
+            f"literal {type(value).__name__} is not ported yet: list "
+            "literals come with Slice E (the expression surface)")
+    if dt.is_temporal:
+        return Val(dt, torch.full((1,), _temporal_count(value, dt),
+                                  dtype=storage_torch_dtype(dt),
+                                  device=device), None, None, True)
     if dt.is_string:
         sd = StringDict(np.array([value], dtype=object))
         return Val(dt, torch.zeros((1,), dtype=torch.int32, device=device),
                    None, sd, True)
     return Val(dt, torch.full((1,), value, dtype=storage_torch_dtype(dt),
                               device=device), None, None, True)
+
+
+def _temporal_count(value, dt: DataType) -> int:
+    """A temporal literal's storage: epoch days (Date), epoch ticks
+    (Datetime; a naive datetime is read as UTC, an aware one at its
+    instant), ticks (Duration), nanoseconds since midnight (Time)."""
+    if isinstance(value, np.datetime64):
+        unit = "D" if dt == Date else dt.time_unit
+        return int(value.astype(f"datetime64[{unit}]").astype(np.int64))
+    if isinstance(value, np.timedelta64):
+        return int(value.astype(f"timedelta64[{dt.time_unit}]")
+                   .astype(np.int64))
+    if dt == Date:
+        if isinstance(value, _pydt.datetime):
+            value = value.date()
+        return (value - _pydt.date(1970, 1, 1)).days if \
+            isinstance(value, _pydt.date) else int(value)
+    if isinstance(dt, Datetime):
+        if isinstance(value, _pydt.datetime):
+            if value.tzinfo is None:
+                value = value.replace(tzinfo=_pydt.timezone.utc)
+            delta = value - _EPOCH
+        elif isinstance(value, _pydt.date):
+            delta = _pydt.datetime(value.year, value.month, value.day,
+                                   tzinfo=_pydt.timezone.utc) - _EPOCH
+        else:
+            return int(value)
+        return _td_ticks(delta, dt.time_unit)
+    if isinstance(dt, Duration):
+        return _td_ticks(value, dt.time_unit) \
+            if isinstance(value, _pydt.timedelta) else int(value)
+    if isinstance(value, _pydt.time):
+        return ((value.hour * 3600 + value.minute * 60 + value.second)
+                * 1_000_000_000 + value.microsecond * 1000)
+    return int(value)
+
+
+_EPOCH = _pydt.datetime(1970, 1, 1, tzinfo=_pydt.timezone.utc)
+
+
+def _td_ticks(td: _pydt.timedelta, unit: str) -> int:
+    """A timedelta in whole ticks of `unit`, exactly (no float)."""
+    us = (td.days * 86_400 + td.seconds) * 1_000_000 + td.microseconds
+    scale = T.UNIT_PER_SECOND[unit]
+    return us * (scale // 1_000_000) if scale >= 1_000_000 \
+        else us // (1_000_000 // scale)
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +312,7 @@ def _binary(op: str, l: Val, r: Val) -> Val:
     if op in _BOOL_OPS and l.dtype.is_bool and r.dtype.is_bool:
         return _eval_kleene(op, l, r)
     if l.dtype.is_temporal or r.dtype.is_temporal:
-        raise NotImplementedError("temporal arithmetic is not ported yet")
+        return _binary_temporal(op, l, r)
 
     st = supertype(l.dtype, r.dtype)
     out_dt = st
@@ -277,6 +351,71 @@ def _binary(op: str, l: Val, r: Val) -> Val:
     else:
         raise NotImplementedError(f"binary op {op!r} is not ported yet")
     return Val(out_dt, data, validity, None, l.is_scalar and r.is_scalar)
+
+
+def _binary_temporal(op: str, l: Val, r: Val) -> Val:
+    """Temporal compares and arithmetic (the JAX package's
+    `_eval_binary_temporal`): Datetime/Date - Datetime/Date -> Duration
+    (Date - Date in ms), Datetime/Date +- Duration, Duration +- Duration,
+    Duration * / // a number, Duration / Duration -> Float64."""
+    ldt, rdt = l.dtype, r.dtype
+    validity = _and_valid(l.validity, r.validity)
+    is_scalar = l.is_scalar and r.is_scalar
+
+    def unify():
+        st = supertype(ldt, rdt)
+        return cast_val(l, st).data, cast_val(r, st).data, st
+
+    def mk(dt, data):
+        return Val(dt, data, validity, None, is_scalar)
+
+    dated = (isinstance(ldt, Datetime) or ldt == Date,
+             isinstance(rdt, Datetime) or rdt == Date)
+    if op in _CMP_OPS:
+        a, b, _ = unify()
+        return mk(Boolean, _cmp(op, a, b))
+    if op == "sub" and all(dated):
+        a, b, st = unify()
+        if st == Date:
+            return mk(Duration("ms"), (a.to(torch.int64) - b.to(torch.int64))
+                      * (T.SECONDS_PER_DAY * 1000))
+        return mk(Duration(st.time_unit), a - b)
+    if op in ("add", "sub") and isinstance(ldt, Duration) and \
+            isinstance(rdt, Duration):
+        a, b, st = unify()
+        return mk(st, a + b if op == "add" else a - b)
+    if op in ("add", "sub") and isinstance(rdt, Duration) and dated[0]:
+        return _dt_plus_dur(op, l, r, validity, is_scalar)
+    if op == "add" and isinstance(ldt, Duration) and dated[1]:
+        return _dt_plus_dur(op, r, l, validity, is_scalar)
+    if isinstance(ldt, Duration) and rdt.is_numeric and \
+            op in ("mul", "truediv", "floordiv"):
+        x, y = l.data, r.data
+        if op == "mul":
+            return mk(ldt, (x.to(torch.float64) * y).to(torch.int64))
+        if op == "truediv":
+            return mk(ldt, (x.to(torch.float64) / y).to(torch.int64))
+        return mk(ldt, torch.div(x, y.to(torch.int64),
+                                 rounding_mode="floor"))
+    if isinstance(ldt, Duration) and isinstance(rdt, Duration) and \
+            op == "truediv":
+        a, b, _ = unify()
+        return mk(Float64, a.to(torch.float64) / b.to(torch.float64))
+    raise InvalidOperationError(
+        f"temporal op {op} between {ldt!r} and {rdt!r}")
+
+
+def _dt_plus_dur(op: str, dtv: Val, durv: Val, validity, is_scalar) -> Val:
+    """Date or Datetime plus (minus) a Duration. A Date moves by the
+    duration's whole days (floored) and stays a Date."""
+    sign = 1 if op == "add" else -1
+    unit = durv.dtype.time_unit
+    if dtv.dtype == Date:
+        whole = torch.div(durv.data, T.per_day(unit), rounding_mode="floor")
+        return Val(Date, (dtv.data + sign * whole).to(torch.int32), validity,
+                   None, is_scalar)
+    dur = rescale_time(durv.data, unit, dtv.dtype.time_unit)
+    return Val(dtv.dtype, dtv.data + sign * dur, validity, None, is_scalar)
 
 
 def _eval_fma(op: str, a: Val, b: Val, c: Val) -> Val:
@@ -359,6 +498,18 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
     if k == "over":
         from ..ops.window_over import eval_over
         return eval_over(e, table, ctx)
+    if k == "dt":
+        from .dt import eval_dt
+        return eval_dt(e, table, ctx)
+    if k == "datetime_components":
+        return _eval_datetime_components(e, table, ctx)
+    if k == "when_then":
+        return _eval_when_then(e, table, ctx)
+    if k == "str":
+        raise NotImplementedError(
+            f"str.{e.attrs.get('op')} is not ported yet: the string "
+            "namespace (str.strptime and str.to_datetime with it) comes "
+            "with Slice E (the expression surface)")
     if k == "cumulative_eval":
         raise NotImplementedError(
             "cumulative_eval is not ported yet: it comes with Slice E (the "
@@ -366,6 +517,77 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
     raise NotImplementedError(
         f"expression kind {k!r} is not ported yet (later slices of the "
         "port bring the rest of expr/eval.py)")
+
+
+def _eval_datetime_components(e: Expr, table: Table, ctx: str) -> Val:
+    """pl.datetime(year, month, day, ...): epoch ticks from calendar
+    fields (expressions or ints) by the civil calendar."""
+    y, mo, d = (eval_expr(c, table, ctx) for c in e.children[:3])
+    shape = torch.broadcast_shapes(y.data.shape, mo.data.shape, d.data.shape)
+    days = T.civil_to_days(y.data.expand(shape), mo.data.expand(shape),
+                           d.data.expand(shape)).to(torch.int64)
+    tu = e.attrs.get("time_unit", "us")
+    per_s = T.UNIT_PER_SECOND[tu]
+    sec = (e.attrs.get("hour", 0) * 3600 + e.attrs.get("minute", 0) * 60
+           + e.attrs.get("second", 0))
+    sub = e.attrs.get("microsecond", 0) * (per_s // 1_000_000)
+    validity = _and_valid(_and_valid(y.validity, mo.validity), d.validity)
+    if validity is not None:
+        validity = validity.expand(shape)
+    return Val(Datetime(tu), days * T.per_day(tu) + sec * per_s + sub,
+               validity, None, y.is_scalar and mo.is_scalar and d.is_scalar)
+
+
+def _eval_when_then(e: Expr, table: Table, ctx: str) -> Val:
+    """when/then/otherwise in a select context (the JAX package's
+    `_eval_when_then`): the first branch whose condition holds (and is
+    not null) gives the row's value, else the otherwise value; every
+    value is cast to their supertype, and string values are recoded onto
+    one merged dictionary."""
+    nb = e.attrs["n_branches"]
+    conds = [eval_expr(c, table, ctx) for c in e.children[:nb]]
+    vals = [eval_expr(c, table, ctx) for c in e.children[nb:]]
+    out_dt = Null
+    for v in vals:
+        if v.dtype != Null:
+            out_dt = v.dtype if out_dt == Null else (
+                String if out_dt.is_string else supertype(out_dt, v.dtype))
+    if out_dt == Null:
+        out_dt = Boolean
+    cap = table.capacity
+    dev = table.device
+    sdict = None
+    if out_dt.is_string:
+        cur = Val(String, torch.zeros((1,), dtype=torch.int32, device=dev),
+                  None, EMPTY_DICT, True)
+        for v in vals:
+            if v.dtype != Null:
+                cur, _ = _align_strings(cur, v)
+        sdict = cur.sdict
+        vals_c = [None if v.dtype == Null else _align_strings(cur, v)[1]
+                  for v in vals]
+        stor = torch.int32
+    else:
+        vals_c = [None if v.dtype == Null else cast_val(v, out_dt)
+                  for v in vals]
+        stor = storage_torch_dtype(out_dt)
+    data = torch.zeros(cap, dtype=stor, device=dev)
+    validity = torch.zeros(cap, dtype=torch.bool, device=dev)
+    decided = torch.zeros(cap, dtype=torch.bool, device=dev)
+    for c, vv in zip(conds, vals_c[:-1]):
+        holds = (c.data & c.valid_or_true()).expand(cap)
+        takes = holds & ~decided
+        if vv is not None:
+            data = torch.where(takes, vv.data.expand(cap), data)
+            validity = torch.where(takes, vv.valid_or_true().expand(cap),
+                                   validity)
+        decided = decided | holds
+    ov = vals_c[-1]
+    if ov is not None:
+        data = torch.where(decided, data, ov.data.expand(cap))
+        validity = torch.where(decided, validity,
+                               ov.valid_or_true().expand(cap))
+    return Val(out_dt, data, validity, sdict, False)
 
 
 def column_to_val(c: Column) -> Val:

@@ -23,9 +23,16 @@ reads its neighbours, and the result goes back to the rows.
   `torch.sort` for a 4-byte value, kernel F (`merge_sort_words`) for
   more words; ties are runs of equal values, found by one compaction.
 
-Range windows by a companion column (`rolling_*_by`, `ewm_mean_by`,
-`interpolate_by`) come with Slice D2, `rolling_map` with Slice E; each
-raises NotImplementedError naming its slice.
+* Range windows by a companion column (`rolling_*_by`): each row's
+  bounds by two `torch.searchsorted`s over the sorted `by` values (ties
+  of the row's value included, as the JAX package's), sums from each
+  window's own blocks of sum levels, min and max from a sparse table,
+  quantiles and ranks from a wavelet tree (`ops/range_agg.py`,
+  `ops/wavelet.py`). `ewm_mean_by` is a doubling scan of (decay, value)
+  pairs in float64, `interpolate_by` the fills' prefix count.
+
+`rolling_map` comes with Slice E and raises NotImplementedError naming
+it.
 """
 
 from __future__ import annotations
@@ -47,14 +54,11 @@ __all__ = ["eval_window", "eval_fill_null", "eval_fill_null_strategy",
            "eval_rolling_pair", "NEXT_SLICE"]
 
 # window ops of later slices of the port
-NEXT_SLICE = {
-    **{op: "Slice D2 (time)" for op in (
-        "rolling_sum_by", "rolling_mean_by", "rolling_min_by",
-        "rolling_max_by", "rolling_std_by", "rolling_var_by",
-        "rolling_quantile_by", "rolling_rank_by", "ewm_mean_by",
-        "interpolate_by")},
-    "rolling_map": "Slice E (the expression surface)",
-}
+NEXT_SLICE = {"rolling_map": "Slice E (the expression surface)"}
+# range windows by a companion column
+RANGE_BY = ("rolling_sum_by", "rolling_mean_by", "rolling_min_by",
+            "rolling_max_by", "rolling_std_by", "rolling_var_by",
+            "rolling_quantile_by", "rolling_rank_by")
 _ROLLING = ("rolling_sum", "rolling_mean", "rolling_min", "rolling_max",
             "rolling_std", "rolling_var")
 
@@ -194,6 +198,8 @@ def eval_window(e: Expr, table, ctx: str) -> Val:
         raise _next_slice("window op", op)
     v = eval_expr(e.children[0], table, ctx)
     fillv = eval_expr(e.children[1], table, ctx)
+    byv = eval_expr(e.children[2], table, ctx) if len(e.children) > 2 \
+        else None
     if v.is_scalar:
         raise InvalidOperationError(f"window op {op} on scalar")
     if op == "rank":
@@ -240,13 +246,9 @@ def eval_window(e: Expr, table, ctx: str) -> Val:
                 validity = torch.where(inb, pvalid, fv.valid_or_true()
                                        .expand(cap))
             return back(data, validity)
-        if dt.is_temporal:
-            raise NotImplementedError(
-                f"{op} of {dt!r} is not ported yet: temporal arithmetic "
-                "comes with Slice D2 (time)")
         validity = pvalid & xv
         if op == "diff":
-            return back(x - prev, validity)
+            return diff_of(v, x, prev, validity, back)
         out_dt = _float_dt(dt)
         f = x.to(_stor(out_dt))
         return back(f / prev.to(_stor(out_dt)) - 1.0, validity, out_dt)
@@ -280,7 +282,294 @@ def eval_window(e: Expr, table, ctx: str) -> Val:
                     (has_p & has_n) | xv, out_dt)
     if op == "arg_sort":
         return _arg_sort(e, v, x, xv, lo.front, back)
+    if op == "interpolate_by":
+        return interpolate_by(v, x, xv, lo.gather(byv.data), back)
+    if op == "ewm_mean_by":
+        return ewm_mean_by(e, v, x, xv, lo.gather(byv.data), byv.dtype,
+                           None, back)
+    if op in RANGE_BY:
+        b = lo.gather(byv.data)
+        rlo, rhi = rolling_by_bounds(e, b, byv.dtype, lo.front, count)
+        return range_window_reduce(e, v, x, xv, back, rlo, rhi, lo.front)
     raise ComputeError(f"unknown window op {op!r}")
+
+
+def diff_of(v: Val, x, prev, validity, back) -> Val:
+    """x - prev; a Date or Datetime difference is a Duration (Date - Date
+    in ms), as the JAX package's temporal subtraction."""
+    from .eval import _binary_temporal
+    if not v.dtype.is_temporal:
+        return back(x - prev, validity)
+    d = _binary_temporal("sub", Val(v.dtype, x), Val(v.dtype, prev))
+    return back(d.data, validity, d.dtype)
+
+
+# ---------------------------------------------------------------------------
+# range windows by a companion column
+# ---------------------------------------------------------------------------
+
+def _period(e: Expr, bdt):
+    """The window's period in the `by` column's units: (months, span);
+    months > 0 for a calendar period."""
+    from ..dtypes import Date, Datetime, Duration
+    from ..ops.temporal import UNIT_PER_SECOND, parse_every
+    period = e.attrs["period"]
+    if not isinstance(period, str):
+        return 0, int(period)
+    kind, ns = parse_every(period)
+    if kind == "months":
+        if not (isinstance(bdt, Datetime) or bdt == Date):
+            raise InvalidOperationError(
+                f"rolling_*_by: month-based period {period!r} needs a "
+                f"date/datetime `by` column, got {bdt}")
+        return ns, 0
+    if isinstance(bdt, (Datetime, Duration)):
+        return 0, ns // (1_000_000_000 // UNIT_PER_SECOND[bdt.time_unit])
+    if bdt == Date:
+        return 0, ns // (86_400 * 1_000_000_000)
+    return 0, ns
+
+
+def _sides(closed: str):
+    """searchsorted sides of a window's lower and upper bound."""
+    closed = closed or "right"
+    return ("left" if closed in ("left", "both") else "right",
+            "right" if closed in ("right", "both") else "left")
+
+
+def window_targets(e: Expr, b: torch.Tensor, bdt, live: torch.Tensor):
+    """(each row's `by` value as searched, dead rows pinned to the top;
+    each row's window start)."""
+    from ..ops.temporal_window import add_months_units
+    months, span = _period(e, bdt)
+    bi = b if b.is_floating_point() else b.to(torch.int64)
+    _, hi_b = _type_bounds(bi.dtype)
+    bs = torch.where(live, bi, torch.full_like(bi, hi_b))
+    if months:
+        return bs, torch.where(live, add_months_units(bi, -months, bdt), bs)
+    return bs, bs - span
+
+
+def rolling_by_bounds(e: Expr, b: torch.Tensor, bdt, live: torch.Tensor,
+                      count) -> tuple:
+    """[lo, hi) of each live-order row's range window over the sorted
+    `by` values: rows j with by_j in (by_i - period, by_i] for
+    closed="right" (the other `closed` modes move the edges), ties of
+    by_i past the row included, as the JAX package's
+    `_rolling_by_bounds`. Two `torch.searchsorted`s."""
+    bs, target = window_targets(e, b, bdt, live)
+    lo_side, hi_side = _sides(e.attrs.get("closed"))
+    lo = torch.searchsorted(bs, target.contiguous(), right=lo_side == "right")
+    hi = torch.searchsorted(bs, bs, right=hi_side == "right")
+    return lo, torch.minimum(hi, count)
+
+
+def range_window_reduce(e: Expr, v: Val, x, xv, back, lo, hi, live,
+                        longest: Optional[int] = None, part=None) -> Val:
+    """Reduce every row's range [lo, hi) for each rolling_*_by op (the
+    JAX package's `_range_window_reduce`): sums and moments from sum
+    levels (`range_agg.window_sum`, each window summed from its own
+    blocks), min and max from a sparse table, quantiles and ranks from a
+    wavelet tree. `longest` (the longest range; one readback when None)
+    sizes the tables; `part` = (each slot's partition id, its partition's
+    first slot, the longest partition) when no range leaves its
+    partition (`.over()`)."""
+    from ..ops import range_agg as R
+    op = e.attrs["op"]
+    min_p = e.attrs.get("min_samples") or 1
+    dt = v.dtype
+    length = (hi - lo).clamp(min=0)
+    if longest is None:
+        longest = int(length.max()) if length.numel() else 0
+    nl = R.levels_for(longest)
+    if v.validity is None:
+        cnt = length
+    else:
+        cnt = R.window_sum(xv, lo, hi, nl)
+    validity = (cnt >= min_p) & live
+    if op in ("rolling_quantile_by", "rolling_rank_by"):
+        return _rolling_order_by(e, v, x, xv, back, lo, hi, cnt, validity,
+                                 part)
+    if op in ("rolling_min_by", "rolling_max_by"):
+        kind = "min" if op == "rolling_min_by" else "max"
+        lo_b, hi_b = _type_bounds(x.dtype)
+        pad = hi_b if kind == "min" else lo_b
+        levels = R.build_sparse(torch.where(xv, x, torch.full_like(x, pad)),
+                                kind, nl, pad)
+        return back(R.range_query(levels, lo, hi, kind, pad), validity)
+    xa = torch.where(xv, x, torch.zeros_like(x)).to(_acc(dt))
+    s = R.window_sum(xa, lo, hi, nl)
+    if op == "rolling_sum_by":
+        return back(s.to(x.dtype), validity)
+    out_dt = _float_dt(dt)
+    stor = _stor(out_dt)
+    n = cnt.clamp(min=1).to(torch.float64)
+    s = s.to(torch.float64)
+    if op == "rolling_mean_by":
+        return back((s / n).to(stor), validity, out_dt)
+    s2 = R.window_sum(xa.to(torch.float64) ** 2, lo, hi, nl)
+    ddof = e.attrs.get("ddof", 1)
+    var = ((s2 - s * s / n) / (n - ddof).clamp(min=1)).clamp(min=0)
+    validity = validity & (cnt > ddof)
+    if op == "rolling_var_by":
+        return back(var.to(stor), validity, out_dt)
+    return back(torch.sqrt(var).to(stor), validity, out_dt)
+
+
+def _sort_in_partitions(words, xv, seg) -> torch.Tensor:
+    """The stable permutation by (partition, invalid, value words): each
+    partition's rows stay on its own slots, its valid values first in
+    order. A 4-byte value packs into one int64 for one `torch.sort`;
+    more words go to kernel F."""
+    from ..ops.merge_sort import merge_sort_words
+    inval = (~xv).to(torch.int64)
+    if len(words) == 1:
+        key = (seg.to(torch.int64) << 33) | (inval << 32) | words[0]
+        return torch.sort(key, stable=True).indices
+    return merge_sort_words([seg.to(torch.int64), inval] + list(words),
+                            2 + len(words), perm_only=True)[0]
+
+
+def _rolling_order_by(e: Expr, v: Val, x, xv, back, lo, hi, cnt,
+                      validity, part=None) -> Val:
+    """Order statistics of each range by a wavelet tree over the ranks
+    (the JAX package's `_rolling_order_by`): the valid rows sorted by
+    their orderable words (invalid rows last), each row's rank scattered
+    back, equal values' rank intervals from the runs of equal words.
+    With `part` (ranges within partitions) the ranks are each
+    partition's own, so the tree needs ⌈log2(longest partition)⌉ levels,
+    not ⌈log2(rows)⌉."""
+    from ..ops.wavelet import build_wavelet, wavelet_count_lt, \
+        wavelet_select
+    op = e.attrs["op"]
+    cap = x.shape[0]
+    idx = torch.arange(cap, device=x.device)
+    desc = e.attrs.get("descending", False) if op == "rolling_rank_by" \
+        else False
+    words = encode_key_words(x, v.dtype, None, desc, False)
+    if part is None:
+        order = sort_valid_first(words, xv)
+        base, universe = torch.zeros_like(idx), cap
+    else:
+        seg, base, universe = part
+        order = _sort_in_partitions(words, xv, seg)
+    rank = torch.empty_like(order).scatter_(0, order, idx)
+    tables = build_wavelet(rank - base, universe)
+    empty = hi <= lo
+    slo = torch.where(empty, idx, lo)
+    shi = torch.where(empty, idx + 1, hi)
+    if op == "rolling_quantile_by":
+        q = float(e.attrs["q"])
+        interp = e.attrs.get("interpolation", "nearest")
+        out_dt = _float_dt(v.dtype)
+        stor = _stor(out_dt)
+        sorted_x = x[order].to(stor)
+        pos = q * (cnt.clamp(min=1).to(stor) - 1)
+
+        def at(k):
+            k = torch.minimum(k.to(torch.int64).clamp(min=0),
+                              (shi - slo - 1).clamp(min=0))
+            return sorted_x[base + wavelet_select(tables, slo, shi, k)]
+
+        if interp == "linear":
+            i0 = torch.floor(pos)
+            frac = pos - i0
+            a0 = at(i0)
+            data = torch.where(frac > 0, a0 * (1 - frac) + at(i0 + 1) * frac,
+                               a0)
+        elif interp == "lower":
+            data = at(torch.floor(pos))
+        elif interp == "higher":
+            data = at(torch.ceil(pos))
+        elif interp == "midpoint":
+            data = (at(torch.floor(pos)) + at(torch.ceil(pos))) / 2
+        else:  # nearest (round half to even, as jnp.round)
+            data = at(torch.round(pos))
+        return back(data, validity, out_dt)
+    method = e.attrs.get("method", "average")
+    if method == "dense":
+        raise InvalidOperationError(
+            "rolling_rank_by: method='dense' unsupported")
+    diff = torch.zeros(cap, dtype=torch.bool, device=x.device)
+    diff[0] = True
+    vs = xv[order]
+    diff[1:] = vs[1:] != vs[:-1]
+    for w in [w[order] for w in words] + \
+            ([] if part is None else [part[0][order]]):
+        diff[1:] |= w[1:] != w[:-1]
+    _, _, tstart, tnext = run_starts(diff)
+    first, last = tstart[rank] - base, tnext[rank] - base
+    n_lt = wavelet_count_lt(tables, slo, shi, first)
+    n_eq = wavelet_count_lt(tables, slo, shi, last) - n_lt
+    validity = validity & xv
+    if method == "min":
+        r = (n_lt + 1).to(torch.float64)
+    elif method == "max":
+        r = (n_lt + n_eq).to(torch.float64)
+    else:
+        r = n_lt + (n_eq + 1) / 2.0
+    return back(r, validity, Float64)
+
+
+def interpolate_by(v: Val, x, xv, b, back) -> Val:
+    """Nulls filled on the line between the valid rows before and after,
+    at the `by` value's fraction of their span."""
+    p, has_p = _last_valid(xv)
+    nx, has_n = _next_valid(xv)
+    out_dt = _float_dt(v.dtype)
+    stor = _stor(out_dt)
+    f = x.to(stor)
+    bf = b.to(stor)
+    span = bf[nx] - bf[p]
+    frac = (bf - bf[p]) / torch.where(span == 0, torch.ones_like(span), span)
+    data = f[p] * (1 - frac) + f[nx] * frac
+    return back(torch.where(xv, f, data), (has_p & has_n) | xv, out_dt)
+
+
+def ewm_mean_by(e: Expr, v: Val, x, xv, b, bdt, seg, back,
+                span: Optional[int] = None) -> Val:
+    """The ewm of values at irregular `by` instants: y_t = (1 - a_t)
+    y_{t-1} + a_t x_t with a_t = 1 - 2^(-Δby_t / half_life), null rows
+    holding the state, as one log-doubling scan of (decay, value) pairs
+    in float64 (`seg` restarts it at each partition)."""
+    from ..dtypes import Date, Datetime, Duration
+    from ..ops.temporal import UNIT_PER_SECOND, parse_every
+    half_life = e.attrs["half_life"]
+    if isinstance(half_life, str):
+        kind, ns = parse_every(half_life)
+        if kind != "fixed":
+            raise InvalidOperationError(
+                "ewm_mean_by: month-based half_life unsupported")
+        if isinstance(bdt, (Datetime, Duration)):
+            hl = ns * UNIT_PER_SECOND[bdt.time_unit] / 1_000_000_000
+        elif bdt == Date:
+            hl = ns / (86_400 * 1_000_000_000)
+        else:
+            hl = float(ns)
+    else:
+        hl = float(half_life)
+    out_dt = _float_dt(v.dtype)
+    n = x.shape[0]
+    bf = b.to(torch.float64)
+    prev = torch.cat([bf[:1], bf[:-1]])
+    if seg is not None:
+        first_of_seg = torch.ones(n, dtype=torch.bool, device=x.device)
+        first_of_seg[1:] = seg[1:] != seg[:-1]
+        prev = torch.where(first_of_seg, bf, prev)
+    alpha = 1.0 - torch.exp2(-(bf - prev).clamp(min=0.0) / hl)
+    f = x.to(torch.float64)
+    seen = seg_scan(xv.to(torch.int64), seg, torch.add, span)
+    first = xv & (seen == 1)
+    A = torch.where(xv, 1.0 - alpha, torch.ones_like(f))
+    A = torch.where(first, torch.zeros_like(f), A)
+    B = torch.where(xv, torch.where(first, f, alpha * f), torch.zeros_like(f))
+
+    def comb(p, c):
+        (Ap, Bp), (Aq, Bq) = p, c
+        return [Ap * Aq, Bp * Aq + Bq]
+
+    _, y = seg_scan_multi([A, B], seg, comb, span)
+    return back(y.to(_stor(out_dt)), xv & (seen > 0), out_dt)
 
 
 def _cumulative(e: Expr, op: str, x, xv, valid, back) -> Val:

@@ -22,9 +22,10 @@ prefix count, one compaction and a gather.
 fused (`_rank_over_fused`): the value's words join the partition sort,
 so ranks come out of run geometry with no second sort (H2O q8). A
 nullable 8-byte value (three words) takes `_rank_over`: a second sort by
-(group, value). `mapping_strategy="join"` returns a List column and
-comes with Slice E; range windows by a companion column
-(`rolling_*_by`) with Slice D2.
+(group, value). Range windows by a companion column (`rolling_*_by`)
+search each partition by one int64 key (the group id above the `by`
+value's offset, `range_bounds`) and rank within each partition.
+`mapping_strategy="join"` returns a List column and comes with Slice E.
 """
 
 from __future__ import annotations
@@ -228,13 +229,9 @@ def _eval_window_over(e: Expr, table, ctx: str,
                             torch.where(inb, pvalid,
                                         fv.valid_or_true().expand(cap)))
             return back(prev, pvalid)
-        if v.dtype.is_temporal:
-            raise NotImplementedError(
-                f"{op} of {v.dtype!r} is not ported yet: temporal "
-                "arithmetic comes with Slice D2 (time)")
         validity = pvalid & xv
         if op == "diff":
-            return back(x - prev, validity)
+            return W.diff_of(v, x, prev, validity, back)
         out_dt = _float_dt(v.dtype)
         stor = _stor(out_dt)
         return back(x.to(stor) / prev.to(stor) - 1.0, validity, out_dt)
@@ -275,7 +272,63 @@ def _eval_window_over(e: Expr, table, ctx: str,
     if op == "reverse":
         src = (L.gstart + L.gend - 1 - idx).clamp(0, cap - 1)
         return back(x[src], L.valid[src])
+    if op in W.RANGE_BY:
+        byv = _full(eval_expr(e.children[2], table, ctx), cap)
+        lo, hi, longest, longest_group = range_bounds(
+            e, byv.data[L.perm], byv.dtype, gctx)
+        return W.range_window_reduce(e, v, x, xv, back, lo, hi, L.live,
+                                     longest, (L.seg, L.gstart,
+                                               longest_group))
     raise InvalidOperationError(f"window op {op!r} not supported with .over()")
+
+
+def range_bounds(e: Expr, b: torch.Tensor, bdt, gctx: SortedGroupContext,
+                 closed=None):
+    """[lo, hi) of each sorted slot's range window within its partition
+    (`by` ascending within each partition, as the JAX package assumes
+    and does not check), and the longest window. One readback gives the
+    group count, the longest partition and the `by` column's range;
+    where a group id and the `by` offset fit one int64 together, each
+    bound is one `torch.searchsorted` over that key (ascending across
+    the layout), else a segmented search of ⌈log2(longest partition)⌉
+    + 1 rounds. Dead slots get empty windows."""
+    from .range_agg import segmented_searchsorted
+    cap = gctx.cap
+    live = gctx.live_sorted
+    idx = torch.arange(cap, device=live.device)
+    bs, target = W.window_targets(e, b, bdt, live)
+    lo_side, hi_side = W._sides(closed or e.attrs.get("closed"))
+    stats = [gctx.ngroups.to(torch.int64), gctx.group_count.max()]
+    keyed = not bs.is_floating_point()
+    if keyed:
+        lo_b, hi_b = W._type_bounds(bs.dtype)
+        stats += [torch.where(live, bs, hi_b).min(),
+                  torch.where(live, bs, lo_b).max()]
+    stats = torch.stack([s.to(torch.int64) for s in stats]).tolist()
+    ngroups, longest_group = stats[0], stats[1]
+    if ngroups == 0:
+        return idx, idx, 0, 0
+    g = gctx.sgid.long().clamp(0, cap - 1)
+    if keyed:
+        bmin, bmax = stats[2], stats[3]
+        S = (bmax - bmin + 2).bit_length()
+        keyed = ngroups.bit_length() + S <= 62
+    if keyed:
+        gk = torch.where(live, g, ngroups) << S
+        keys = gk | torch.where(live, bs - (bmin - 1), 0)
+        qlo = gk | torch.where(live, (target - (bmin - 1)).clamp(min=0), 0)
+        lo = torch.searchsorted(keys, qlo, right=lo_side == "right")
+        hi = torch.searchsorted(keys, keys, right=hi_side == "right")
+    else:
+        start = gctx.run_start.long()[g]
+        gs = torch.where(live, start, idx)
+        ge = torch.where(live, start + gctx.group_count[g], idx)
+        lo = segmented_searchsorted(bs, gs, ge, target, lo_side,
+                                    longest_group)
+        hi = segmented_searchsorted(bs, gs, ge, bs, hi_side, longest_group)
+    lo = torch.where(live, lo, idx)
+    hi = torch.where(live, hi, idx)
+    return lo, hi, int((hi - lo).max()), longest_group
 
 
 def _rank_over_fused(e: Expr, v: Val, gctx: SortedGroupContext,

@@ -61,13 +61,11 @@ def output_sortedness(plan: L.Plan) -> List:
             out.append((n, bool(d), bool(nl)))
         return out
     if k == "group_by" and not plan.maintain_order:
-        out = []
-        for e in plan.keys:
-            n = _bare_col(e)
-            if n is None or e.kind == "alias":
-                break  # aliased keys rename the column; keep it simple
-            out.append((n, False, False))
-        return out
+        # every key by its output name: once the elision pins the group-by
+        # to key order, a computed or aliased key comes out ordered as a
+        # bare one does (the JAX package stops at the first aliased key,
+        # so a sort after group_by_dynamic's truncated index stays there)
+        return [(meta.output_name(e), False, False) for e in plan.keys]
     if k in ("filter", "slice", "cache", "with_row_index", "fast_count"):
         return output_sortedness(plan.input) if plan.inputs else []
     if k == "distinct":

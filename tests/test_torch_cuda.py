@@ -848,3 +848,49 @@ def test_window_query_on_card_matches_cpu(dev, name):
         assert (validity is None) == (got[k][1] is None), (name, k)
         if validity is not None:
             assert np.array_equal(validity, got[k][1]), (name, k)
+
+
+def _recorded(lf):
+    """The inputs of every kernel-F and kernel-B launch of one collect."""
+    TM.RECORD, TP.RECORD = [], []
+    try:
+        lf.collect()
+        torch.cuda.synchronize()
+        return TM.RECORD, TP.RECORD
+    finally:
+        TM.RECORD = TP.RECORD = None
+
+
+@pytest.mark.parametrize("name", ["T2_overlap", "T3_rolling"])
+def test_time_route_kernels_match_plain(dev, name):
+    """Kernels F and B on the inputs chip_smoke.py's phase-12 query gave
+    them at 2^18 trades: T2's sort of the expanded rows (each fanned out
+    to 6 candidate windows, 2^21 slots over 4 words) and T3's sort of
+    (dead, symbol, ts), each bit for bit against its plain version; and
+    the query's result against the smoke's numpy oracle."""
+    import chip_smoke as CS
+    d = CS.make_trades_data(1 << 18, 0)
+    queries = {n: lf for n, lf, *_ in
+               CS.time_queries(pt, CS.trades_frame(pt, d, "cuda"))}
+    sorts, compactions = _recorded(queries[name])
+    assert sorts and compactions
+    if name == "T2_overlap":
+        assert sorts[0][0][0].shape[0] == 1 << 21
+    for words, nk, stable, perm_only in sorts:
+        want = TM.merge_sort_words_plain(words, nk)
+        got = TM.merge_sort_words(words, nk, stable=stable,
+                                  perm_only=perm_only)
+        if perm_only:
+            assert torch.equal(got[0], want[nk])
+        else:
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+    for mask, words in compactions:
+        outs, cnt = TP.compact_words(mask, words)
+        wouts, wcnt = TP.compact_words_plain(mask.cpu(),
+                                             [w.cpu() for w in words])
+        k = int(cnt)
+        assert k == int(wcnt)
+        for o, w in zip(outs, wouts):
+            assert torch.equal(o[:k].cpu(), w[:k])
+    CS.check_time(name, CS.decoded_columns(queries[name].collect()), d)
