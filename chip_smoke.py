@@ -83,6 +83,19 @@ Phases:
    way, with the host ms of each query's first collect. Phase 2 also
    holds F, B and A on the inputs of every launch of that first
    collect.
+13. as-of and inequality joins and the select context, on the trades of
+   phase 12, 2^23 quotes drawn the same way and 1024 event windows of
+   60-600 s: A1-A3 the trades joined as of their quotes (by symbol
+   backward within 1 s, market-wide nearest, by symbol forward), I1 the
+   trades inside each window (join_where on two inequalities), X1 a
+   transaction-cost select over A1 (mid, clipped and rounded slippage,
+   a deviation from the mean price, a volume band, then the mean,
+   volume-weighted mean, count, skew and largest deviation) and X2 the
+   slippage's mean, skew and kurtosis, the top price and the OR of the
+   volumes per symbol, each against a numpy oracle, with the launches
+   of kernels F, B and A asserted, timed and traced the same way, with
+   the host ms of each query's first collect. Phase 2 also holds F, B
+   and A on the inputs of every launch of that first collect.
 
 The line before the last lists every ported kernel with its numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check raises,
@@ -2257,6 +2270,309 @@ def run_time_phase(args, torch, TK, TP, TE, TH, TM, tqueries, tdata,
             if tr["device_ops"] else None, "trace": tr}))
 
 
+# --- phase 13: as-of and inequality joins, the select context ---------------
+
+ASOF_TOLERANCE_US = 1_000_000      # A1's tolerance, "1s"
+N_WINDOWS = 1024                   # I1's event windows
+WINDOW_S = (60, 600)               # their lengths, in seconds
+TCA_VOLUME = (1250, 3749)          # X1's volume band: half of [0, 5000)
+SPREAD = (0.01, 0.05)              # a quote's ask - bid
+
+
+def _session_us(ms):
+    """Milliseconds into the concatenated sessions -> epoch µs."""
+    import numpy as np
+    opens = np.array(SESSION_OPENS, dtype="datetime64[us]").astype(np.int64)
+    return opens[ms // SESSION_MS] + (ms % SESSION_MS) * 1000
+
+
+def make_quotes_data(rows: int, seed: int):
+    """Quotes drawn as the trades are (seed + 5): symbol UInt32 in [0,
+    1000), ts whole milliseconds ascending over the same sessions, bid
+    Float64 over the trades' price range, ask = bid + a spread in
+    [0.01, 0.05]."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 5)
+    ms = np.sort(rng.integers(0, len(SESSION_OPENS) * SESSION_MS, rows))
+    bid = rng.uniform(1, 200, rows)
+    return {"symbol": rng.integers(0, N_SYMBOLS, rows).astype(np.uint32),
+            "ts": _session_us(ms), "bid": bid,
+            "ask": bid + rng.uniform(*SPREAD, rows)}
+
+
+def make_windows_data(seed: int, n: int = N_WINDOWS):
+    """Event windows (seed + 6): start uniform over the sessions'
+    milliseconds, end = start + 60..600 s, an Int32 id and a Float64
+    weight."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 6)
+    start = _session_us(rng.integers(0, len(SESSION_OPENS) * SESSION_MS, n))
+    length = rng.integers(WINDOW_S[0] * 1000, WINDOW_S[1] * 1000 + 1, n)
+    return {"start": start, "end": start + length * 1000,
+            "wid": np.arange(n, dtype=np.int32),
+            "weight": rng.uniform(0, 1, n)}
+
+
+def _frame_of(pl, data, times, device):
+    cols = {k: (v.astype("datetime64[us]") if k in times else v)
+            for k, v in data.items()}
+    return pl.DataFrame(cols, device=device)
+
+
+def asof_frames(pl, tdata, qdata, wdata, device="cuda"):
+    return (_frame_of(pl, tdata, ("ts",), device),
+            _frame_of(pl, qdata, ("ts",), device),
+            _frame_of(pl, wdata, ("start", "end"), device))
+
+
+def tca_exprs(pl):
+    """The transaction-cost columns over an as-of join's output: the
+    quote's mid and each trade's slippage from it in basis points,
+    clipped to +-500 and rounded to 0.01."""
+    c = pl.col
+    mid = (c("bid") + c("ask")) / 2
+    slip = ((c("price") - mid) / mid * 1e4).clip(-500, 500).round(2)
+    return mid.alias("mid"), slip.alias("slip_bps")
+
+
+def asof_queries(pl, tdf, qdf, wdf, tolerance_us=ASOF_TOLERANCE_US):
+    """(name, lazy frame, kernels it must launch, kernels it must not) of
+    phase 13: A1-A3 trades joined as of their quotes (by symbol backward
+    within 1 s, market-wide nearest, by symbol forward), I1 the trades in
+    each event window (an inequality join), X1 a TCA select over A1 and
+    X2 per-symbol TCA aggregates over A1. A1's tolerance is a duration
+    string ("1000000us" is A1's "1s")."""
+    c = pl.col
+    t, q = tdf.lazy(), qdf.lazy()
+    a1 = t.join_asof(q, on="ts", by="symbol", strategy="backward",
+                     tolerance=f"{tolerance_us}us")
+    mid, slip = tca_exprs(pl)
+    lo, hi = TCA_VOLUME
+    x1 = (a1.with_columns(mid, slip,
+                          (c("price") - c("price").mean()).alias("dev"))
+          .filter(c("mid").is_not_null() & c("volume").is_between(lo, hi))
+          .select(c("slip_bps").mean().alias("slip_mean"),
+                  ((c("slip_bps") * c("volume")).sum() / c("volume").sum())
+                  .alias("slip_vw"), pl.len().alias("n"),
+                  c("slip_bps").skew().alias("slip_skew"),
+                  c("dev").abs().max().alias("dev_max")))
+    x2 = (a1.with_columns(slip).group_by("symbol").agg(
+        c("slip_bps").mean().alias("slip_mean"),
+        c("slip_bps").skew().alias("slip_skew"),
+        c("slip_bps").kurtosis().alias("slip_kurt"),
+        c("price").nan_max().alias("price_max"),
+        c("volume").bitwise_or().alias("volume_or")))
+    F, B = ("merge_sort",), ("compact_words",)
+    return [
+        ("A1_backward", a1, B, F),
+        ("A2_nearest", t.join_asof(q, on="ts", strategy="nearest"), (),
+         F + B),
+        ("A3_forward", t.join_asof(q, on="ts", by="symbol",
+                                   strategy="forward"), B, F),
+        ("I1_windows", t.join_where(wdf.lazy(), c("ts") >= c("start"),
+                                    c("ts") < c("end")), F, ()),
+        ("X1_tca", x1, B, F),
+        ("X2_tca_by_symbol", x2, B + ("seg_sum",), F),
+    ]
+
+
+def _asof_match(td, qd, strategy, by, tol_us=None):
+    """The numpy as-of join: each trade's quote row and whether it has
+    one, by a stable argsort of the quotes' (symbol, ts) key (41 bits of
+    ts offset under the symbol, or ts alone without `by`) and
+    np.searchsorted; a tie of distances goes backward."""
+    import numpy as np
+    tts, qts = td["ts"], qd["ts"]
+    if by:
+        base = min(tts.min(), qts.min())
+        tk = (td["symbol"].astype(np.int64) << 41) | (tts - base)
+        qk = (qd["symbol"].astype(np.int64) << 41) | (qts - base)
+    else:
+        tk, qk = tts, qts
+    order = np.argsort(qk, kind="stable")
+    sk = qk[order]
+    n = len(sk)
+
+    def side(s):
+        p = np.searchsorted(sk, tk, s) - (s == "right")
+        pc = np.clip(p, 0, n - 1)
+        ok = (p >= 0) & (p < n)
+        if by:
+            ok &= (sk[pc] >> 41) == td["symbol"].astype(np.int64)
+        return pc, ok
+
+    if strategy == "backward":
+        p, ok = side("right")
+    elif strategy == "forward":
+        p, ok = side("left")
+    else:
+        p1, ok1 = side("right")
+        p2, ok2 = side("left")
+        d1 = tts - qts[order[p1]]
+        d2 = qts[order[p2]] - tts
+        use1 = ok1 & (~ok2 | (d1 <= d2))
+        p = np.where(use1, p1, p2)
+        ok = ok1 | ok2
+    ridx = order[p]
+    if tol_us is not None:
+        ok &= np.abs(tts - qts[ridx]) <= tol_us
+    return ridx, ok
+
+
+def _moment_bound(x, w=None):
+    """A tolerance for a mean of `x` (weights `w`): 1e-12 of the mean of
+    |x| (the f64 sum's rounding, whatever its order), at least 1e-300."""
+    import numpy as np
+    a = np.abs(x) if w is None else np.abs(x * w)
+    d = len(x) if w is None else np.abs(w).sum()
+    return max(1e-12 * a.sum() / max(d, 1), 1e-300)
+
+
+def _tca_host(td, qd, ridx, ok):
+    """mid and slip_bps in f64 as the port computes them, per trade (NaN
+    where there is no quote)."""
+    import numpy as np
+    mid = (qd["bid"][ridx] + qd["ask"][ridx]) / 2
+    slip = np.round(np.clip((td["price"].astype(np.float64) - mid) / mid
+                            * 1e4, -500, 500) * 100) / 100
+    return np.where(ok, mid, np.nan), np.where(ok, slip, np.nan)
+
+
+def _skew_kurt(x):
+    """The biased skew and Fisher kurtosis of x, in f64, two passes."""
+    import numpy as np
+    d = x - x.mean()
+    m2 = (d * d).mean()
+    return (d ** 3).mean() / m2 ** 1.5, (d ** 4).mean() / (m2 * m2) - 3.0
+
+
+def asof_oracle(name, td, qd, wd, got, tolerance_us=ASOF_TOLERANCE_US):
+    """(want, valid, tol) of a phase-13 query for compare_columns; I1's
+    and X2's got are reordered to the oracle's order first (in place)."""
+    import numpy as np
+    if name.startswith(("A", "X")):
+        strategy = {"A1": "backward", "A2": "nearest", "A3": "forward",
+                    "X1": "backward", "X2": "backward"}[name[:2]]
+        by = name[:2] != "A2"
+        tol = tolerance_us if name[:2] in ("A1", "X1", "X2") else None
+        ridx, ok = _asof_match(td, qd, strategy, by, tol)
+    if name.startswith("A"):
+        want = dict(td)
+        valid = {}
+        for k in ("bid", "ask") + (() if by else ("symbol",)):
+            key = k if k != "symbol" else "symbol_right"
+            want[key], valid[key] = qd[k][ridx], ok
+        return want, valid, {}
+    if name.startswith("I1"):
+        lo = np.searchsorted(td["ts"], wd["start"], "left")
+        hi = np.searchsorted(td["ts"], wd["end"], "left")
+        m = hi - lo
+        w = np.repeat(np.arange(len(m)), m)
+        t = np.repeat(lo - np.r_[0, np.cumsum(m)[:-1]], m) + \
+            np.arange(m.sum())
+        want = {**{k: v[t] for k, v in td.items()},
+                **{k: v[w] for k, v in wd.items()}}
+        key = lambda d: np.lexsort((d["price"].view(np.uint32),
+                                    d["volume"], d["symbol"], d["ts"],
+                                    d["wid"]))
+        ow = key(want)
+        want = {k: v[ow] for k, v in want.items()}
+        og = key({k: g for k, (g, _) in got.items()})
+        for k in got:
+            got[k] = (got[k][0][og], None if got[k][1] is None
+                      else got[k][1][og])
+        return want, {}, {}
+    mid, slip = _tca_host(td, qd, ridx, ok)
+    if name.startswith("X1"):
+        price = td["price"]
+        dev = price - np.float32(price.astype(np.float64).sum() / len(price))
+        lo, hi = TCA_VOLUME
+        keep = ok & (td["volume"] >= lo) & (td["volume"] <= hi)
+        s, v = slip[keep], td["volume"][keep].astype(np.float64)
+        sk, _ = _skew_kurt(s)
+        dmax = np.abs(dev[keep]).max()
+        want = {"slip_mean": np.array([s.mean()]),
+                "slip_vw": np.array([(s * v).sum() / v.sum()]),
+                "n": np.array([keep.sum()]),
+                "slip_skew": np.array([sk]),
+                "dev_max": np.array([dmax], dtype=np.float32)}
+        tol = {"slip_mean": np.array([_moment_bound(s)]),
+               "slip_vw": np.array([_moment_bound(s, v)]),
+               "slip_skew": np.array([1e-10 * max(1.0, abs(sk))]),
+               "dev_max": ("f32", np.array([float(np.spacing(
+                   np.float32(dmax)))]))}
+        return want, {}, tol
+    # X2: per symbol, in key order
+    syms = np.unique(td["symbol"])
+    cols = {k: [] for k in ("slip_mean", "slip_skew", "slip_kurt",
+                            "price_max", "volume_or")}
+    tol = {k: [] for k in ("slip_mean", "slip_skew", "slip_kurt")}
+    has, moments = [], []
+    for g in syms:
+        rows = td["symbol"] == g
+        s = slip[rows & ok]
+        has.append(len(s) > 0)
+        moments.append(len(s) > 0 and s.var() > 0)
+        sk, ku = _skew_kurt(s) if moments[-1] else (0.0, 0.0)
+        cols["slip_mean"].append(s.mean() if has[-1] else 0.0)
+        cols["slip_skew"].append(sk)
+        cols["slip_kurt"].append(ku)
+        cols["price_max"].append(td["price"][rows].max())
+        cols["volume_or"].append(np.bitwise_or.reduce(td["volume"][rows]))
+        tol["slip_mean"].append(_moment_bound(s))
+        tol["slip_skew"].append(1e-10 * max(1.0, abs(sk)))
+        tol["slip_kurt"].append(1e-10 * max(1.0, abs(ku)))
+    want = {"symbol": syms, **{k: np.array(v) for k, v in cols.items()}}
+    want["price_max"] = want["price_max"].astype(np.float32)
+    want["volume_or"] = want["volume_or"].astype(np.int32)
+    order = np.argsort(got["symbol"][0], kind="stable")
+    for k in got:
+        got[k] = (got[k][0][order], None if got[k][1] is None
+                  else got[k][1][order])
+    has, moments = np.array(has), np.array(moments)
+    valid = {} if has.all() and moments.all() else {
+        "slip_mean": has, "slip_skew": moments, "slip_kurt": moments}
+    return want, valid, {k: np.array(v) for k, v in tol.items()}
+
+
+def run_asof_phase(args, torch, TK, TP, TE, TH, TM, queries, td, qd, wd,
+                   first_ms, runs):
+    """Phase 13: every query's collect with its launches asserted, its
+    result copied to the host, a trace and the timed collects; then the
+    numpy oracles."""
+    import numpy as np
+    results = []
+    for name, lfq, must, never in queries:
+        reset_launches(TK, TP, TE, TH, TM)
+        out = lfq.collect()
+        ql = read_launches(TK, TP, TE, TH, TM)
+        for kernel in must:
+            assert ql[kernel] >= 1, f"{name} did not launch {kernel}"
+        for kernel in never:
+            assert ql[kernel] == 0, f"{name} launched {kernel}"
+        assert ql["fallbacks"] == 0, f"{name} took the fallback"
+        runs.append(ql)
+        got = host_columns(out)
+        del out
+        tr = trace_collect(lfq, top_n=8)
+        times = time_collects(lfq, args.reps)
+        results.append((name, got, ql, times, tr))
+    for name, got, ql, times, tr in results:
+        want, valid, tol = asof_oracle(name, td, qd, wd, got)
+        nout, errs = compare_columns(name, got, want, valid, tol)
+        med = statistics.median(times)
+        matched = valid.get("bid")
+        print(json.dumps({
+            "phase": "asof", "query": name, "trades": len(td["ts"]),
+            "quotes": len(qd["ts"]), "windows": len(wd["start"]),
+            "out_rows": nout,
+            "matched": None if matched is None else int(matched.sum()),
+            "launches": ql, "largest_error": errs,
+            "first_collect_ms": first_ms.get(name), "median_ms": med,
+            "ms": times, "idle_share": 1 - tr["device_busy_ms"] / med
+            if tr["device_ops"] else None, "trace": tr}))
+
+
 def check_lookup_join(args, torch, TE):
     """The kernel-level join at bench.py:589-608's shape, 2^22 probes x
     2^20 unique build keys: `lookup_join_collocated`, held against the
@@ -2406,6 +2722,16 @@ def main() -> int:
     shapes, time_first_ms = check_recorded_kernels(
         args, torch, TK, TE, TM, TP,
         [(name, lf) for name, lf, *_ in tqueries])
+    for kernel, by_shape in shapes.items():
+        recorded[kernel].update(by_shape)
+    # kernels F and B at every shape that phase 13's joins and selects
+    # give them (each query's first collect, as above)
+    qdata = make_quotes_data(args.rows, args.seed)
+    wdata = make_windows_data(args.seed)
+    aqueries = asof_queries(pl, *asof_frames(pl, tdata, qdata, wdata))
+    shapes, asof_first_ms = check_recorded_kernels(
+        args, torch, TK, TE, TM, TP,
+        [(name, lf) for name, lf, *_ in aqueries])
     for kernel, by_shape in shapes.items():
         recorded[kernel].update(by_shape)
     lookup = check_lookup_join(args, torch, TE)
@@ -2615,6 +2941,11 @@ def main() -> int:
     run_time_phase(args, torch, TK, TP, TE, TH, TM, tqueries, tdata,
                    time_first_ms, runs)
     del tqueries
+
+    # --- 13. as-of and inequality joins and the select context -------------
+    run_asof_phase(args, torch, TK, TP, TE, TH, TM, aqueries, tdata, qdata,
+                   wdata, asof_first_ms, runs)
+    del aqueries
 
     # --- result ---------------------------------------------------------------
     def launches(name):

@@ -14,7 +14,10 @@ order-dependent window expressions (shift, cum_*, rolling, ewm, rank,
 fills) with `.over()`, and time: temporal casts and arithmetic, the `dt`
 namespace with time zones, range windows (`rolling_*_by`),
 `group_by_dynamic`, `rolling`, `upsample`, `when/then` and the finance
-functions of `timeseries`. The rest of the JAX package's surface comes with later
+functions of `timeseries`, the as-of and inequality joins (`join_asof`,
+`join_where`), and the select context: aggregates over the whole column,
+the unary math, `clip`, `is_in`, `is_between`, `sort_by` and the frame
+reductions. The rest of the JAX package's surface comes with later
 slices (see ROADMAP.md).
 """
 
@@ -35,22 +38,22 @@ from .api.frame import DataFrame  # noqa: E402
 from .api.series import Series  # noqa: E402
 from .api.lazyframe import LazyFrame  # noqa: E402
 from .api.functions import concat, corr, cov, from_dict, rolling_corr, \
-    rolling_cov  # noqa: E402
+    rolling_cov, row_index  # noqa: E402
 from .api.functions import date, date_range, date_ranges, datetime, \
     datetime_range, datetime_ranges, duration, from_epoch, time, \
     time_range, time_ranges  # noqa: E402
 from .dtypes import Time  # noqa: E402
-from . import testing, timeseries  # noqa: E402
+from . import exceptions, testing, timeseries  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
     "DataFrame", "LazyFrame", "Series", "Expr", "Config", "CONFIG",
-    "col", "lit", "len", "from_dict", "corr", "cov", "concat",
+    "col", "lit", "len", "from_dict", "corr", "cov", "concat", "row_index",
     "rolling_cov", "rolling_corr", "when", "date", "date_range",
     "date_ranges", "datetime", "datetime_range", "datetime_ranges",
     "duration", "from_epoch", "time", "time_range", "time_ranges",
-    "timeseries", "Time",
+    "timeseries", "Time", "exceptions",
     "Int8", "Int16", "Int32", "Int64", "UInt8", "UInt16", "UInt32", "UInt64",
     "Float32", "Float64", "Boolean", "String", "Utf8", "Date", "Datetime",
     "Duration", "Null", "DataType",

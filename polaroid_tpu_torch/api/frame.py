@@ -22,6 +22,7 @@ from ..expr import meta
 from ..expr.eval import eval_expr, val_to_column
 from ..expr.expr import Expr, col as _col
 from ..ops import compact as C
+from ..ops import temporal as T
 from ..ops import sort as S
 from .series import Series, _py
 
@@ -69,6 +70,26 @@ def _per_key(flag, nk: int) -> List[bool]:
     return list(flag) if isinstance(flag, (list, tuple)) else [flag] * nk
 
 
+def _table_of_series(series) -> Table:
+    """A frame's table from Series of one length, each column grown to
+    the largest capacity among them."""
+    n = len(series[0])
+    if any(len(x) != n for x in series):
+        from ..errors import ShapeError
+        raise ShapeError("the Series of a DataFrame differ in length")
+    cap = max(x._col.capacity for x in series)
+    names, cols = [], {}
+    for i, x in enumerate(series):
+        name = x.name or f"column_{i}"
+        if name in cols:
+            raise DuplicateError(f"duplicate column name {name!r}")
+        t = C.grow_to(Table([name], {name: x._col}, x._col.capacity, n),
+                      cap)
+        names.append(name)
+        cols[name] = t.cols[name]
+    return Table(names, cols, cap, n, None)
+
+
 class DataFrame:
     def __init__(self, data=None, schema=None, device=None):
         if isinstance(data, Table):
@@ -79,10 +100,21 @@ class DataFrame:
             return
         if data is None:
             data = {}
+        if isinstance(data, Series):
+            data = [data]
+        if isinstance(data, (list, tuple)) and data and \
+                all(isinstance(x, Series) for x in data):
+            self._table = _table_of_series(data)
+            return
         if not isinstance(data, dict):
             raise ComputeError(
                 f"cannot construct DataFrame from {type(data)}; the port "
                 "takes a dict of numpy arrays or lists")
+        if any(isinstance(v, Series) for v in data.values()):
+            self._table = _table_of_series(
+                [v.alias(k) if isinstance(v, Series)
+                 else Series(k, v, device=device) for k, v in data.items()])
+            return
         self._table = Table.from_dict(
             data, schema if isinstance(schema, dict) else None,
             device=resolve_device(device))
@@ -238,9 +270,99 @@ class DataFrame:
         return self.with_columns([_col(n).fill_null(value, strategy=strategy)
                                   for n in self.columns])
 
+    def drop_nulls(self, subset=None) -> "DataFrame":
+        """The rows with no null in the `subset` columns (all columns by
+        default)."""
+        names = [subset] if isinstance(subset, str) else \
+            (subset or self.columns)
+        pred = None
+        for n in names:
+            p = _col(n).is_not_null()
+            pred = p if pred is None else pred & p
+        return self.filter(pred) if pred is not None else self
+
+    # --- reductions ------------------------------------------------------
+    def _agg_all(self, agg: str, **kw) -> "DataFrame":
+        """One row: `agg` of every column it applies to (numeric,
+        Boolean and temporal columns; strings too for min and max)."""
+        exprs = []
+        for n in self.columns:
+            dt = self.schema[n]
+            if agg in ("sum", "mean", "min", "max", "median", "std",
+                       "var") and not (dt.is_numeric or dt.is_bool or
+                                       dt.is_temporal or
+                                       (agg in ("min", "max")
+                                        and dt.is_string)):
+                continue
+            exprs.append(Expr("agg", (_col(n),), agg=agg, **kw).alias(n))
+        return self.select(exprs) if exprs else DataFrame(device=self.device)
+
+    def sum(self) -> "DataFrame":
+        return self._agg_all("sum")
+
+    def mean(self) -> "DataFrame":
+        return self._agg_all("mean")
+
+    def min(self) -> "DataFrame":
+        return self._agg_all("min")
+
+    def max(self) -> "DataFrame":
+        return self._agg_all("max")
+
+    def median(self) -> "DataFrame":
+        return self._agg_all("median")
+
+    def std(self, ddof: int = 1) -> "DataFrame":
+        return self._agg_all("std", ddof=ddof)
+
+    def var(self, ddof: int = 1) -> "DataFrame":
+        return self._agg_all("var", ddof=ddof)
+
+    def null_count(self) -> "DataFrame":
+        return self.select([_col(n).null_count().alias(n)
+                            for n in self.columns])
+
+    def describe(self) -> "DataFrame":
+        """count, null_count, mean, std, min, the quartiles and max of
+        every column (as the JAX package's `describe`: Float64 for
+        numeric and Boolean columns, strings for the others)."""
+        from ..dtypes import Float64, UInt8
+        stats = ["count", "null_count", "mean", "std", "min", "25%", "50%",
+                 "75%", "max"]
+        data: Dict[str, list] = {"statistic": stats}
+        for name in self.columns:
+            dt = self.schema[name]
+            c = _col(name)
+            if dt.is_numeric or dt.is_bool:
+                cc = c if not dt.is_bool else c.cast(UInt8)
+                row = self.select(
+                    c.count().cast(Float64).alias("count"),
+                    c.null_count().cast(Float64).alias("nc"),
+                    cc.mean().alias("mean"), cc.std().alias("std"),
+                    cc.min().cast(Float64).alias("min"),
+                    cc.quantile(0.25, "linear").alias("q1"),
+                    cc.quantile(0.5, "linear").alias("q2"),
+                    cc.quantile(0.75, "linear").alias("q3"),
+                    cc.max().cast(Float64).alias("max")).to_dict()
+                data[name] = [None if v[0] is None else float(v[0])
+                              for v in row.values()]
+                continue
+
+            def one(e):
+                return self.select(e.alias("v")).to_dict()["v"][0]
+            mn = one(c.min()) if dt.is_string or dt.is_temporal else None
+            mx = one(c.max()) if dt.is_string or dt.is_temporal else None
+            data[name] = [str(one(c.count())), str(one(c.null_count())),
+                          None, None, None if mn is None else str(mn),
+                          None, None, None, None if mx is None else str(mx)]
+        return DataFrame(data, device=self.device)
+
     # --- row ops --------------------------------------------------------
     def head(self, n: int = 5) -> "DataFrame":
         return DataFrame._from_table(C.slice_rows(self._table, 0, max(n, 0)))
+
+    def tail(self, n: int = 5) -> "DataFrame":
+        return DataFrame._from_table(C.slice_rows(self._table, -n, n))
 
     def sort(self, by, *more_by, descending=False, nulls_last=False,
              maintain_order: bool = False) -> "DataFrame":
@@ -363,41 +485,53 @@ class DataFrame:
 
     def upsample(self, time_column: str, *, every: str) -> "DataFrame":
         """Rows at every `every` from the first to the last time, the
-        frame's columns joined on (nulls where no row has that time), as
-        the JAX package's `upsample`: the grid is built on the host."""
+        frame's columns joined on (nulls where no row has that time). The
+        grid is built on the host: a fixed `every` steps by its length; a
+        calendar one ("1mo", "1q", "1y") moves the first time by whole
+        months (`temporal_window.add_months_units`: a day past a month's
+        end becomes its last day), each point from the first, so the day
+        does not drift."""
         from ..dtypes import Date
-        from ..ops.temporal import parse_every
+        from ..ops.temporal import days_to_civil, parse_every
+        from ..ops.temporal_window import add_months_units
         t = C.compact(self._table)
         n = t.count_rows()
         if n == 0:
             return self
         c = t.column(time_column)
-        vals = c.data[:n].cpu().numpy()
-        _, ns = parse_every(every)
-        if c.dtype == Date:
-            step = max(ns // (86_400 * 1_000_000_000), 1)
-            grid = np.arange(vals.min(), vals.max() + 1, step,
-                             dtype=np.int64).astype("datetime64[D]")
+        vals = c.data[:n].cpu()
+        lo, hi = int(vals.min()), int(vals.max())
+        kind, step = parse_every(every)
+        if kind == "months":
+            ends = torch.tensor([lo, hi], dtype=vals.dtype)
+            days = ends if c.dtype == Date else \
+                torch.div(ends, T.per_day(c.dtype.time_unit),
+                          rounding_mode="floor")
+            y, m, _ = days_to_civil(days)
+            span = (int(y[1]) - int(y[0])) * 12 + int(m[1]) - int(m[0])
+            k = torch.arange(span // step + 1, dtype=torch.int64) * step
+            grid = add_months_units(ends[:1].expand(k.shape[0]), k, c.dtype)
+            grid = grid[grid <= hi].numpy()
         else:
-            lo = np.datetime64(int(vals.min()), c.dtype.time_unit) \
-                .astype("datetime64[us]")
-            hi = np.datetime64(int(vals.max()), c.dtype.time_unit) \
-                .astype("datetime64[us]")
-            step = np.timedelta64(max(ns // 1000, 1), "us")
-            grid = np.arange(lo, hi + np.timedelta64(1, "us"), step)
+            unit = c.dtype.time_unit if c.dtype != Date else None
+            per = T.per_day("ns") if unit is None else \
+                1_000_000_000 // T.UNIT_PER_SECOND[unit]
+            grid = np.arange(lo, hi + 1, max(step // per, 1), dtype=np.int64)
+        grid = grid.astype("datetime64[D]" if c.dtype == Date
+                           else f"datetime64[{c.dtype.time_unit}]")
         gdf = DataFrame({time_column: grid}, schema={time_column: c.dtype},
                         device=self.device)
         return gdf.join(self, on=time_column, how="left")
 
-    def join_asof(self, *args, **kwargs):
-        raise NotImplementedError(
-            "join_asof is not ported yet: it comes with Slice D3 (as-of and "
-            "inequality joins)")
+    def join_asof(self, other: "DataFrame", **kw) -> "DataFrame":
+        """As-of join on sorted-order keys (see `LazyFrame.join_asof`)."""
+        return self.lazy().join_asof(other.lazy(), **kw).collect()
 
-    def join_where(self, *args, **kwargs):
-        raise NotImplementedError(
-            "join_where is not ported yet: it comes with Slice D3 (as-of "
-            "and inequality joins)")
+    def join_where(self, other: "DataFrame", *predicates,
+                   suffix: str = "_right") -> "DataFrame":
+        """Join on inequality predicates (see `LazyFrame.join_where`)."""
+        return self.lazy().join_where(other.lazy(), *predicates,
+                                      suffix=suffix).collect()
 
     def lazy(self):
         from .lazyframe import LazyFrame

@@ -244,3 +244,8 @@ def from_epoch(column, time_unit: str = "us") -> Expr:
         e = e * 1_000_000
         time_unit = "us"
     return e.cast(Datetime(time_unit))
+
+
+def row_index() -> Expr:
+    """Each live row's position among the live rows (UInt32)."""
+    return Expr("row_index")

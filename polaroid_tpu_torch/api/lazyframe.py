@@ -108,6 +108,22 @@ class LazyFrame:
     def head(self, n: int = 5) -> "LazyFrame":
         return LazyFrame._from_plan(L.Slice(self._plan, 0, n))
 
+    def limit(self, n: int = 5) -> "LazyFrame":
+        return self.head(n)
+
+    def tail(self, n: int = 5) -> "LazyFrame":
+        return LazyFrame._from_plan(L.Slice(self._plan, -n, n))
+
+    def slice(self, offset: int, length: Optional[int] = None
+              ) -> "LazyFrame":
+        return LazyFrame._from_plan(L.Slice(self._plan, offset, length))
+
+    def first(self) -> "LazyFrame":
+        return self.head(1)
+
+    def last(self) -> "LazyFrame":
+        return self.tail(1)
+
     def shift(self, n: int = 1, *, fill_value=None) -> "LazyFrame":
         return self.with_columns([_col(c).shift(n, fill_value=fill_value)
                                   for c in self.columns])
@@ -159,15 +175,85 @@ class LazyFrame:
         node."""
         return _LazyRolling(self, index_column, period, group_by, closed)
 
-    def join_asof(self, *args, **kwargs):
-        raise NotImplementedError(
-            "join_asof is not ported yet: it comes with Slice D3 (as-of and "
-            "inequality joins)")
+    def join_asof(self, other: "LazyFrame", *, on=None, left_on=None,
+                  right_on=None, by=None, by_left=None, by_right=None,
+                  strategy: str = "backward", suffix: str = "_right",
+                  tolerance=None) -> "LazyFrame":
+        """Each left row joined to the right row whose key is the last
+        at or before its own ("backward"), the first at or after it
+        ("forward") or the nearer of the two ("nearest"), within equal
+        `by` values and `tolerance` (`ops/asof.py`). A null key never
+        matches."""
+        from ..ops.asof import asof_join_plan
+        return asof_join_plan(self, other, on, left_on, right_on, by,
+                              by_left, by_right, strategy, suffix, tolerance)
 
-    def join_where(self, *args, **kwargs):
-        raise NotImplementedError(
-            "join_where is not ported yet: it comes with Slice D3 (as-of "
-            "and inequality joins)")
+    def join_where(self, other: "LazyFrame", *predicates,
+                   suffix: str = "_right") -> "LazyFrame":
+        """Inequality join (`ops/iejoin.py`): predicates of the form
+        `left_expr OP right_expr` (OP an inequality) drive a sort and
+        wavelet-tree enumeration of the pairs, with no cross product.
+        Right-side names that clash take `suffix`, and the predicates
+        name them so. Predicates that do not split into one side each
+        filter the pairs; with none that splits, the join is a cross
+        join and a filter."""
+        from ..errors import ComputeError
+        from ..expr import meta
+        if not predicates:
+            raise ComputeError("join_where requires at least one predicate")
+        preds = _to_exprs(predicates)
+        lschema = self._plan.schema()
+        rschema = other._plan.schema()
+        out_right = {f"{n}{suffix}" if n in lschema else n: n
+                     for n in rschema}
+        flip = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}
+
+        def side(e):
+            roots = meta.root_names(e)
+            if roots and roots <= set(lschema):
+                return "l"
+            if roots and roots <= set(out_right):
+                return "r"
+            return None
+
+        def to_right(e):
+            # joined-output names back to the right frame's names
+            if e.kind == "col":
+                return Expr("col", (), name=out_right[e.attrs["name"]])
+            if not e.children:
+                return e
+            return Expr(e.kind, tuple(to_right(c) for c in e.children),
+                        **e.attrs)
+
+        def sortable(e):
+            try:
+                dt = meta.output_dtype(e, lschema)
+            except Exception:
+                return False
+            return not (dt.is_string or dt.is_nested)
+
+        ineq, post = [], []
+        for p in preds:
+            op = p.attrs.get("op") if p.kind == "binary" else None
+            if op in flip:
+                a, b = p.children
+                sa, sb = side(a), side(b)
+                if sa == "l" and sb == "r" and sortable(a):
+                    ineq.append((a, op, to_right(b)))
+                    continue
+                if sa == "r" and sb == "l" and sortable(b):
+                    ineq.append((b, flip[op], to_right(a)))
+                    continue
+            post.append(p)
+        if ineq:
+            return LazyFrame._from_plan(
+                L.IEJoin(self._plan, other._plan, ineq, post, suffix))
+        pred = preds[0]
+        for p in preds[1:]:
+            pred = pred & p
+        crossed = L.Join(self._plan, other._plan, [], [], "cross", suffix,
+                         False, None)
+        return LazyFrame._from_plan(L.Filter(crossed, pred))
 
     def lazy(self) -> "LazyFrame":
         return self

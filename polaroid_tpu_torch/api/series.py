@@ -74,6 +74,29 @@ class Series:
         """The `dt` namespace over the series."""
         return _DtNamespace(self)
 
+    def alias(self, name: str) -> "Series":
+        return Series._from_column(name, self._col, len(self))
+
+    def to_frame(self, name: Optional[str] = None):
+        """The series as a one-column frame."""
+        from ..batch import Table
+        from .frame import DataFrame
+        name = name or self.name or ""
+        return DataFrame._from_table(Table([name], {name: self._col},
+                                           self._col.capacity, len(self)))
+
+    def _agg(self, agg: str, **kw):
+        """A reduction of the series, read back as a Python value."""
+        from ..expr.expr import Expr, col
+        e = Expr("agg", (col(self.name or ""),), agg=agg, **kw)
+        return self.to_frame().select(e.alias("v")).to_dict()["v"][0]
+
+    def sum(self):
+        return self._agg("sum")
+
+    def mean(self):
+        return self._agg("mean")
+
     def to_numpy(self) -> np.ndarray:
         return np.asarray(self._col.to_numpy(len(self)))
 

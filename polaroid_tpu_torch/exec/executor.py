@@ -27,8 +27,6 @@ from ..plan import logical as L
 
 # nodes applied on top of their input table, as one chain under a group-by
 _CHAIN = ("filter", "select", "with_columns")
-# the slice of the port that brings a plan node not ported yet
-_NEXT_SLICE = {"iejoin": "Slice D3 (as-of and inequality joins)"}
 
 
 def execute(plan: L.Plan, cache: Optional[Dict[int, Table]] = None
@@ -51,6 +49,11 @@ def execute(plan: L.Plan, cache: Optional[Dict[int, Table]] = None
                            plan.right_on, plan.how, plan.suffix,
                            plan.join_nulls, plan.coalesce,
                            plan.maintain_order, plan.validate)
+    if k == "iejoin":
+        from ..ops.iejoin import iejoin_tables
+        return iejoin_tables(execute(plan.left, cache),
+                             execute(plan.right, cache), plan.preds,
+                             plan.post, plan.suffix)
     if k == "union":
         how = "vertical" if plan.how.startswith("vertical") else "diagonal"
         return vstack_tables([execute(p, cache) for p in plan.inputs], how)
@@ -96,8 +99,8 @@ def execute(plan: L.Plan, cache: Optional[Dict[int, Table]] = None
         # overlapping group_by_dynamic build one)
         return plan.fn(execute(plan.input, cache))
     raise NotImplementedError(
-        f"plan node {k!r} is not ported yet: it comes with "
-        f"{_NEXT_SLICE.get(k, 'a later slice of the port')}")
+        f"plan node {k!r} is not ported yet: it comes with a later slice "
+        "of the port")
 
 
 def _apply_node(node: L.Plan, table: Table) -> Table:

@@ -11,10 +11,16 @@ broadcast. The order-dependent ops (`window`, `fill_null`,
 `rolling_cov`/`rolling_corr`) live in `expr/window.py`, `.over()` in
 `ops/window_over.py` and the `dt` namespace in `expr/dt.py`.
 
-The rest of that file (strings, lists, aggregations in a select
-context) comes with later slices and raises NotImplementedError here. `expr.filter(pred)` is ported inside a
-group-by aggregation: it keeps every row and narrows the rows that take
-part in the aggregate (`Val.live`), as the JAX package's does.
+The select context (Slice E1): aggregates over the whole column
+(`expr/agg.py`), the unary math and bit counts, and the kinds of
+`_SELECT_KINDS` below (`clip`, `is_in`, `is_between`, `fill_nan`,
+`replace`, `hash`, `search_sorted`, `sort_by`, `row_index`, and the
+kinds that change the length: `drop_nulls`, `gather_every`, a slice,
+`expr.filter`). A kind that changes the length keeps every row and
+marks the rows of its result (`Val.live`), as the JAX package's does; a
+group-by aggregate reads only those, a select compacts to them.
+
+Strings and lists come with Slice E2 and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -428,25 +434,152 @@ def _eval_fma(op: str, a: Val, b: Val, c: Val) -> Val:
     return _eval_binary("add" if op == "fma" else "sub", m, c)
 
 
-def _eval_unary(op: str, v: Val) -> Val:
-    return _with_live(_unary(op, v), v.live)
+def _eval_unary(op: str, v: Val, attrs=None) -> Val:
+    return _with_live(_unary(op, v, attrs), v.live)
 
 
-def _unary(op: str, v: Val) -> Val:
-    x = v.data
+def _unary(op: str, v: Val, attrs=None) -> Val:
+    """The JAX package's `_eval_unary`: sign, rounding, the float math,
+    `reinterpret` and the bit counts (`_bit_unary`)."""
+    attrs = attrs or {}
+    x, dt = v.data, v.dtype
+
+    def mk(out_dt, data):
+        return Val(out_dt, data, v.validity, None, v.is_scalar)
+
     if op == "not":
-        if not v.dtype.is_bool:
-            raise InvalidOperationError(f"~ on {v.dtype!r}")
-        return Val(Boolean, ~x, v.validity, None, v.is_scalar)
+        if not dt.is_bool:
+            raise InvalidOperationError(f"~ on {dt!r}")
+        return mk(Boolean, ~x)
     if op == "neg":
-        return Val(v.dtype, -x, v.validity, None, v.is_scalar)
+        return mk(dt, -x)
     if op == "abs":
-        return Val(v.dtype, torch.abs(x), v.validity, None, v.is_scalar)
-    if op == "sqrt":
-        out_dt = _float_dt(v.dtype)
-        return Val(out_dt, torch.sqrt(x.to(storage_torch_dtype(out_dt))),
-                   v.validity, None, v.is_scalar)
-    raise NotImplementedError(f"unary op {op!r} is not ported yet")
+        return mk(dt, torch.abs(x))
+    if op == "sign":
+        s = torch.sign(x)
+        if x.is_floating_point():
+            s = torch.where(torch.isnan(x), x, s)     # NaN stays NaN
+        return mk(dt, s.to(x.dtype))
+    if op in ("floor", "ceil"):
+        if dt.is_integer:
+            return v
+        return mk(dt, torch.floor(x) if op == "floor" else torch.ceil(x))
+    if op == "round":
+        if dt.is_integer:
+            return v
+        m = 10.0 ** attrs.get("decimals", 0)
+        return mk(dt, torch.round(x * m) / m)
+    if op == "round_sig_figs":
+        digits = int(attrs.get("digits", 1))
+        if digits < 1:
+            raise InvalidOperationError("round_sig_figs digits must be >= 1")
+        xf = x.to(torch.float64)
+        mag = torch.floor(torch.log10(torch.where(xf == 0, 1.0, xf.abs())))
+        m = 10.0 ** (digits - 1 - mag)
+        out = torch.where(xf == 0, 0.0, torch.round(xf * m) / m)
+        return mk(dt, out.to(x.dtype) if dt.is_integer else out)
+    if op == "reinterpret":
+        return _reinterpret(v, attrs.get("signed", True))
+    if op.startswith("bit_"):
+        return mk(UInt32, _bit_unary(op, x, dt))
+    out_dt = _float_dt(dt)
+    xf = x.to(storage_torch_dtype(out_dt))
+    if op == "log":
+        return mk(out_dt, torch.log(xf) / math.log(attrs.get("base", math.e)))
+    if op == "cbrt":
+        return mk(out_dt, torch.sign(xf) * xf.abs().pow(1.0 / 3.0))
+    if op == "cot":
+        return mk(out_dt, 1.0 / torch.tan(xf))
+    fn = _FLOAT_MATH.get(op)
+    if fn is None:
+        raise InvalidOperationError(f"unknown unary op {op!r}")
+    return mk(out_dt, fn(xf))
+
+
+_FLOAT_MATH = {
+    "sqrt": torch.sqrt, "exp": torch.exp, "log1p": torch.log1p,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "arcsin": torch.asin, "arccos": torch.acos, "arctan": torch.atan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "arcsinh": torch.asinh, "arccosh": torch.acosh, "arctanh": torch.atanh,
+    "degrees": torch.rad2deg, "radians": torch.deg2rad,
+}
+
+
+def _reinterpret(v: Val, signed: bool) -> Val:
+    """An integer's bits read as the signed or unsigned type of its
+    width (UInt16 and UInt32 live in wider storage, so the bits are
+    masked or sign-extended, not viewed)."""
+    from ..dtypes import Int8, Int16, Int32, UInt8, UInt16, UInt64
+    dt = v.dtype
+    if not dt.is_integer:
+        raise InvalidOperationError(f"reinterpret on {dt!r}")
+    w = dt.bit_width()
+    out_dt = {8: (Int8, UInt8), 16: (Int16, UInt16), 32: (Int32, UInt32),
+              64: (Int64, UInt64)}[w][0 if signed else 1]
+    x = v.data.to(torch.int64)
+    if w < 64:
+        x = x & ((1 << w) - 1)
+        if signed:
+            x = x - ((x >> (w - 1)) << w)
+    return Val(out_dt, x.to(storage_torch_dtype(out_dt)), v.validity, None,
+               v.is_scalar)
+
+
+def _bit_length(u: torch.Tensor) -> torch.Tensor:
+    """The bit length of non-negative int64 values below 2^63 (0 for 0)."""
+    n = torch.zeros_like(u)
+    for s in (32, 16, 8, 4, 2, 1):
+        big = (u >> s) != 0
+        n = n + torch.where(big, s, 0)
+        u = torch.where(big, u >> s, u)
+    return n + (u != 0).to(n.dtype)
+
+
+def _popcount(u: torch.Tensor) -> torch.Tensor:
+    """Set bits of int64 words (all 64 bits)."""
+    u = u - ((u >> 1) & 0x5555555555555555)
+    u = (u & 0x3333333333333333) + ((u >> 2) & 0x3333333333333333)
+    u = (u + (u >> 4)) & 0x0F0F0F0F0F0F0F0F
+    return (u * 0x0101010101010101) >> 56
+
+
+def _bit_unary(op: str, x: torch.Tensor, dt) -> torch.Tensor:
+    """The JAX package's `_eval_bit_unary`: counts of ones and zeros,
+    leading and trailing ones and zeros, within the type's own width (a
+    Boolean is one bit). Returns int64 counts."""
+    if dt.is_bool:
+        nbits = 1
+    elif dt.is_integer:
+        nbits = dt.bit_width()
+    else:
+        raise InvalidOperationError(f"{op} on {dt!r}")
+    full = -1 if nbits == 64 else (1 << nbits) - 1
+    u = x.to(torch.int64) & full
+
+    def leading_zeros(a):
+        # a holds nbits bits; its top bit set is the sign bit at 64
+        top = a < 0
+        return torch.where(top, 0, nbits - _bit_length(a.clamp(min=0)))
+
+    def trailing_zeros(a):
+        low = a & -a
+        tz = torch.where(low < 0, 63, _bit_length(low.clamp(min=0)) - 1)
+        return torch.where(a == 0, nbits, tz)
+
+    if op == "bit_count_ones":
+        return _popcount(u)
+    if op == "bit_count_zeros":
+        return nbits - _popcount(u)
+    if op == "bit_leading_zeros":
+        return leading_zeros(u)
+    if op == "bit_leading_ones":
+        return leading_zeros(~u & full)
+    if op == "bit_trailing_zeros":
+        return trailing_zeros(u)
+    if op == "bit_trailing_ones":
+        return trailing_zeros(~u & full)
+    raise InvalidOperationError(f"unknown bit op {op!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -471,7 +604,8 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
         a, b, c = (eval_expr(ch, table, ctx) for ch in e.children)
         return _eval_fma(e.attrs["op"], a, b, c)
     if k == "unary":
-        return _eval_unary(e.attrs["op"], eval_expr(e.children[0], table, ctx))
+        return _eval_unary(e.attrs["op"], eval_expr(e.children[0], table, ctx),
+                           e.attrs)
     if k in ("is_null", "is_not_null"):
         v = eval_expr(e.children[0], table, ctx)
         valid = v.valid_or_true()
@@ -479,11 +613,8 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
                    v.is_scalar, v.live)
     if k == "expr_filter":
         # every row stays; only the rows where the predicate holds take
-        # part in an aggregate of the value
-        if ctx != "agg":
-            raise NotImplementedError(
-                "expr.filter outside a group-by aggregation is not ported "
-                "yet: it comes with Slice E (the expression surface)")
+        # part in an aggregate of the value (in a select, they are the
+        # rows of the result)
         v = eval_expr(e.children[0], table, ctx)
         p = eval_expr(e.children[1], table, ctx)
         plive = p.data & p.valid_or_true()
@@ -492,6 +623,11 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
                           plive if v.live is None else v.live & plive)
     if k == "table_len":
         return Val(UInt32, table.row_mask().sum().view(1), None, None, True)
+    if k == "agg":
+        from .agg import eval_agg
+        return eval_agg(e, eval_expr(e.children[0], table, ctx), table)
+    if k in _SELECT_KINDS:
+        return _SELECT_KINDS[k](e, table, ctx)
     if k in _WINDOW_KINDS:
         from . import window as W
         return getattr(W, _WINDOW_KINDS[k])(e, table, ctx)
@@ -517,6 +653,256 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
     raise NotImplementedError(
         f"expression kind {k!r} is not ported yet (later slices of the "
         "port bring the rest of expr/eval.py)")
+
+
+# ---------------------------------------------------------------------------
+# the rest of the select context
+# ---------------------------------------------------------------------------
+
+def _live_of(v: Val, table: Table) -> torch.Tensor:
+    mask = table.row_mask()
+    return mask if v.live is None else mask & v.live
+
+
+def _like(v: Val, dtype, data, validity=None) -> Val:
+    """A result shaped as `v`, with its live rows."""
+    return Val(dtype, data, v.validity if validity is None else validity,
+               None, v.is_scalar, v.live)
+
+
+def _eval_float_test(e: Expr, table: Table, ctx: str) -> Val:
+    v = eval_expr(e.children[0], table, ctx)
+    k = e.kind
+    if not v.dtype.is_float:
+        fill = k in ("is_not_nan", "is_finite")
+        data = torch.full(v.data.shape, fill, dtype=torch.bool,
+                          device=v.data.device)
+    else:
+        data = {"is_nan": torch.isnan, "is_not_nan":
+                lambda a: ~torch.isnan(a), "is_finite": torch.isfinite,
+                "is_infinite": torch.isinf}[k](v.data)
+    return _like(v, Boolean, data)
+
+
+def _eval_fill_nan(e: Expr, table: Table, ctx: str) -> Val:
+    v = eval_expr(e.children[0], table, ctx)
+    if not v.dtype.is_float:
+        return v
+    f = cast_val(eval_expr(e.children[1], table, ctx), v.dtype)
+    return _like(v, v.dtype, torch.where(torch.isnan(v.data),
+                                         f.data.expand(v.data.shape), v.data))
+
+
+def _eval_clip(e: Expr, table: Table, ctx: str) -> Val:
+    v = eval_expr(e.children[0], table, ctx)
+    lo = eval_expr(e.children[1], table, ctx)
+    hi = eval_expr(e.children[2], table, ctx)
+    data = v.data
+    if lo.dtype != Null:
+        data = torch.maximum(data, cast_val(lo, v.dtype).data)
+    if hi.dtype != Null:
+        data = torch.minimum(data, cast_val(hi, v.dtype).data)
+    return Val(v.dtype, data, v.validity, v.sdict, v.is_scalar, v.live)
+
+
+def _eval_is_in(e: Expr, table: Table, ctx: str) -> Val:
+    """Membership in a literal list: one `torch.searchsorted` into the
+    sorted values (string values by their codes in the column's
+    dictionary). A None in the list makes a null row True, as in the JAX
+    package."""
+    v = eval_expr(e.children[0], table, ctx)
+    vals = e.attrs["values"]
+    dev = v.data.device
+    if v.dtype.is_string:
+        sd = v.sdict or EMPTY_DICT
+        codes = sorted(c for c in (sd.find(x) for x in vals if x is not None)
+                       if c is not None)
+        arr = np.asarray(codes, dtype=np.int32)
+    else:
+        arr = np.asarray([x for x in vals if x is not None])
+        if arr.size and repr(v.dtype) == "UInt64":
+            arr = arr.astype(np.uint64).view(np.int64)
+        arr = np.sort(arr.astype(torch.empty(0, dtype=v.data.dtype)
+                                 .numpy().dtype)) if arr.size else arr
+    if arr.size == 0:
+        data = torch.zeros(v.data.shape, dtype=torch.bool, device=dev)
+    else:
+        sa = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+        x = v.data.contiguous()
+        i = torch.searchsorted(sa, x).clamp(max=sa.shape[0] - 1)
+        data = sa[i] == x
+    validity = v.validity
+    if any(x is None for x in vals) and validity is not None:
+        data = torch.where(validity, data, True)
+        validity = None
+    return Val(Boolean, data, validity, None, v.is_scalar, v.live)
+
+
+def _eval_is_between(e: Expr, table: Table, ctx: str) -> Val:
+    v, lo, hi = (eval_expr(c, table, ctx) for c in e.children)
+    closed = e.attrs.get("closed", "both")
+    lop = torch.ge if closed in ("both", "left") else torch.gt
+    rop = torch.le if closed in ("both", "right") else torch.lt
+    if v.dtype.is_string:
+        a, b = _align_strings(v, lo)
+        a, c = _align_strings(a, hi)
+        _, b = _align_strings(a, b)
+    else:
+        st = supertype(supertype(v.dtype, lo.dtype), hi.dtype)
+        a, b, c = cast_val(v, st), cast_val(lo, st), cast_val(hi, st)
+    data = lop(a.data, b.data) & rop(a.data, c.data)
+    validity = _and_valid(_and_valid(v.validity, lo.validity), hi.validity)
+    return Val(Boolean, data, validity, None,
+               v.is_scalar and lo.is_scalar and hi.is_scalar, v.live)
+
+
+def _eval_replace(e: Expr, table: Table, ctx: str) -> Val:
+    """Each value in `old` replaced by its `new` (strings through the
+    dictionary, on the host)."""
+    v = eval_expr(e.children[0], table, ctx)
+    old, new = e.attrs["old"], e.attrs["new"]
+    if len(new) == 1 and len(old) > 1:
+        new = new * len(old)
+    if v.dtype.is_string:
+        mapping = dict(zip(old, new))
+        nd, remap = (v.sdict or EMPTY_DICT).map_to_strings(
+            lambda x: mapping.get(x, x))
+        rm = torch.from_numpy(remap if len(remap) else
+                              np.zeros(1, np.int32)).to(v.data.device)
+        data = torch.where(v.data >= 0,
+                           rm[v.data.clamp(0, max(len(remap) - 1, 0)).long()],
+                           torch.full_like(v.data, int(NULL_CODE)))
+        return Val(String, data, v.validity, nd, v.is_scalar, v.live)
+    data = v.data
+    for o, n in zip(old, new):
+        data = torch.where(v.data == o, torch.full_like(data, n), data)
+    return _like(v, v.dtype, data)
+
+
+def _eval_hash(e: Expr, table: Table, ctx: str) -> Val:
+    from ..ops.hashing import hash_array
+    v = eval_expr(e.children[0], table, ctx)
+    return _like(v, UInt32, hash_array(v.data, v.dtype,
+                                       e.attrs.get("seed", 0)))
+
+
+def _eval_row_index(e: Expr, table: Table, ctx: str) -> Val:
+    mask = table.row_mask()
+    return Val(UInt32, torch.cumsum(mask, 0) - 1, None, None, False)
+
+
+def _eval_drop_nulls(e: Expr, table: Table, ctx: str) -> Val:
+    v = eval_expr(e.children[0], table, ctx)
+    if v.validity is None:
+        return v
+    live = v.validity if v.live is None else v.live & v.validity
+    return Val(v.dtype, v.data, v.validity, v.sdict, v.is_scalar, live)
+
+
+def _rank_in_live(live: torch.Tensor) -> torch.Tensor:
+    """Each row's position among the live rows."""
+    return torch.cumsum(live, 0) - 1
+
+
+def _eval_gather_every(e: Expr, table: Table, ctx: str) -> Val:
+    v = eval_expr(e.children[0], table, ctx)
+    n, off = int(e.attrs["n"]), int(e.attrs.get("offset", 0))
+    live = _live_of(v, table)
+    rank = _rank_in_live(live)
+    keep = live & (rank >= off) & (torch.remainder(rank - off, n) == 0)
+    return Val(v.dtype, v.data, v.validity, v.sdict, v.is_scalar, keep)
+
+
+def _eval_slice(e: Expr, table: Table, ctx: str) -> Val:
+    v = eval_expr(e.children[0], table, ctx)
+    if v.is_scalar:
+        return v
+    live = _live_of(v, table)
+    rank = _rank_in_live(live)
+    off, length = int(e.attrs["offset"]), e.attrs.get("length")
+    start = torch.tensor(off, device=live.device) if off >= 0 else \
+        (live.sum() + off).clamp(min=0)
+    keep = live & (rank >= start)
+    if length is not None:
+        keep = keep & (rank < start + int(length))
+    return Val(v.dtype, v.data, v.validity, v.sdict, False, keep)
+
+
+def _eval_search_sorted(e: Expr, table: Table, ctx: str) -> Val:
+    """Where each element would go in the (ascending) live values of the
+    column: the live rows moved to the front by one compaction (kernel
+    B), the rest filled with the largest value, one `torch.searchsorted`.
+    Side "any" is "right", as in the JAX package."""
+    from ..ops.cuda_partition import compact_words
+    from ..ops.search import searchsorted
+    v = eval_expr(e.children[0], table, ctx)
+    elem = eval_expr(e.children[1], table, ctx)
+    st = supertype(v.dtype, elem.dtype)
+    v, el = cast_val(v, st), cast_val(elem, st)
+    cap = table.capacity
+    pos = torch.arange(cap, device=v.data.device)
+    (perm,), n = compact_words(_live_of(v, table), [pos])
+    packed = v.data.expand(cap)[torch.where(pos < n, perm, pos)]
+    top = _type_bounds(packed.dtype)[1]
+    packed = torch.where(pos < n, packed, torch.full_like(packed, top))
+    side = "left" if e.attrs.get("side") == "left" else "right"
+    out = torch.minimum(searchsorted(packed, el.data, side), n)
+    return Val(UInt32, out, elem.validity, None, elem.is_scalar, elem.live)
+
+
+def _sorted_by(table: Table, v: Val, keys, descs, nulls_last) -> Val:
+    """`v` reordered by the keys (each a (Val, descending) pair) in the
+    live order: the rows' (dead, key words) sorted stably, by one packed
+    `torch.sort` for one 4-byte key word and by kernel F for more."""
+    from ..ops.fused_sort import fused_argsort_dead_key
+    from ..ops.keycode import encode_key_words
+    from ..ops.merge_sort import merge_sort_words
+    from .window import LiveOrder
+    L = LiveOrder(table)
+    cap = table.capacity
+    words = [(~L.front).to(torch.int64)]
+    for kv, desc in zip(keys, descs):
+        kd = L.gather(kv.data)
+        kvv = None if kv.validity is None else L.gather(kv.validity)
+        words += encode_key_words(kd, kv.dtype, kvv, bool(desc), nulls_last)
+    if len(words) == 2:
+        perm = fused_argsort_dead_key(words[0], words[1])[2]
+    else:
+        perm = merge_sort_words(words, len(words), perm_only=True)[0]
+    x = L.gather(v.data)
+    data = torch.where(L.front, x[perm], x)
+    validity = None
+    if v.validity is not None:
+        xv = L.gather(v.validity)
+        validity = L.back(torch.where(L.front, xv[perm], xv))
+    return Val(v.dtype, L.back(data), validity, v.sdict, False, v.live)
+
+
+def _eval_sort_by(e: Expr, table: Table, ctx: str) -> Val:
+    v = eval_expr(e.children[0], table, ctx)
+    n_by = e.attrs.get("n_by", len(e.children) - 1)
+    desc = e.attrs.get("descending", False)
+    descs = desc if isinstance(desc, (list, tuple)) else [desc] * n_by
+    keys = [eval_expr(c, table, ctx) for c in e.children[1:1 + n_by]]
+    return _sorted_by(table, v, keys, descs, e.attrs.get("nulls_last", False))
+
+
+def _eval_sort_self(e: Expr, table: Table, ctx: str) -> Val:
+    v = eval_expr(e.children[0], table, ctx)
+    return _sorted_by(table, v, [v], [e.attrs.get("descending", False)],
+                      e.attrs.get("nulls_last", False))
+
+
+_SELECT_KINDS = {
+    "is_nan": _eval_float_test, "is_not_nan": _eval_float_test,
+    "is_finite": _eval_float_test, "is_infinite": _eval_float_test,
+    "fill_nan": _eval_fill_nan, "clip": _eval_clip, "is_in": _eval_is_in,
+    "is_between": _eval_is_between, "replace": _eval_replace,
+    "hash": _eval_hash, "row_index": _eval_row_index,
+    "drop_nulls": _eval_drop_nulls, "gather_every": _eval_gather_every,
+    "expr_slice": _eval_slice, "search_sorted": _eval_search_sorted,
+    "sort_by": _eval_sort_by, "sort_self": _eval_sort_self,
+}
 
 
 def _eval_datetime_components(e: Expr, table: Table, ctx: str) -> Val:

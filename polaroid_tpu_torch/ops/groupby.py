@@ -48,13 +48,14 @@ every tier, as the JAX package's `_seg_sum` scatter is exact.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence
 
 import torch
 
 from ..batch import Column, Table, storage_torch_dtype
 from ..config import capacity_for
-from ..dtypes import Boolean, UInt32
+from ..dtypes import Boolean, Float64, UInt32
 from ..errors import ComputeError, DuplicateError, InvalidOperationError
 from ..expr import meta
 from ..expr.eval import Val, _eval_binary, _eval_fma, _eval_unary, \
@@ -80,11 +81,11 @@ _I64_SIGN = -(1 << 63)
 # the largest key domain of the hash tier: its key codes are u32 words
 _HASH_DOMAIN = 1 << 32
 # the slice of the port that brings the aggregates not ported yet: the
-# nested lists (implode, agg_groups) and the rest of the expression surface
-_NEXT_SLICE = {agg: "Slice E (the expression surface)"
-               for agg in ("implode", "agg_groups", "skew", "kurtosis",
-                           "nan_min", "nan_max", "bitwise_and", "bitwise_or",
-                           "bitwise_xor", "entropy")}
+# nested lists
+_NEXT_SLICE = {agg: "Slice E2 (nested columns)"
+               for agg in ("implode", "agg_groups")}
+# bits of a column counted in one batched sum by bitwise_xor
+_BIT_CHUNK = 16
 
 
 class GroupContext:
@@ -138,15 +139,18 @@ class GroupContext:
         when the layout already emits it (the dense slots are key codes)."""
         return None
 
-    def sums(self, rows: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Per-group f64 sums of several (n,) rows in ONE kernel pass.
-        Rows travel as f32 when they all are f32 (0/1 counts are exact
-        there) and as f64 otherwise."""
-        dt = torch.float64 if any(r.dtype == torch.float64 for r in rows) \
-            else torch.float32
-        out = seg_sum(torch.stack([r.to(dt) for r in rows]), self.gid,
-                      self.out_cap)
-        return list(out.unbind(0))
+    def sums(self, rows) -> List[torch.Tensor]:
+        """Per-group f64 sums of several (n,) rows (a list, or the rows of
+        one (C, n) tensor) in ONE kernel pass. Rows travel as f32 when
+        they all are f32 (0/1 counts are exact there) and as f64
+        otherwise."""
+        if isinstance(rows, torch.Tensor):
+            vals = rows
+        else:
+            dt = torch.float64 if any(r.dtype == torch.float64
+                                      for r in rows) else torch.float32
+            vals = torch.stack([r.to(dt) for r in rows])
+        return list(seg_sum(vals, self.gid, self.out_cap).unbind(0))
 
     def _extreme(self, x, gid, is_max, identity):
         return seg_minmax(x, gid, self.out_cap, is_max, identity)
@@ -194,10 +198,10 @@ class HashGroupContext(GroupContext):
     def key_order(self):
         return self.key_codes
 
-    def sums(self, rows: List[torch.Tensor]) -> List[torch.Tensor]:
-        out = segment_sum(torch.stack([r.to(torch.float64) for r in rows]),
-                          self.gid, self.out_cap)
-        return list(out.unbind(0))
+    def sums(self, rows) -> List[torch.Tensor]:
+        vals = rows if isinstance(rows, torch.Tensor) else \
+            torch.stack([r.to(torch.float64) for r in rows])
+        return list(segment_sum(vals, self.gid, self.out_cap).unbind(0))
 
     def _extreme(self, x, gid, is_max, identity):
         return segment_minmax(x, gid, self.out_cap, is_max, identity)
@@ -610,12 +614,102 @@ def reduce_group(agg: str, v: Val, ctx: GroupContext,
         return _group_arg_extreme(v, ctx, agg == "arg_max")
     if agg == "mode":
         return _group_mode(v, ctx)
+    if agg in ("skew", "kurtosis") and numeric:
+        return _group_moment(agg, sx, dt, spart, ctx, attrs or {})
+    if agg in ("nan_min", "nan_max") and numeric and not dt.is_bool:
+        # the segment extremes already let a NaN win (kernel C's order)
+        r = reduce_group(agg[4:], v, ctx, attrs)
+        if dt.is_float:
+            r.data = torch.where(torch.isnan(r.data),
+                                 torch.full_like(r.data, float("nan")),
+                                 r.data)
+        return r
+    if agg in ("bitwise_and", "bitwise_or", "bitwise_xor"):
+        return _group_bitwise(agg, sx, dt, spart, ctx)
+    if agg == "entropy" and numeric:
+        a = attrs or {}
+        xf = torch.where(spart, _to_f64(sx, dt), 0.0)
+        if bool(a.get("normalize", True)):
+            (tot,) = ctx.sums([xf])
+            trow = ctx.take(tot)
+            p = xf / torch.where(trow == 0, 1.0, trow)
+        else:
+            p = xf
+        term = torch.where(spart & (p > 0), p * torch.log(p), 0.0)
+        (h,) = ctx.sums([term])
+        out_dt = _float_dt(dt)
+        h = -h / math.log(float(a.get("base", math.e)))
+        return Val(out_dt, h.to(storage_torch_dtype(out_dt)),
+                   counted(spart).data > 0)
     if agg in _NEXT_SLICE:
         raise NotImplementedError(
             f"group-by {agg} is not ported yet: it comes with "
             f"{_NEXT_SLICE[agg]}")
     raise NotImplementedError(
         f"group-by aggregation {agg!r} on {dt!r} is not ported yet")
+
+
+def _group_moment(agg: str, sx: torch.Tensor, dt, spart: torch.Tensor,
+                  ctx: GroupContext, attrs: dict) -> Val:
+    """Each group's skew or kurtosis from its central moments in f64, in
+    two passes as the JAX package's CPU path: the group mean gathered back
+    to the rows, then the sums of the deviations' powers."""
+    xf = torch.where(spart, _to_f64(sx, dt), 0.0)
+    s, n = ctx.sums([xf, spart.to(torch.float64)])
+    m = s / n.clamp(min=1)
+    d = torch.where(spart, xf - ctx.take(m), 0.0)
+    d2 = d * d
+    moments = ctx.sums([d2, d2 * d] if agg == "skew" else [d2, d2 * d2])
+    m2, mk = (x / n.clamp(min=1) for x in moments)
+    bias = attrs.get("bias", True)
+    if agg == "skew":
+        g = mk / m2.clamp(min=1e-300) ** 1.5
+        if not bias:
+            g = g * torch.sqrt(n * (n - 1)) / (n - 2).clamp(min=1)
+        return Val(Float64, g, (n > (0 if bias else 2)) & (m2 > 0))
+    g = mk / (m2 * m2).clamp(min=1e-300)
+    if not bias:
+        g = ((n + 1) * g - 3 * (n - 1)) * (n - 1) / \
+            ((n - 2) * (n - 3)).clamp(min=1) + 3
+    if attrs.get("fisher", True):
+        g = g - 3.0
+    return Val(Float64, g, (n > (0 if bias else 3)) & (m2 > 0))
+
+
+def _group_bitwise(agg: str, sx: torch.Tensor, dt, spart: torch.Tensor,
+                   ctx: GroupContext) -> Val:
+    """Each group's AND, OR or XOR of its valid values, one bit at a
+    time: OR and AND as the bit's segment max and min (kernel C on the
+    dense tier), XOR as the parity of the bits' counts, 16 bits to one
+    batched per-group sum (kernel A on the dense tier). Words of at most
+    32 bits are shifted as int32."""
+    if not (dt.is_integer or dt.is_bool):
+        raise InvalidOperationError(f"{agg} on {dt!r}")
+    nbits = 1 if dt.is_bool else dt.bit_width()
+    x = sx.to(torch.int32 if nbits <= 32 else torch.int64)
+    out = torch.zeros(ctx.out_cap, dtype=torch.int64, device=x.device)
+    if agg == "bitwise_xor":
+        # counts are exact in f32 below 2^24 rows
+        fdt = torch.float32 if ctx.cap <= (1 << 24) else torch.float64
+        live = spart.to(x.dtype)
+        for b0 in range(0, nbits, _BIT_CHUNK):
+            b1 = min(b0 + _BIT_CHUNK, nbits)
+            shifts = torch.arange(b0, b1, dtype=x.dtype, device=x.device)
+            bits = (x.unsqueeze(0) >> shifts.unsqueeze(1)) & live
+            for b, cnt in zip(range(b0, b1), ctx.sums((bits & 1).to(fdt))):
+                out = out | ((cnt.to(torch.int64) & 1) << b)
+    else:
+        is_or = agg == "bitwise_or"
+        for b in range(nbits):
+            bit = ((x >> b) & 1).to(torch.int32)
+            r = ctx.extreme(bit, spart, is_or, 0 if is_or else 1)
+            out = out | (r.to(torch.int64) << b)
+    has = _count(ctx, spart) > 0
+    if dt.is_bool:
+        return Val(Boolean, out != 0, has)
+    if nbits < 64 and dt.is_signed_integer:
+        out = out - ((out >> (nbits - 1)) << nbits)
+    return Val(dt, out.to(storage_torch_dtype(dt)), has)
 
 
 def _signed_order(x: torch.Tensor, dt) -> torch.Tensor:
@@ -791,7 +885,7 @@ def eval_group_expr(e: Expr, table: Table, ctx: GroupContext,
         return _eval_fma(e.attrs["op"], a, b, c)
     if k == "unary":
         return _eval_unary(e.attrs["op"], eval_group_expr(
-            e.children[0], table, ctx, key_outputs))
+            e.children[0], table, ctx, key_outputs), e.attrs)
     raise NotImplementedError(
         f"expression kind {k!r} in a group-by aggregation is not ported "
         "yet: it comes with Slice E (the expression surface)")

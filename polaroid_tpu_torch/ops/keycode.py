@@ -40,7 +40,7 @@ from ..dtypes import DataType
 
 __all__ = ["encode_orderable", "encode_key_words", "decode_orderable",
            "col_to_u32_words", "col_from_u32_words", "lex_sort_indices",
-           "U32", "code_bits"]
+           "U32", "code_bits", "orderable_i64"]
 
 U32 = 0xFFFFFFFF
 _SIGN64 = -(1 << 63)        # the int64 whose bits are 1 << 63
@@ -98,6 +98,14 @@ def encode_orderable(x: torch.Tensor, dtype: DataType,
         w = x.element_size() * 8
         u = (x.to(torch.int64) + (1 << (w - 1))) & ((1 << w) - 1)
     return u ^ _flip_mask(dtype) if descending else u
+
+
+def orderable_i64(x: torch.Tensor, dtype: DataType) -> torch.Tensor:
+    """A column's orderable code as a signed int64 with the same order
+    (`torch.searchsorted` and `torch.sort` compare int64 as signed): a
+    64-bit code with its top bit flipped, a 32-bit one as it is."""
+    u = encode_orderable(x, dtype)
+    return u ^ _SIGN64 if code_bits(dtype) == 64 else u
 
 
 def encode_key_words(x: torch.Tensor, dtype: DataType,

@@ -57,33 +57,36 @@ def build_wavelet(ranks: torch.Tensor, universe: Optional[int] = None
 def wavelet_select(tables, lo: torch.Tensor, hi: torch.Tensor,
                    k: torch.Tensor) -> torch.Tensor:
     """The rank of the k-th smallest element (from 0) of [lo_i, hi_i),
-    per row. The caller keeps lo < hi and 0 <= k < hi - lo."""
+    per row (int64). The caller keeps lo < hi and 0 <= k < hi - lo. The
+    walk runs in int32 (positions are below 2^31), half the bytes of
+    int64 per level."""
     levels = len(tables)
-    lo, hi, k = lo.long(), hi.long(), k.long()
+    lo, hi, k = lo.int(), hi.int(), k.int()
     res = torch.zeros_like(k)
     for lvl, (Z, tz) in enumerate(tables):
-        zlo, zhi = Z[lo].long(), Z[hi].long()
+        zlo, zhi = Z.index_select(0, lo), Z.index_select(0, hi)
         cz = zhi - zlo
         left = k < cz
         lo = torch.where(left, zlo, tz + (lo - zlo))
         hi = torch.where(left, zhi, tz + (hi - zhi))
         k = torch.where(left, k, k - cz)
         res = res | torch.where(left, 0, 1 << (levels - 1 - lvl))
-    return res
+    return res.long()
 
 
 def wavelet_count_lt(tables, lo: torch.Tensor, hi: torch.Tensor,
                      key: torch.Tensor) -> torch.Tensor:
-    """How many elements of [lo_i, hi_i) have a rank below key_i."""
+    """How many elements of [lo_i, hi_i) have a rank below key_i (int64;
+    the walk runs in int32)."""
     levels = len(tables)
-    lo, hi, key = lo.long(), hi.long(), key.long()
+    lo, hi, key = lo.int(), hi.int(), key.int()
     acc = torch.zeros_like(lo)
     for lvl, (Z, tz) in enumerate(tables):
         bit = (key >> (levels - 1 - lvl)) & 1
-        zlo, zhi = Z[lo].long(), Z[hi].long()
+        zlo, zhi = Z.index_select(0, lo), Z.index_select(0, hi)
         cz = zhi - zlo
         acc = acc + torch.where(bit == 1, cz, 0)
         left = bit == 0
         lo = torch.where(left, zlo, tz + (lo - zlo))
         hi = torch.where(left, zhi, tz + (hi - zhi))
-    return acc
+    return acc.long()

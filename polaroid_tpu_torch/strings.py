@@ -64,6 +64,21 @@ class StringDict:
         out[~valid] = None
         return out
 
+    def find(self, s: str) -> Optional[int]:
+        """The code of `s`, or None if it is absent."""
+        i = int(np.searchsorted(self.values, s))
+        if i < len(self.values) and self.values[i] == s:
+            return i
+        return None
+
+    def map_to_strings(self, fn) -> Tuple["StringDict", np.ndarray]:
+        """Each string through a str -> str function: (the new sorted
+        dictionary, the map of old codes to new ones)."""
+        mapped = np.array([fn(v) for v in self.values], dtype=object)
+        uniq, inv = np.unique(mapped.astype(str), return_inverse=True)
+        return StringDict(np.asarray(uniq, dtype=object)), \
+            inv.astype(np.int32)
+
     def merge(self, other: "StringDict"
               ) -> Tuple["StringDict", np.ndarray, np.ndarray]:
         """Union two dictionaries. Returns (merged, remap_self, remap_other)

@@ -894,3 +894,56 @@ def test_time_route_kernels_match_plain(dev, name):
         for o, w in zip(outs, wouts):
             assert torch.equal(o[:k].cpu(), w[:k])
     CS.check_time(name, CS.decoded_columns(queries[name].collect()), d)
+
+
+@pytest.mark.parametrize("name", ["A1_backward", "I1_windows"])
+def test_asof_route_kernels_match_plain(dev, name):
+    """Kernels F and B on the inputs chip_smoke.py's phase-13 query gave
+    them at 2^18 trades and quotes: A1's B over the run starts of the
+    2^19-row (symbol) layout of both sides, I1's two F sorts of the 1024
+    windows' (dead, hi, lo) words, each bit for bit against its plain
+    version; and the query's result against the smoke's numpy oracle."""
+    import chip_smoke as CS
+    rows = 1 << 18
+    td, qd = CS.make_trades_data(rows, 0), CS.make_quotes_data(rows, 0)
+    wd = CS.make_windows_data(0)
+    queries = {n: lf for n, lf, *_ in CS.asof_queries(
+        pt, *CS.asof_frames(pt, td, qd, wd, "cuda"))}
+    sorts, compactions = _recorded(queries[name])
+    if name == "I1_windows":
+        assert len(sorts) == 2 and not compactions
+        assert all(w[0][0].shape[0] == 1024 and w[1] == 3 for w in sorts)
+    else:
+        assert not sorts and compactions
+        assert compactions[0][0].shape[0] == 1 << 19
+    for words, nk, stable, perm_only in sorts:
+        want = TM.merge_sort_words_plain([w.cpu() for w in words], nk)
+        got = TM.merge_sort_words(words, nk, stable=stable,
+                                  perm_only=perm_only)
+        assert torch.equal(got[0].cpu(), want[nk])
+    for mask, words in compactions:
+        outs, cnt = TP.compact_words(mask, words)
+        wouts, wcnt = TP.compact_words_plain(mask.cpu(),
+                                             [w.cpu() for w in words])
+        k = int(cnt)
+        assert k == int(wcnt)
+        for o, w in zip(outs, wouts):
+            assert torch.equal(o[:k].cpu(), w[:k])
+    got = CS.host_columns(queries[name].collect())
+    want, valid, tol = CS.asof_oracle(name, td, qd, wd, got)
+    CS.compare_columns(name, got, want, valid, tol)
+
+
+@pytest.mark.parametrize("every", ["1mo", "1q", "1y"])
+def test_upsample_calendar_grid_on_card(dev, every):
+    """upsample with a calendar `every` on the card: the same grid as on
+    the CPU, each point whole months from the first."""
+    ts = np.array(["2024-01-31T09:30", "2024-05-31T09:30",
+                   "2026-12-31T09:30"], dtype="datetime64[us]")
+    cols = {"t": ts, "v": np.array([1, 2, 3])}
+    got = pt.DataFrame(cols, device="cuda").upsample("t", every=every)
+    want = pt.DataFrame(cols, device="cpu").upsample("t", every=every)
+    assert got.device.type == "cuda"
+    assert got.to_dict() == want.to_dict()
+    assert str(got.to_dict()["t"][1])[:10] == {
+        "1mo": "2024-02-29", "1q": "2024-04-30", "1y": "2025-01-31"}[every]

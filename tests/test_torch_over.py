@@ -409,13 +409,19 @@ def test_left_out_windows_raise(build, slice_):
 
 
 def test_iejoin_plan_node_names_its_slice():
+    """Slice D3 has landed: the executor runs an iejoin node (the pairs
+    held to numpy here, and to the JAX package in
+    tests/test_torch_iejoin.py)."""
     from polaroid_tpu_torch.exec import executor as X
     from polaroid_tpu_torch.plan import logical as L
-
-    class IEJoin(L.Plan):
-        kind = "iejoin"
-    with pytest.raises(NotImplementedError, match="Slice D3"):
-        X.execute(IEJoin.__new__(IEJoin))
+    a, b = np.arange(8), np.array([2, 5])
+    left = pt.DataFrame({"a": a}, device="cpu")._table
+    right = pt.DataFrame({"b": b}, device="cpu")._table
+    node = L.IEJoin(L.DataFrameScan(left), L.DataFrameScan(right),
+                    [(pt.col("a"), "lt", pt.col("b"))], [], "_right")
+    out = pt.DataFrame._from_table(X.execute(node)).to_dict()
+    want = sorted((i, j) for i in a for j in b if i < j)
+    assert sorted(zip(out["a"], out["b"])) == want
 
 
 # --- chip_smoke.py's phase 11 at 2 * 10^4 rows ------------------------------

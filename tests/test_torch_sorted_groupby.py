@@ -403,12 +403,12 @@ def test_hash_tier_median_sorts_once_more(monkeypatch):
 
 
 def test_expr_filter_outside_an_aggregation_raises():
-    """col(x).filter(pred) is ported inside a group-by aggregation; in a
-    select it would need the row compaction of Slice E, and raises
-    rather than return every row."""
+    """col(x).filter(pred) in a select: Slice E1 has landed, and the
+    select compacts to the rows where the predicate holds (it raised
+    before, rather than return every row)."""
     df = pt.DataFrame({"x": np.arange(6)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        df.select(pt.col("x").filter(pt.col("x") > 2))
+    out = df.select(pt.col("x").filter(pt.col("x") > 2))
+    assert out.to_dict() == {"x": [3, 4, 5]}
 
 
 @functools.lru_cache(maxsize=None)

@@ -266,6 +266,63 @@ def test_upsample_matches_jax():
     same(r.upsample("ts", every="15m"), t.upsample("ts", every="15m"))
 
 
+def _month_grid(start: pydt.datetime, end: pydt.datetime, months: int):
+    """start moved by k * months whole months (a day past the month's end
+    is its last day), for every k that stays at or before end."""
+    import calendar
+    out, k = [], 0
+    while True:
+        total = start.year * 12 + start.month - 1 + k * months
+        y, m = divmod(total, 12)
+        d = min(start.day, calendar.monthrange(y, m + 1)[1])
+        t = start.replace(year=y, month=m + 1, day=d)
+        if t > end:
+            return out
+        out.append(t)
+        k += 1
+
+
+@pytest.mark.parametrize("every,months", [("1mo", 1), ("1q", 3),
+                                          ("1y", 12)])
+@pytest.mark.parametrize("kind", ["datetime", "date"])
+def test_upsample_calendar_every_steps_whole_months(every, months, kind):
+    """A calendar `every` steps the first time by whole months, each point
+    from the first (day 31 or the month's last day), held to the
+    calendar: the JAX package steps a Datetime by 1 µs and a Date by one
+    day here (ROADMAP Queue 3)."""
+    start = pydt.datetime(2024, 1, 31, 9, 30)
+    end = pydt.datetime(2024, 12, 31, 9, 30) if months == 1 else \
+        pydt.datetime(2027, 2, 28, 9, 30)
+    if kind == "date":
+        start, end = start.replace(hour=0, minute=0), \
+            end.replace(hour=0, minute=0)
+    grid = _month_grid(start, end, months)
+    unit = "D" if kind == "date" else "us"
+    mid = grid[1] if len(grid) > 2 else grid[-1]
+    ts = np.array([start, mid, end], dtype=f"datetime64[{unit}]")
+    df = pt.DataFrame({"t": ts, "v": np.array([1, 2, 3])}, device="cpu")
+    out = df.upsample("t", every=every).to_dict()
+    want = np.array(grid, dtype=f"datetime64[{unit}]")
+    got = np.array(out["t"], dtype=f"datetime64[{unit}]")
+    assert np.array_equal(got, want)
+    if kind == "datetime" and months == 1:
+        assert len(got) == 12 and all(
+            g.day in (31, 29, 30) for g in grid)
+    v = {t: i + 1 for i, t in enumerate(ts.tolist())}
+    assert out["v"] == [v.get(t) for t in want.tolist()]
+
+
+def test_upsample_calendar_every_on_a_date_quarter_of_months():
+    """A Date column over 2024-01-31..04-30 by "1mo": four rows, not the
+    91 daily rows a fixed step gave."""
+    ts = np.array(["2024-01-31", "2024-04-30"], dtype="datetime64[D]")
+    df = pt.DataFrame({"t": ts, "v": np.array([1, 2])}, device="cpu")
+    out = df.upsample("t", every="1mo").to_dict()
+    assert [str(x) for x in out["t"]] == ["2024-01-31", "2024-02-29",
+                                          "2024-03-31", "2024-04-30"]
+    assert out["v"] == [1, None, None, 2]
+
+
 # ---------------------------------------------------------------------------
 # range windows by a companion column
 # ---------------------------------------------------------------------------
@@ -388,12 +445,17 @@ def test_left_out_parts_raise_naming_their_slice(data):
     cols, valid = data
     _, t = frames(cols, valid)
     c = pt.col
+    # Slice D3 has landed: the as-of and inequality joins run (held to
+    # the JAX package in tests/test_torch_asof.py and
+    # tests/test_torch_iejoin.py)
+    n = t.height
     for call in (lambda: t.join_asof(t, on="ts"),
-                 lambda: t.lazy().join_asof(t.lazy(), on="ts"),
-                 lambda: t.join_where(t, c("i") < c("i")),
-                 lambda: t.lazy().join_where(t.lazy(), c("i") < c("i"))):
-        with pytest.raises(NotImplementedError, match="Slice D3"):
-            call()
+                 lambda: t.lazy().join_asof(t.lazy(), on="ts").collect()):
+        assert call().height == n
+    for call in (lambda: t.join_where(t, c("i") < c("i")),
+                 lambda: t.lazy().join_where(t.lazy(), c("i") < c("i"))
+                 .collect()):
+        assert call().height == 0
     for call in (
             lambda: t.group_by("symbol").agg(
                 pt.when(c("price") > 1).then(1).otherwise(0).alias("x")),
