@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run polaroid_tpu_torch on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py [--seed 0] [--rows 8388608] [--reps 5]
+    python3 chip_smoke.py [--seed 0] [--rows 8388608] [--reps 5] [--only-taq]
 
 Phases:
 1. the card (name and power limit from nvidia-smi) and a fresh build of
@@ -96,6 +96,24 @@ Phases:
    of kernels F, B and A asserted, timed and traced the same way, with
    the host ms of each query's first collect. Phase 2 also holds F, B
    and A on the inputs of every launch of that first collect.
+
+14. strings and nested columns, on the trades of phase 12 with the
+   string columns of a NYSE Daily TAQ trade record (a ticker per symbol,
+   3% with a share class; the exchange code, FINRA's "D" on about 35%;
+   the 4-character sale condition; the session date as text), drawn
+   from seed + 7 as numpy fixed-width unicode arrays, the frame's build
+   timed: P1 volume by (day, venue) over concat_str, str.contains and
+   str.strptime after a filter, P2 symbol normalisation (split, extract,
+   replace, len_chars, a Float32 price to String and back), L1 per-symbol
+   price, volume, venue and (ts, price) struct lists (implode) with list
+   len/max/mean/last/n_unique, L2 sale-condition codes (extract_all ->
+   explode -> group_by), L3 L1 exploded back to rows and unnested, each
+   against a numpy oracle, with the launches of kernels F, B, A, C and E
+   asserted, timed and traced the same way, with the host ms of each
+   query's first collect. Phase 2 also holds A, B, C, E and F on the
+   inputs of every launch of that first collect (C on those of every
+   phase from 9 on). `--only-taq` runs the build, those checks and
+   phase 14 alone, and prints no result line.
 
 The line before the last lists every ported kernel with its numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check raises,
@@ -472,6 +490,38 @@ def check_seg_minmax(args, torch, TK, data, is_max):
     return out
 
 
+def compare_seg_minmax(args, torch, TK, x, gid, G, is_max, ident):
+    """Kernel C on inputs a query gave it, bit for bit against its plain
+    version, with its time, the plain version's, one scatter_reduce_
+    (the library call) and the bound: x and gid read once, G values
+    written once."""
+    from polaroid_tpu_torch.ops.segment import SPILL, spill_slots
+    got = TK.seg_minmax(x, gid, G, is_max, ident)
+    want = TK.seg_minmax_plain(x, gid, G, is_max, ident)
+    kt = {torch.float32: torch.int32, torch.float64: torch.int64}.get(
+        x.dtype, x.dtype)
+    assert torch.equal(got.view(kt), want.view(kt)), \
+        "seg_minmax differs from its plain version on a query's input"
+    n = x.shape[0]
+    idx = torch.where((gid >= 0) & (gid < G), gid.long(),
+                      spill_slots(n, G, x.device))
+    buf = torch.full((G + SPILL,), ident, dtype=x.dtype, device=x.device)
+    red = "amax" if is_max else "amin"
+    nbytes = n * (4 + x.element_size()) + G * x.element_size()
+    return {
+        "kernel": "seg_minmax", "n": n, "G": G, "dtype": str(x.dtype),
+        "is_max": is_max, "max_abs_err": max_abs_err(got, want),
+        "kernel_ms": cuda_ms(lambda: TK.seg_minmax(x, gid, G, is_max,
+                                                   ident), args.reps),
+        "plain_ms": cuda_ms(lambda: TK.seg_minmax_plain(x, gid, G, is_max,
+                                                        ident), args.reps),
+        "library_ms": cuda_ms(lambda: buf.scatter_reduce_(0, idx, x, red),
+                              args.reps),
+        "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, n / F32_OPS_PER_S),
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >=
+        n / F32_OPS_PER_S else "operations"}
+
+
 def check_gather(args, torch, TK):
     """Kernel D: an f64 table of G = 1024 group means gathered to
     --rows rows, about 20% of the ids outside [0, G); bit for bit."""
@@ -810,34 +860,39 @@ def compare_merge_sort(args, torch, TM, words, nk, stable=True,
 
 
 def record_kernel_inputs(torch, TK, TE, TM, TP, lf):
-    """The inputs of every launch of kernels A, E, F and B in one collect
-    of `lf` (the wrappers' RECORD lists): [(vals, gid, G)], [(starts,
-    counts, words, fills)], [(words, num_keys, stable, perm_only)] and
-    [(mask, words)], and the host ms of that collect, fenced."""
+    """The inputs of every launch of kernels A, E, F, B and C in one
+    collect of `lf` (the wrappers' RECORD lists): [(vals, gid, G)],
+    [(starts, counts, words, fills)], [(words, num_keys, stable,
+    perm_only)], [(mask, words)] and [(x, gid, G, is_max, identity)],
+    and the host ms of that collect, fenced."""
     TK.RECORD, TE.RECORD, TM.RECORD, TP.RECORD = [], [], [], []
+    TK.MINMAX_RECORD = []
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lf.collect()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        return TK.RECORD, TE.RECORD, TM.RECORD, TP.RECORD, ms
+        return (TK.RECORD, TE.RECORD, TM.RECORD, TP.RECORD,
+                TK.MINMAX_RECORD, ms)
     finally:
         TK.RECORD = TE.RECORD = TM.RECORD = TP.RECORD = None
+        TK.MINMAX_RECORD = None
 
 
 def check_recorded_kernels(args, torch, TK, TE, TM, TP, queries):
-    """Kernels A, E, F and B at the shapes the queries give them: every
-    launch of one collect of each (name, lazy frame), on the inputs that
-    collect gave it, held against the plain version (compare_seg_sum,
-    compare_exchange, compare_merge_sort, compare_compact); returns
-    ({kernel: {"query#i": numbers}}, {query: host ms of that collect,
-    the first of its frames when no collect of them came before})."""
+    """Kernels A, E, F, B and C at the shapes the queries give them:
+    every launch of one collect of each (name, lazy frame), on the
+    inputs that collect gave it, held against the plain version
+    (compare_seg_sum, compare_exchange, compare_merge_sort,
+    compare_compact, compare_seg_minmax); returns ({kernel: {"query#i":
+    numbers}}, {query: host ms of that collect, the first of its frames
+    when no collect of them came before})."""
     out = {"seg_sum": {}, "bucket_exchange": {}, "merge_sort": {},
-           "compact_words": {}}
+           "compact_words": {}, "seg_minmax": {}}
     first_ms = {}
     for name, lf in queries:
-        sums, exchanges, sorts, compactions, first_ms[name] = \
+        sums, exchanges, sorts, compactions, extremes, first_ms[name] = \
             record_kernel_inputs(torch, TK, TE, TM, TP, lf)
         checks = [("seg_sum", a, lambda a: compare_seg_sum(
             args, torch, TK, *a)) for a in sums] + \
@@ -846,7 +901,9 @@ def check_recorded_kernels(args, torch, TK, TE, TM, TP, queries):
             [("merge_sort", x, lambda x: compare_merge_sort(
                 args, torch, TM, *x)) for x in sorts] + \
             [("compact_words", c, lambda c: compare_compact(
-                args, torch, TP, *c)) for c in compactions]
+                args, torch, TP, *c)) for c in compactions] + \
+            [("seg_minmax", m, lambda m: compare_seg_minmax(
+                args, torch, TK, *m)) for m in extremes]
         seen = {}
         for kernel, inputs, check in checks:
             i = seen[kernel] = seen.get(kernel, -1) + 1
@@ -854,7 +911,7 @@ def check_recorded_kernels(args, torch, TK, TE, TM, TP, queries):
             out[kernel][f"{name}#{i}"] = m
             print(json.dumps({"phase": "kernel", "shape": f"{name}#{i}",
                               **m}))
-        del sums, exchanges, sorts, compactions, checks
+        del sums, exchanges, sorts, compactions, extremes, checks
     return out, first_ms
 
 
@@ -2603,11 +2660,419 @@ def check_lookup_join(args, torch, TE):
             "traces_taken": ex["traces_taken"]}
 
 
+# --- phase 14: strings and nested columns ------------------------------------
+
+# 16 participant codes of the NYSE Daily TAQ trade file's Exchange field;
+# "D" is FINRA's trade reporting facility, which prints about 35% of trades
+VENUE_CODES = "ABCDHIJKLMNPUVXZ"
+TRF_SHARE = 0.35
+SUFFIX_SHARE = 0.03     # tickers with a share class, as in "BRK A"
+SWEEP_SHARE = 0.30      # "F" (intermarket sweep) in the condition's slot 2
+EXT_SHARE = 0.03        # "T" or "U" (extended hours) in slot 3
+ODD_SHARE = 0.45        # "I" (odd lot) in slot 4
+TAQ_CODES = "@FTUI"     # what the condition's slots can hold, blank aside
+
+
+def make_taq_data(rows: int, seed: int):
+    """Phase 12's trades (make_trades_data) plus the string columns of a
+    NYSE Daily TAQ trade record, drawn from seed + 7 as fixed-width numpy
+    unicode arrays: sym, each symbol's ticker (a unique root of 1-4
+    capital letters, 3% with a share class, "BRK A"); ex, the exchange
+    code (16 codes, "D" on about 35% of prints); cond, the 4-character
+    sale condition ("@" or blank in each slot, "F" in slot 2 on 30%, "T"
+    or "U" in slot 3 on 3%, "I" in slot 4 on 45% of prints); date, the
+    session's New York date as "YYYYMMDD". The draws (sym_id, ex_id,
+    the condition's code points, the session) stay for the oracles."""
+    import numpy as np
+    data = make_trades_data(rows, seed)
+    rng = np.random.default_rng(seed + 7)
+    roots, seen = [], set()
+    while len(roots) < N_SYMBOLS:
+        k = int(rng.choice(4, p=[0.02, 0.18, 0.40, 0.40])) + 1
+        r = "".join(chr(65 + c) for c in rng.integers(0, 26, k))
+        if r not in seen:
+            seen.add(r)
+            roots.append(r)
+    has_cls = rng.random(N_SYMBOLS) < SUFFIX_SHARE
+    cls = np.array(["AB"[c] for c in rng.integers(0, 2, N_SYMBOLS)])
+    tickers = np.array([r + (" " + c if h else "")
+                        for r, h, c in zip(roots, has_cls, cls)])
+    p = np.full(len(VENUE_CODES), (1 - TRF_SHARE) / (len(VENUE_CODES) - 1))
+    p[VENUE_CODES.index("D")] = TRF_SHARE
+    ex_id = rng.choice(len(VENUE_CODES), rows, p=p)
+    cp = np.where(rng.random((rows, 4)) < 0.5, ord("@"), ord(" ")) \
+        .astype(np.uint32)
+    cp[:, 1] = np.where(rng.random(rows) < SWEEP_SHARE, ord("F"), cp[:, 1])
+    tu = np.where(rng.random(rows) < 0.5, ord("T"), ord("U"))
+    cp[:, 2] = np.where(rng.random(rows) < EXT_SHARE, tu, cp[:, 2])
+    cp[:, 3] = np.where(rng.random(rows) < ODD_SHARE, ord("I"), cp[:, 3])
+    opens = np.array(SESSION_OPENS, dtype="datetime64[us]").astype(np.int64)
+    session = np.searchsorted(opens, data["ts"], "right") - 1
+    days = np.array([d[:10].replace("-", "") for d in SESSION_OPENS])
+    sym_id = data.pop("symbol").astype(np.int64)
+    data.update(
+        sym=tickers[sym_id], ex=np.array(list(VENUE_CODES))[ex_id],
+        cond=np.ascontiguousarray(cp).view("<U4").ravel(),
+        date=days[session])
+    extra = {"sym_id": sym_id, "ex_id": ex_id, "cp": cp,
+             "session": session, "tickers": tickers,
+             "roots": np.array(roots), "has_cls": has_cls, "cls": cls}
+    return data, extra
+
+
+def taq_frame(pl, data, device="cuda"):
+    """The trades with their TAQ strings: sym, ex, cond, date, price,
+    volume, ts."""
+    cols = {k: data[k] for k in ("sym", "ex", "cond", "date", "price",
+                                 "volume")}
+    cols["ts"] = data["ts"].astype("datetime64[us]")
+    return pl.DataFrame(cols, device=device)
+
+
+def taq_queries(pl, df):
+    """(name, lazy frame, kernels it must launch, kernels it must not) of
+    phase 14: P1 volume by venue and day, P2 symbol normalisation, L1
+    per-symbol sequences (implode), L2 sale-condition codes (explode), L3
+    L1 back to rows. The kernels: F merge_sort, B compact_words, A
+    seg_sum, C seg_minmax, E bucket_exchange."""
+    c = pl.col
+    p1 = (df.lazy()
+          .with_columns(
+              venue=pl.concat_str([c("sym"), c("ex")], separator="."),
+              odd=c("cond").str.contains("I", literal=True),
+              ext=c("cond").str.contains("[TU]"),
+              day=c("date").str.strptime(pl.Date, "%Y%m%d"))
+          .filter(~c("ext") & ~c("odd"))
+          .group_by(["day", "venue"])
+          .agg(pl.len().alias("n"), c("volume").sum().alias("volume"),
+               c("price").mean().alias("price")))
+    px = c("price").round(2).cast(pl.String)
+    p2 = df.lazy().select(
+        root=c("sym").str.split(" ").list.first(),
+        cls=c("sym").str.extract(r" (\w)$", 1),
+        ticker=c("sym").str.replace(" ", ".", literal=True)
+        .str.to_lowercase(),
+        nch=c("sym").str.len_chars(),
+        px=px, back=px.cast(pl.Float64))
+    l1 = (df.lazy()
+          .with_columns(ticks=pl.struct(["ts", "price"]))
+          .group_by("sym", maintain_order=True)
+          .agg(c("price"), c("volume"), c("ex").alias("venues"), c("ticks"))
+          .with_columns(n=c("price").list.len(), hi=c("price").list.max(),
+                        m=c("price").list.mean(),
+                        last=c("price").list.last(),
+                        nv=c("venues").list.n_unique()))
+    l2 = (df.lazy()
+          .with_columns(codes=c("cond").str.extract_all(r"[^ ]"))
+          .explode("codes")
+          .group_by("codes")
+          .agg(pl.len().alias("n"), c("volume").sum().alias("volume")))
+    # the struct's price field would meet the price list's name when
+    # unnested, which polars refuses: the list comes back as px
+    l3 = (l1.select("sym", c("price").alias("px"), "volume", "ticks")
+          .explode(["px", "volume", "ticks"])
+          .unnest("ticks"))
+    kernels = ("merge_sort", "compact_words", "seg_sum", "seg_minmax",
+               "bucket_exchange")
+
+    def never(*must):
+        return tuple(k for k in kernels if k not in must)
+    return [("P1", p1, ("merge_sort", "compact_words"),
+             never("merge_sort", "compact_words")),
+            ("P2", p2, (), never()),
+            ("L1", l1, ("seg_sum", "seg_minmax"),
+             never("seg_sum", "seg_minmax")),
+            ("L2", l2, ("seg_sum", "compact_words"),
+             never("seg_sum", "compact_words")),
+            ("L3", l3, ("seg_sum", "seg_minmax"),
+             never("seg_sum", "seg_minmax"))]
+
+
+def _taq_cols(out):
+    """A collected frame's columns on the host: flat ones as (values,
+    validity or None); String ones with their dictionary's strings as a
+    third item; List ones as {"data", "lengths", "elem_valid",
+    "validity", "values"} (2-D data); List(Struct) ones with "fields",
+    one such dict per field."""
+    t = out._table
+    n = t.count_rows()
+
+    def h(x):
+        return None if x is None else x[:n].cpu().numpy()
+
+    def one(c):
+        if c.lengths is not None:
+            d = {"lengths": h(c.lengths), "elem_valid": h(c.elem_valid),
+                 "validity": h(c.validity),
+                 "values": None if c.sdict is None else c.sdict.values}
+            if c.fields is not None:
+                d["fields"] = {k: one(f) for k, f in c.fields.items()}
+            else:
+                d["data"] = h(c.data)
+            return d
+        if c.dtype.is_string:
+            return h(c.data), h(c.validity), c.sdict.values
+        return h(c.data), h(c.validity)
+    return {k: one(c) for k, c in t.cols.items()}
+
+
+def _codes_of(values, strings):
+    """The codes of `strings` in a sorted dictionary's `values` (every
+    string must be there)."""
+    import numpy as np
+    values = np.asarray(values, dtype=object)
+    idx = np.searchsorted(values, strings)
+    assert (idx < len(values)).all() and \
+        (values[np.minimum(idx, len(values) - 1)] == strings).all(), \
+        "a string is missing from the dictionary"
+    return idx
+
+
+def _codes_at(values, strings, ids):
+    """_codes_of(values, strings[ids]), looking up each distinct id once
+    (only the strings a result holds are in its dictionary)."""
+    import numpy as np
+    u, inv = np.unique(ids, return_inverse=True)
+    return _codes_of(values, strings[u])[inv]
+
+
+def _flat_lists(col):
+    """A List column's elements in row order, concatenated (2-D data
+    read row by row inside each length)."""
+    import numpy as np
+    d = col["data"]
+    inside = np.arange(d.shape[1])[None, :] < col["lengths"][:, None]
+    assert col["validity"] is None or col["validity"].all(), "null list"
+    assert col["elem_valid"] is None or col["elem_valid"][inside].all(), \
+        "null element"
+    return d[inside]
+
+
+def _same(name, k, got, want):
+    import numpy as np
+    assert got.shape == want.shape, \
+        f"{name}: {k} has {got.shape}, want {want.shape}"
+    u = f"u{want.dtype.itemsize}"
+    if got.dtype.kind == "f" or want.dtype.kind == "f":
+        assert got.dtype == want.dtype and np.array_equal(
+            got.view(u), want.view(u)), f"{name}: {k} differs"
+    else:
+        assert np.array_equal(got.astype(np.int64), want.astype(np.int64)), \
+            f"{name}: {k} differs"
+
+
+def _fmt_float(x: float) -> str:
+    """A float as the cast to String writes it (the JAX package's
+    `_fmt_float`)."""
+    if x == int(x) and abs(x) < 1e15:
+        return f"{x:.1f}"
+    return repr(float(x))
+
+
+def taq_oracle(name, got, d, x):
+    """Hold one phase-14 result (_taq_cols) against numpy: strings,
+    counts, integer sums, list lengths and elements, maxima and lasts bit
+    for bit; f64 means within rtol 1e-12, P1's Float32 mean within one
+    ulp of the f64 mean; `back` equal to round(price, 2). Returns (rows
+    out, the largest relative error of each inexact column)."""
+    import numpy as np
+    price, volume = d["price"], d["volume"].astype(np.int64)
+    errs = {}
+    if name == "P1":
+        cp = x["cp"]
+        keep = (cp[:, 3] != ord("I")) & ~np.isin(cp[:, 2], [ord("T"),
+                                                           ord("U")])
+        nv = len(VENUE_CODES)
+        key = (x["session"] * N_SYMBOLS + x["sym_id"]) * nv + x["ex_id"]
+        uk, inv, cnt = np.unique(key[keep], return_inverse=True,
+                                 return_counts=True)
+        vol = np.bincount(inv, weights=volume[keep], minlength=len(uk))
+        mean = np.bincount(inv, weights=price[keep].astype(np.float64),
+                           minlength=len(uk)) / cnt
+        days, _ = got["day"]
+        vcodes, _, vvals = got["venue"]
+        sess_of_day = {int(v): i for i, v in enumerate(
+            np.array([s[:10] for s in SESSION_OPENS], dtype="datetime64[D]")
+            .astype(np.int64))}
+        tick_id = {t: i for i, t in enumerate(x["tickers"])}
+        vkey = np.array([tick_id[s.rsplit(".", 1)[0]] * nv +
+                         VENUE_CODES.index(s.rsplit(".", 1)[1])
+                         for s in vvals], dtype=np.int64)
+        gkey = np.array([sess_of_day[int(v)] for v in days]) \
+            * (N_SYMBOLS * nv) + vkey[vcodes]
+        order = np.argsort(gkey)
+        _same(name, "keys", gkey[order], uk)
+        _same(name, "n", got["n"][0][order], cnt)
+        _same(name, "volume", got["volume"][0][order], vol.astype(np.int64))
+        g = got["price"][0][order]
+        assert g.dtype == np.float32
+        err = np.abs(g.astype(np.float64) - mean)
+        assert (err <= np.spacing(np.abs(mean.astype(np.float32)))).all(), \
+            f"{name}: price outside one f32 ulp"
+        errs["price"] = float((err / np.abs(mean)).max())
+        return len(uk), errs
+    sym_id = x["sym_id"]
+    if name == "P2":
+        tick = x["tickers"]
+        want = {"root": x["roots"],
+                "ticker": np.array([t.replace(" ", ".").lower()
+                                    for t in tick])}
+        for k, w in want.items():
+            codes, valid, vals = got[k]
+            assert valid is None or valid.all(), f"{name}: {k} has nulls"
+            _same(name, k, codes, _codes_at(vals, w, sym_id))
+        codes, valid, vals = got["cls"]
+        has = x["has_cls"][sym_id]
+        assert valid is not None and np.array_equal(valid, has), \
+            f"{name}: the nulls of cls differ"
+        _same(name, "cls", codes[has], _codes_at(vals, x["cls"], sym_id[has]))
+        _same(name, "nch", got["nch"][0],
+              np.array([len(t) for t in tick])[sym_id])
+        back = np.round(price, 2).astype(np.float64)
+        _same(name, "back", got["back"][0], back)
+        codes, _, vals = got["px"]
+        lut = np.array([float(s) for s in vals])
+        assert all(_fmt_float(v) == s for v, s in zip(lut, vals)), \
+            f"{name}: a px string is not its value's"
+        _same(name, "px", lut[codes], back)
+        return len(sym_id), errs
+    first = np.unique(sym_id, return_index=True)[1]
+    order = np.unique(sym_id)[np.argsort(first)]      # by first appearance
+    rank = np.empty(N_SYMBOLS, np.int64)
+    rank[order] = np.arange(len(order))
+    perm = np.argsort(rank[sym_id], kind="stable")
+    counts = np.bincount(rank[sym_id], minlength=len(order))
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    tick = x["tickers"]
+    if name == "L1":
+        codes, _, vals = got["sym"]
+        _same(name, "sym", codes, _codes_of(vals, tick[order]))
+        for k, src in (("price", price), ("volume", d["volume"])):
+            _same(name, k + " lengths", got[k]["lengths"], counts)
+            _same(name, k, _flat_lists(got[k]), src[perm])
+        ven = got["venues"]
+        _same(name, "venues", _flat_lists(ven), _codes_of(
+            ven["values"], np.array(list(VENUE_CODES)))[x["ex_id"][perm]])
+        ticks = got["ticks"]
+        _same(name, "ticks lengths", ticks["lengths"], counts)
+        _same(name, "ticks.ts", _flat_lists(ticks["fields"]["ts"]),
+              d["ts"][perm])
+        _same(name, "ticks.price", _flat_lists(ticks["fields"]["price"]),
+              price[perm])
+        ps = price[perm]
+        _same(name, "n", got["n"][0], counts)
+        _same(name, "hi", got["hi"][0], np.maximum.reduceat(ps, starts))
+        _same(name, "last", got["last"][0], ps[starts + counts - 1])
+        mean = np.add.reduceat(ps.astype(np.float64), starts) / counts
+        err = np.abs(got["m"][0] - mean) / np.abs(mean)
+        assert (err <= 1e-12).all(), f"{name}: m outside rtol 1e-12"
+        errs["m"] = float(err.max())
+        pairs = np.unique(rank[sym_id] * len(VENUE_CODES) + x["ex_id"])
+        _same(name, "nv", got["nv"][0],
+              np.bincount(pairs // len(VENUE_CODES), minlength=len(order)))
+        return len(order), errs
+    if name == "L2":
+        cp = x["cp"]
+        codes, valid, vals = got["codes"]
+        n, vol = got["n"][0], got["volume"][0]
+        seen = {}
+        for i in range(len(codes)):
+            key = None if valid is not None and not valid[i] \
+                else vals[codes[i]]
+            seen[key] = (int(n[i]), int(vol[i]))
+        want = {}
+        for ch in TAQ_CODES:
+            hit = cp == ord(ch)
+            if hit.any():
+                want[ch] = (int(hit.sum()),
+                            int((hit * volume[:, None]).sum()))
+        empty = (cp == ord(" ")).all(axis=1)
+        if empty.any():
+            want[None] = (int(empty.sum()), int(volume[empty].sum()))
+        assert seen == want, f"{name}: {seen} != {want}"
+        return len(want), errs
+    # L3: the trades stably sorted by their symbol's first appearance
+    codes, _, vals = got["sym"]
+    _same(name, "sym", codes, _codes_at(vals, tick, sym_id[perm]))
+    _same(name, "px", got["px"][0], price[perm])
+    _same(name, "volume", got["volume"][0], d["volume"][perm])
+    _same(name, "ts", got["ts"][0], d["ts"][perm])
+    _same(name, "price", got["price"][0], price[perm])
+    for k in ("px", "volume", "ts", "price"):
+        assert got[k][1] is None or got[k][1].all(), f"{name}: {k} nulls"
+    return len(sym_id), errs
+
+
+def make_taq(args, torch, pl):
+    """Phase 14's data, its frame on the card (the build timed, fenced:
+    the string columns' dictionary encode and the copies) and queries."""
+    d, x = make_taq_data(args.rows, args.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    df = taq_frame(pl, d)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    return {"data": d, "draws": x, "frame": df, "build_ms": build_ms,
+            "queries": taq_queries(pl, df)}
+
+
+def run_taq_only(args, torch, pl, TK, TP, TE, TH, TM):
+    """--only-taq: phase 2 on phase 14's launches, then phase 14."""
+    taq = make_taq(args, torch, pl)
+    _, first_ms = check_recorded_kernels(
+        args, torch, TK, TE, TM, TP,
+        [(name, lf) for name, lf, *_ in taq["queries"]])
+    run_taq_phase(args, torch, TK, TP, TE, TH, TM, taq["queries"],
+                  taq["data"], taq["draws"], first_ms, taq["build_ms"], [])
+
+
+def run_taq_phase(args, torch, TK, TP, TE, TH, TM, queries, d, x,
+                  first_ms, build_ms, runs):
+    """Phase 14: every query's collect with its launches asserted, its
+    result copied to the host, a trace and the timed collects; then the
+    numpy oracles."""
+    results = []
+    for name, lfq, must, never in queries:
+        reset_launches(TK, TP, TE, TH, TM)
+        out = lfq.collect()
+        ql = read_launches(TK, TP, TE, TH, TM)
+        for kernel in must:
+            assert ql[kernel] >= 1, f"{name} did not launch {kernel}"
+        for kernel in never:
+            assert ql[kernel] == 0, f"{name} launched {kernel}"
+        assert ql["fallbacks"] == 0, f"{name} took the fallback"
+        runs.append(ql)
+        got = _taq_cols(out)
+        del out
+        tr = trace_collect(lfq, top_n=8)
+        times = time_collects(lfq, args.reps)
+        results.append((name, got, ql, times, tr))
+    for name, got, ql, times, tr in results:
+        nout, errs = taq_oracle(name, got, d, x)
+        med = statistics.median(times)
+        print(json.dumps({
+            "phase": "taq", "query": name, "trades": len(d["ts"]),
+            "frame_build_ms": build_ms, "out_rows": nout,
+            "launches": {"F": ql["merge_sort"], "B": ql["compact_words"],
+                         "A": ql["seg_sum"], "C": ql["seg_minmax"],
+                         "E": ql["bucket_exchange"]},
+            "largest_rel_error": errs,
+            "first_collect_ms": first_ms.get(name), "median_ms": med,
+            "ms": times, "busy_ms": tr["device_busy_ms"],
+            "device_ops": tr["device_ops"],
+            "idle_share": 1 - tr["device_busy_ms"] / med
+            if tr["device_ops"] else None,
+            "top_op": tr["top"][0] if tr["top"] else None, "trace": tr}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=1 << 23)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only-taq", action="store_true",
+                    help="build, then phase 2 on phase 14's launches and "
+                    "phase 14 alone; prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -2643,6 +3108,10 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "sources": [f"polaroid_tpu_torch/csrc/{s}.cu"
                                   for s in B.SOURCES]}))
+
+    if args.only_taq:
+        run_taq_only(args, torch, pl, TK, TP, TE, TH, TM)
+        return 0
 
     # phase 10's data, made before the first trace: on the H100 hosts this
     # script was measured on, a trace taken more than several seconds
@@ -2732,6 +3201,14 @@ def main() -> int:
     shapes, asof_first_ms = check_recorded_kernels(
         args, torch, TK, TE, TM, TP,
         [(name, lf) for name, lf, *_ in aqueries])
+    for kernel, by_shape in shapes.items():
+        recorded[kernel].update(by_shape)
+    # kernels F, B, A and C at every shape that phase 14's string and
+    # nested queries give them (each query's first collect, as above)
+    taq = make_taq(args, torch, pl)
+    shapes, taq_first_ms = check_recorded_kernels(
+        args, torch, TK, TE, TM, TP,
+        [(name, lf) for name, lf, *_ in taq["queries"]])
     for kernel, by_shape in shapes.items():
         recorded[kernel].update(by_shape)
     lookup = check_lookup_join(args, torch, TE)
@@ -2947,6 +3424,12 @@ def main() -> int:
                    wdata, asof_first_ms, runs)
     del aqueries
 
+    # --- 14. strings and nested columns on the TAQ trades ------------------
+    run_taq_phase(args, torch, TK, TP, TE, TH, TM, taq["queries"],
+                  taq["data"], taq["draws"], taq_first_ms, taq["build_ms"],
+                  runs)
+    del taq
+
     # --- result ---------------------------------------------------------------
     def launches(name):
         return sum(r[name] for r in runs)
@@ -2989,11 +3472,14 @@ def main() -> int:
                       "polaroid_tpu/ops/pallas_kernels.py:120", seg)
     for shape, m in recorded["seg_sum"].items():
         seg_entry[shape] = shape_entry(m)
+    minmax_entry = entry("seg_minmax", "seg_minmax.cu",
+                         "polaroid_tpu/ops/pallas_kernels.py:177", mm_max)
+    for shape, m in recorded["seg_minmax"].items():
+        minmax_entry[shape] = shape_entry(m)
     kernels = [
         seg_entry,
         compact_entry,
-        entry("seg_minmax", "seg_minmax.cu",
-              "polaroid_tpu/ops/pallas_kernels.py:177", mm_max),
+        minmax_entry,
         entry("gather", "gather.cu",
               "polaroid_tpu/ops/pallas_kernels.py:231", gat),
         exch_entry,

@@ -17,7 +17,9 @@ namespace with time zones, range windows (`rolling_*_by`),
 functions of `timeseries`, the as-of and inequality joins (`join_asof`,
 `join_where`), and the select context: aggregates over the whole column,
 the unary math, `clip`, `is_in`, `is_between`, `sort_by` and the frame
-reductions. The rest of the JAX package's surface comes with later
+reductions, and strings and nested columns: the `str`, `bin`, `list`
+and `struct` namespaces, String casts, `concat_str`, List and Struct
+columns, `implode`, `explode` and `unnest`. The rest of the JAX package's surface comes with later
 slices (see ROADMAP.md).
 """
 
@@ -42,7 +44,10 @@ from .api.functions import concat, corr, cov, from_dict, rolling_corr, \
 from .api.functions import date, date_range, date_ranges, datetime, \
     datetime_range, datetime_ranges, duration, from_epoch, time, \
     time_range, time_ranges  # noqa: E402
-from .dtypes import Time  # noqa: E402
+from .api.functions import concat_list, concat_str, element, \
+    escape_regex, field, format, implode, int_ranges, struct  # noqa: E402
+from .dtypes import Array, Binary, Categorical, Enum, Field, List, \
+    Struct, Time  # noqa: E402
 from . import exceptions, testing, timeseries  # noqa: E402
 
 __version__ = "0.1.0"
@@ -53,7 +58,10 @@ __all__ = [
     "rolling_cov", "rolling_corr", "when", "date", "date_range",
     "date_ranges", "datetime", "datetime_range", "datetime_ranges",
     "duration", "from_epoch", "time", "time_range", "time_ranges",
-    "timeseries", "Time", "exceptions",
+    "timeseries", "Time", "exceptions", "concat_list", "concat_str",
+    "element", "escape_regex", "field", "format", "implode", "int_ranges",
+    "struct", "Array", "Binary", "Categorical", "Enum", "Field", "List",
+    "Struct",
     "Int8", "Int16", "Int32", "Int64", "UInt8", "UInt16", "UInt32", "UInt64",
     "Float32", "Float64", "Boolean", "String", "Utf8", "Date", "Datetime",
     "Duration", "Null", "DataType",

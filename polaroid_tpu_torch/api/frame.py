@@ -70,6 +70,65 @@ def _per_key(flag, nk: int) -> List[bool]:
     return list(flag) if isinstance(flag, (list, tuple)) else [flag] * nk
 
 
+def _column_names(columns) -> List[str]:
+    """Column names from names, expressions and lists of them."""
+    flat = []
+    for c in columns:
+        flat.extend(c if isinstance(c, (list, tuple)) else [c])
+    return [c.attrs["name"] if isinstance(c, Expr) else c for c in flat]
+
+
+def unnest_schema(schema: Dict[str, DataType], columns) -> Dict:
+    from ..dtypes import Struct as StructT
+    from ..errors import SchemaError
+    out = {}
+    for n, dt in schema.items():
+        if n not in columns:
+            pairs = [(n, dt)]
+        elif not isinstance(dt, StructT):
+            raise SchemaError(f"unnest: {n!r} is {dt!r}, not a Struct")
+        else:
+            pairs = dt.fields
+        for fn, fdt in pairs:
+            if fn in out:
+                raise DuplicateError(
+                    f"unnest: column {fn!r} occurs more than once")
+            out[fn] = fdt
+    return out
+
+
+def unnest_table(t: Table, columns) -> Table:
+    """Struct columns replaced by their fields in place (a null struct
+    makes its fields null); a field name that meets another column's
+    raises, as in polars."""
+    from ..errors import SchemaError
+    names, cols = [], {}
+    for n in t.names:
+        c = t.cols[n]
+        if n not in columns:
+            parts = [(n, c)]
+        elif c.fields is None or c.lengths is not None:
+            raise SchemaError(f"unnest: {n!r} is {c.dtype!r}, not a Struct")
+        else:
+            parts = []
+            for fn, f in c.fields.items():
+                if c.validity is not None:
+                    fv = c.validity if f.validity is None \
+                        else f.validity & c.validity
+                    f = Column(f.dtype, f.data, fv, f.sdict,
+                               lengths=f.lengths, elem_valid=f.elem_valid,
+                               fields=f.fields)
+                parts.append((fn, f))
+        for fn, f in parts:
+            if fn in cols:
+                raise DuplicateError(
+                    f"unnest: column {fn!r} occurs more than once")
+            names.append(fn)
+            cols[fn] = f
+    return Table(names, cols, t.capacity, t._nrows, t.valid,
+                 nrows_dev=t.nrows_dev, device=t.device)
+
+
 def _table_of_series(series) -> Table:
     """A frame's table from Series of one length, each column grown to
     the largest capacity among them."""
@@ -164,6 +223,21 @@ class DataFrame:
     # --- expression contexts --------------------------------------------
     def select(self, *exprs, **named_exprs) -> "DataFrame":
         es = meta.expand_exprs(_to_exprs(exprs, named_exprs), self.schema)
+        stripped, explode_names = [], []
+        for e in es:
+            e2, hit = meta.strip_top_explode(e)
+            stripped.append(e2)
+            if hit:
+                explode_names.append(meta.output_name(e2))
+        if explode_names:
+            return self.select(*stripped).explode(explode_names)
+        if len(es) == 1:
+            e0 = es[0]
+            while e0.kind == "alias":
+                e0 = e0.children[0]
+            if e0.kind == "struct_unnest":
+                inner = self.select(e0.children[0])
+                return inner.unnest(inner.columns[0])
         t = self._table
         results = []
         for e in es:
@@ -178,7 +252,8 @@ class DataFrame:
             return DataFrame._from_table(
                 Table([], {}, capacity_for(0), 0, None, device=t.device))
         any_row = any(not s for _, _, s in results)
-        if any(not isinstance(v, Column) and v.live is not None
+        if any(not isinstance(v, Column) and (
+                v.live is not None or v.rows > t.capacity)
                for _, v, _ in results):
             return self._select_compacted(results)
         cap = t.capacity if any_row else capacity_for(1)
@@ -203,18 +278,24 @@ class DataFrame:
         from ..errors import ShapeError
         t = self._table
         base = t.row_mask()
+        # a list literal may carry more rows than the frame holds
+        cap = max([t.capacity] + [v.rows for _, v, s in results
+                                  if not s and not isinstance(v, Column)])
         n_out, cols, names = None, {}, []
         for name, v, scalar in results:
             if name in cols:
                 raise DuplicateError(f"duplicate column name {name!r}")
-            col = v if isinstance(v, Column) else val_to_column(v, t.capacity)
+            own = v.capacity if isinstance(v, Column) else \
+                (1 if scalar else v.rows)
+            col = v if isinstance(v, Column) else \
+                val_to_column(v, cap if scalar else own)
             if not scalar:
                 m = base if isinstance(v, Column) or v.live is None \
-                    else v.live.expand(t.capacity)
-                one = Table([name], {name: col}, t.capacity, None, m,
+                    else v.live.expand(own)
+                one = Table([name], {name: col}, own, None, m,
                             device=t.device)
                 packed, count = C.compact_device(one)
-                col = packed.cols[name]
+                col = C.grow_to(packed, cap).cols[name]
                 c = int(count)
                 if n_out is not None and c != n_out:
                     raise ShapeError(f"select: column lengths differ ({c} "
@@ -222,7 +303,7 @@ class DataFrame:
                 n_out = c
             names.append(name)
             cols[name] = col
-        out = Table(names, cols, t.capacity, 1 if n_out is None else n_out,
+        out = Table(names, cols, cap, 1 if n_out is None else n_out,
                     None, device=t.device)
         return DataFrame._from_table(C.shrink_to(out, out.nrows))
 
@@ -443,6 +524,31 @@ class DataFrame:
         for name in ot.names:
             t = t.with_column(name, ot.cols[name])
         return DataFrame._from_table(t)
+
+    def explode(self, *columns) -> "DataFrame":
+        """One row per element of the List columns (their lengths must
+        match); the other columns repeat."""
+        from ..ops.nested import explode_table
+        return DataFrame._from_table(
+            explode_table(self._table, _column_names(columns)))
+
+    def unnest(self, *columns) -> "DataFrame":
+        """Each Struct column replaced by its fields."""
+        return DataFrame._from_table(
+            unnest_table(self._table, _column_names(columns)))
+
+    def to_struct(self, name: str = "") -> Series:
+        """The rows as one Struct series."""
+        from ..expr.expr import struct
+        out = self.select(struct(*[_col(c) for c in self.columns])
+                          .alias(name or "struct"))
+        return out.get_column(name or "struct")
+
+    def rows(self, named: bool = False):
+        d = self.to_dict()
+        if named:
+            return [dict(zip(d, r)) for r in zip(*d.values())]
+        return list(zip(*d.values()))
 
     def group_by(self, *by, maintain_order: bool = False, **named_by):
         from .groupby import GroupBy

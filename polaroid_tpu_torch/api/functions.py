@@ -118,7 +118,8 @@ def date_range(start, end, interval: str = "1d", *, closed: str = "both",
                eager: bool = False):
     """Dates (or datetimes, when an end is a datetime) from start to end
     every `interval`, built on the host. eager=True gives a Series; the
-    lazy form is a list literal, which comes with Slice E."""
+    lazy form is a column literal of Date (Datetime) values, which the
+    JAX package gives as Int64 day counts."""
     import datetime as _dt
     import numpy as np
     from ..ops.temporal import parse_every
@@ -150,8 +151,13 @@ def date_range(start, end, interval: str = "1d", *, closed: str = "both",
         out = [d for d in out if d != start]
     if eager:
         return Series("literal", out)
+    if is_dt:
+        from ..dtypes import Datetime
+        return Expr("lit", value=np.asarray(out, dtype="datetime64[us]")
+                    .astype(np.int64), dtype=Datetime("us"))
+    from ..dtypes import Date
     return Expr("lit", value=np.asarray(
-        [(d - _dt.date(1970, 1, 1)).days for d in out]), dtype=None)
+        [(d - _dt.date(1970, 1, 1)).days for d in out]), dtype=Date)
 
 
 def datetime_range(start, end, interval: str = "1d", *,
@@ -159,16 +165,36 @@ def datetime_range(start, end, interval: str = "1d", *,
     return date_range(start, end, interval, closed=closed, eager=eager)
 
 
-def date_ranges(start, end, interval: str = "1d", **kw):
-    raise NotImplementedError(
-        "date_ranges is not ported yet: it returns a List column, which "
-        "comes with Slice E (the expression surface)")
+def date_ranges(start, end, interval: str = "1d", **kw) -> Expr:
+    """Per-row dates from start to end (both ends in) every `interval`
+    of whole days, as a List(Date) column, as polars gives it (the JAX
+    package's elements are the Int64 day counts)."""
+    from ..dtypes import Date, Int64
+    from ..ops.temporal import parse_every
+    kind, ns = parse_every(interval)
+    if kind != "fixed":
+        raise ComputeError("date_ranges: month intervals unsupported")
+    step = max(ns // (86_400 * 1_000_000_000), 1)
+    return Expr("int_ranges", (_wrap_col(start).cast(Date).cast(Int64),
+                               _wrap_col(end).cast(Date).cast(Int64) + 1),
+                step=int(step), dtype=Date).alias("date_range")
 
 
-def datetime_ranges(start, end, interval: str = "1d", **kw):
-    raise NotImplementedError(
-        "datetime_ranges is not ported yet: it returns a List column, which "
-        "comes with Slice E (the expression surface)")
+def datetime_ranges(start, end, interval: str = "1d", *,
+                    time_unit: str = "us", **kw) -> Expr:
+    """Per-row datetimes from start to end (both ends in) every fixed
+    `interval`, as a List(Datetime) column."""
+    from ..dtypes import Datetime, Int64
+    from ..ops.temporal import UNIT_PER_SECOND, parse_every
+    kind, ns = parse_every(interval)
+    if kind != "fixed":
+        raise ComputeError("datetime_ranges: month intervals unsupported")
+    dt = Datetime(time_unit)
+    step = max(ns // (1_000_000_000 // UNIT_PER_SECOND[time_unit])
+               if UNIT_PER_SECOND[time_unit] <= 1_000_000_000 else ns, 1)
+    return Expr("int_ranges", (_wrap_col(start).cast(dt).cast(Int64),
+                               _wrap_col(end).cast(dt).cast(Int64) + 1),
+                step=int(step), dtype=dt).alias("datetime_range")
 
 
 def time_range(start=None, end=None, interval: str = "1h", *,
@@ -249,3 +275,76 @@ def from_epoch(column, time_unit: str = "us") -> Expr:
 def row_index() -> Expr:
     """Each live row's position among the live rows (UInt32)."""
     return Expr("row_index")
+
+
+# --- strings and nested columns (Slice E2) --------------------------------
+
+def _flatten(items):
+    out = []
+    for x in items:
+        if isinstance(x, (list, tuple)):
+            out.extend(_flatten(x))
+        else:
+            out.append(x)
+    return out
+
+
+def concat_str(*exprs, separator: str = "") -> Expr:
+    """The parts joined per row (a null part makes the row null)."""
+    return Expr("concat_str", tuple(_wrap_col(e) for e in _flatten(exprs)),
+                separator=separator)
+
+
+def format(fmt: str, *args) -> Expr:
+    """String interpolation: pl.format("a={}", col) as a concat_str."""
+    from ..dtypes import String
+    from ..expr.expr import lit
+    parts = fmt.split("{}")
+    if len(parts) - 1 != len(args):
+        raise ComputeError("format placeholder count != number of args")
+    es = []
+    for i, p in enumerate(parts):
+        if p:
+            es.append(lit(p))
+        if i < len(args):
+            es.append(_wrap_col(args[i]).cast(String))
+    return Expr("concat_str", tuple(es), separator="")
+
+
+def concat_list(*exprs) -> Expr:
+    """Flat or list columns combined into one list per row."""
+    return Expr("concat_list", tuple(_wrap_col(e) for e in _flatten(exprs)))
+
+
+def struct(*exprs, **named) -> Expr:
+    from ..expr.expr import struct as _struct
+    return _struct(*exprs, **named)
+
+
+def implode(name) -> Expr:
+    return _wrap_col(name).implode()
+
+
+def int_ranges(start, end, step: int = 1) -> Expr:
+    """Per-row integer ranges [start, end) as a List(Int64) column."""
+    return Expr("int_ranges", (_wrap_col(start), _wrap_col(end)), step=step)
+
+
+def element() -> Expr:
+    """The current list element inside `.list.eval`."""
+    from ..expr.expr import element as _element
+    return _element()
+
+
+def field(name) -> Expr:
+    """A sibling struct field inside `struct.with_fields`."""
+    names = [name] if isinstance(name, str) else list(name)
+    if len(names) != 1:
+        from ..errors import InvalidOperationError
+        raise InvalidOperationError("pl.field supports one name")
+    return Expr("field", name=names[0])
+
+
+def escape_regex(value: str) -> str:
+    import re
+    return re.escape(value)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+from ..expr import meta
 from ..expr.expr import Expr, col as _col
 from ..plan import logical as L
 from ..plan.optimizer import optimize
@@ -56,8 +57,29 @@ class LazyFrame:
 
     # --- plan constructors ------------------------------------------------
     def select(self, *exprs, **named) -> "LazyFrame":
-        return LazyFrame._from_plan(
-            L.Select(self._plan, _to_exprs(exprs, named)))
+        stripped, explode_names = [], []
+        for e in _to_exprs(exprs, named):
+            e2, hit = meta.strip_top_explode(e)
+            stripped.append(e2)
+            if hit:
+                explode_names.append(meta.output_name(e2))
+        plan = L.Select(self._plan, stripped)
+        if explode_names:
+            plan = L.Explode(plan, explode_names)
+        return LazyFrame._from_plan(plan)
+
+    def explode(self, *columns) -> "LazyFrame":
+        from .frame import _column_names
+        return LazyFrame._from_plan(L.Explode(self._plan,
+                                              _column_names(columns)))
+
+    def unnest(self, *columns) -> "LazyFrame":
+        from .frame import _column_names, unnest_schema, unnest_table
+        names = _column_names(columns)
+        return LazyFrame._from_plan(L.MapFunction(
+            self._plan, lambda t: unnest_table(t, names),
+            schema_fn=lambda s: unnest_schema(s, names),
+            label=f"unnest[{','.join(names)}]"))
 
     def with_columns(self, *exprs, **named) -> "LazyFrame":
         return LazyFrame._from_plan(

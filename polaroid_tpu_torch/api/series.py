@@ -6,7 +6,7 @@ Parity target: `py-polars/src/polars/series/`, as in the JAX package's
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, List as _ListT, Optional
 
 import numpy as np
 
@@ -70,9 +70,49 @@ class Series:
             make_expr(col(name)).alias(name)).get_column(name)
 
     @property
-    def dt(self) -> "_DtNamespace":
+    def dt(self) -> "_Namespace":
         """The `dt` namespace over the series."""
-        return _DtNamespace(self)
+        return _Namespace(self, "dt")
+
+    @property
+    def str(self) -> "_Namespace":
+        """The `str` namespace over the series."""
+        return _Namespace(self, "str")
+
+    @property
+    def list(self) -> "_Namespace":
+        """The `list` namespace over the series."""
+        return _Namespace(self, "list")
+
+    @property
+    def struct(self) -> "_Namespace":
+        """The `struct` namespace over the series (`unnest` gives a
+        frame)."""
+        return _Namespace(self, "struct")
+
+    @property
+    def bin(self) -> "_Namespace":
+        """The `bin` namespace over the series."""
+        return _Namespace(self, "bin")
+
+    @property
+    def arr(self) -> "_Namespace":
+        """The `arr` namespace (fixed-width lists) over the series."""
+        return _Namespace(self, "arr")
+
+    @property
+    def cat(self) -> "_Namespace":
+        """The `cat` namespace over the series."""
+        return _Namespace(self, "cat")
+
+    def explode(self) -> "Series":
+        """One row per list element (an empty or null list: one null)."""
+        name = self.name or ""
+        return self.to_frame(name).explode(name).get_column(name)
+
+    def implode(self) -> "Series":
+        """The whole series as one list row."""
+        return self._apply(lambda c: c.implode())
 
     def alias(self, name: str) -> "Series":
         return Series._from_column(name, self._col, len(self))
@@ -100,7 +140,7 @@ class Series:
     def to_numpy(self) -> np.ndarray:
         return np.asarray(self._col.to_numpy(len(self)))
 
-    def to_list(self) -> List[Any]:
+    def to_list(self) -> _ListT[Any]:
         return [_py(v) for v in self._col.to_numpy(len(self))]
 
     def __repr__(self) -> str:
@@ -109,16 +149,21 @@ class Series:
         return f"Series({self.name!r}, {vals[:10]}{more})"
 
 
-class _DtNamespace:
-    """`Expr.dt.<op>(...)` over a series, as a one-column frame."""
+class _Namespace:
+    """`Expr.<ns>.<op>(...)` over a series, as a one-column frame."""
 
-    def __init__(self, s: Series):
+    def __init__(self, s: Series, ns: str):
         self._s = s
+        self._ns = ns
 
     def __getattr__(self, op: str):
+        if self._ns == "struct" and op == "unnest":
+            name = self._s.name or ""
+            return lambda: self._s.to_frame(name).unnest(name)
+
         def method(*args, **kwargs) -> Series:
             return self._s._apply(
-                lambda c: getattr(c.dt, op)(*args, **kwargs))
+                lambda c: getattr(getattr(c, self._ns), op)(*args, **kwargs))
         method.__name__ = op
         return method
 

@@ -30,21 +30,23 @@ import torch
 
 from .config import CONFIG, capacity_for
 from .dtypes import (
-    Boolean, DataType, Date, Datetime, Duration, Float64, Int64, Null,
-    String,
+    Binary, Boolean, DataType, Date, Datetime, Duration, Float64, Int64,
+    Null, String,
     dtype_from_numpy, physical_numpy_dtype,
 )
 from .errors import ColumnNotFoundError, ShapeError
-from .strings import NULL_CODE, StringDict
+from .strings import EMPTY_DICT, NULL_CODE, StringDict
 
-__all__ = ["Column", "Table", "resolve_device", "storage_torch_dtype"]
+__all__ = ["Column", "Table", "resolve_device", "storage_torch_dtype",
+           "width_for"]
 
 _STORAGE = {
     "Int8": torch.int8, "Int16": torch.int16, "Int32": torch.int32,
     "Int64": torch.int64, "UInt8": torch.uint8, "UInt16": torch.int32,
     "UInt32": torch.int64, "UInt64": torch.int64, "Float32": torch.float32,
     "Float64": torch.float64, "Boolean": torch.bool, "String": torch.int32,
-    "Categorical": torch.int32, "Binary": torch.int32, "Date": torch.int32,
+    "Categorical": torch.int32, "Enum": torch.int32, "Binary": torch.int32,
+    "Date": torch.int32,
     "Time": torch.int64, "Null": torch.bool,
 }
 
@@ -95,28 +97,78 @@ class Column:
     kernel reads as a result.
 
     `stats` caches {"min", "max"} bucket bounds of an integer column: they
-    give the group-by a dense key domain (see exec/executor.py)."""
+    give the group-by a dense key domain (see exec/executor.py).
 
-    __slots__ = ("dtype", "data", "validity", "sdict", "stats")
+    Nested layouts (the JAX package's, in torch tensors):
+      * List(T): `data` is (capacity, width) padded to `width_for(the
+        longest list)`, `lengths` (capacity,) int32, and `elem_valid`
+        (capacity, width) marks the non-null elements (None: all inside
+        the length are valid). A List(String)'s `sdict` is its elements'.
+      * Struct: `fields` is an ordered {name: Column} of child columns and
+        `data` is None.
+      * List(Struct): `lengths` (+ `elem_valid` for null structs) and
+        `fields` {name: List column of that field}, all of one width.
+      * List(List(T)): `lengths` (+ `elem_valid`) and `fields` {"item":
+        the child List column lifted to a (capacity, width, ...) leading
+        layout}, to any depth."""
 
-    def __init__(self, dtype: DataType, data: torch.Tensor,
+    __slots__ = ("dtype", "data", "validity", "sdict", "stats", "lengths",
+                 "elem_valid", "fields")
+
+    def __init__(self, dtype: DataType, data: Optional[torch.Tensor],
                  validity: Optional[torch.Tensor] = None,
                  sdict: Optional[StringDict] = None,
-                 stats: Optional[dict] = None):
+                 stats: Optional[dict] = None,
+                 lengths: Optional[torch.Tensor] = None,
+                 elem_valid: Optional[torch.Tensor] = None,
+                 fields: Optional[Dict[str, "Column"]] = None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
         self.sdict = sdict
         self.stats = stats
+        self.lengths = lengths
+        self.elem_valid = elem_valid
+        self.fields = fields
 
     @property
     def capacity(self) -> int:
-        return self.data.shape[0]
+        if self.data is not None:
+            return self.data.shape[0]
+        if self.lengths is not None:
+            return self.lengths.shape[0]
+        return next(iter(self.fields.values())).capacity
+
+    @property
+    def is_nested(self) -> bool:
+        return self.lengths is not None or self.fields is not None
+
+    @property
+    def device(self) -> torch.device:
+        if self.data is not None:
+            return self.data.device
+        if self.lengths is not None:
+            return self.lengths.device
+        return next(iter(self.fields.values())).device
+
+    def map_rows(self, fn) -> "Column":
+        """Every row-leading tensor of the column (data, validity,
+        lengths, element validity, and the fields', recursively) through
+        `fn`; the dictionary stays."""
+        def f(x):
+            return None if x is None else fn(x)
+        return Column(self.dtype, f(self.data), f(self.validity), self.sdict,
+                      None, f(self.lengths), f(self.elem_valid),
+                      None if self.fields is None else
+                      {k: c.map_rows(fn) for k, c in self.fields.items()})
 
     def take(self, perm: torch.Tensor) -> "Column":
-        return Column(self.dtype, self.data[perm],
-                      self.validity[perm] if self.validity is not None
-                      else None, self.sdict)
+        """Gather rows by index (axis 0), flat and nested alike."""
+        if not self.is_nested:
+            return Column(self.dtype, self.data[perm],
+                          self.validity[perm] if self.validity is not None
+                          else None, self.sdict)
+        return self.map_rows(lambda x: x[perm])
 
     @staticmethod
     def from_host(values, dtype: Optional[DataType] = None,
@@ -125,10 +177,20 @@ class Column:
                   validity: Optional[np.ndarray] = None) -> "Column":
         """Build a column from host values (a numpy array or a list with
         None for nulls), padded to `capacity`. `validity` marks the
-        non-null rows of a numpy array."""
+        non-null rows of a numpy array. Lists, tuples and 2-D arrays make
+        List columns and dicts Struct columns."""
         if isinstance(dtype, type) and issubclass(dtype, DataType):
             dtype = dtype()
         device = resolve_device(device)
+        nested = _detect_nested(values, dtype)
+        if nested is not None:
+            if validity is not None:
+                values = [v if ok else None
+                          for v, ok in zip(list(values), validity)]
+            build = _list_column_from_host if nested == "list" \
+                else _struct_column_from_host
+            return build(values, dtype, capacity).map_rows(
+                lambda x: x.to(device))
         vals, mask, dt, sdict = _coerce_host_values(values, dtype)
         if validity is not None:
             validity = np.asarray(validity, dtype=bool)
@@ -155,7 +217,14 @@ class Column:
         return Column(dt, data, vt, sdict)
 
     def to_numpy(self, nrows: int, valid_mask: Optional[np.ndarray] = None):
-        """Host copy of the live rows (object array when nulls/strings)."""
+        """Host copy of the live rows (object array when nulls, strings
+        or nested values)."""
+        if self.fields is not None and self.lengths is not None:
+            return _nested_list_to_numpy(self, nrows, valid_mask)
+        if self.fields is not None:
+            return _struct_to_numpy(self, nrows, valid_mask)
+        if self.lengths is not None:
+            return _list_to_numpy(self, nrows, valid_mask)
         data = _host_logical(self.dtype,
                              self.data[:nrows].cpu().numpy())
         vmask = None
@@ -169,19 +238,349 @@ class Column:
             codes = data.copy()
             if vmask is not None:
                 codes[~vmask] = NULL_CODE
-            return self.sdict.decode(codes)
-        if repr(self.dtype) == "Date":
-            out = data.astype("datetime64[D]").astype(object)
-        elif isinstance(self.dtype, Datetime):
-            out = data.astype(f"datetime64[{self.dtype.time_unit}]")
-        elif isinstance(self.dtype, Duration):
-            out = data.astype(f"timedelta64[{self.dtype.time_unit}]")
-        else:
-            out = data
+            return (self.sdict or EMPTY_DICT).decode(codes)
+        out = _decode_flat_host(self.dtype, data)
         if vmask is not None and not vmask.all():
             out = np.asarray(out, dtype=object)
             out[~vmask] = None
         return out
+
+
+def _decode_flat_host(dt: DataType, data: np.ndarray, sdict=None):
+    """A flat host storage array -> the values a user sees."""
+    if dt.is_string:
+        return (sdict or EMPTY_DICT).decode(data.astype(np.int32))
+    if repr(dt) == "Date":
+        return data.astype("datetime64[D]").astype(object)
+    if isinstance(dt, Datetime):
+        return data.astype(f"datetime64[{dt.time_unit}]")
+    if isinstance(dt, Duration):
+        return data.astype(f"timedelta64[{dt.time_unit}]")
+    return data
+
+
+# ---------------------------------------------------------------------------
+# nested columns: host <-> device
+# ---------------------------------------------------------------------------
+
+def width_for(n: int) -> int:
+    """The list-width bucket: the power of two >= n (at least 1)."""
+    c = max(int(n), 1)
+    return 1 << (c - 1).bit_length()
+
+
+def _detect_nested(values, dtype: Optional[DataType]) -> Optional[str]:
+    from .dtypes import List as ListT, Struct as StructT
+    if isinstance(dtype, ListT):
+        return "list"
+    if isinstance(dtype, StructT):
+        return "struct"
+    if isinstance(values, np.ndarray):
+        if values.ndim == 2:
+            return "list"
+        if values.dtype.kind != "O":
+            return None
+    for v in values:
+        if v is None:
+            continue
+        if isinstance(v, (list, tuple, np.ndarray)):
+            return "list"
+        if isinstance(v, dict):
+            return "struct"
+        return None
+    return None
+
+
+def _first_list_elem(seq):
+    for row in seq:
+        if row is None:
+            continue
+        for e in row:
+            if e is not None:
+                return e
+    return None
+
+
+def _row_mask(mask: np.ndarray, cap: int) -> Optional[torch.Tensor]:
+    if mask.all():
+        return None
+    m = np.zeros(cap, dtype=bool)
+    m[:len(mask)] = mask
+    return torch.from_numpy(m)
+
+
+def _list_column_from_host(values, dtype: Optional[DataType],
+                           capacity: Optional[int],
+                           width: Optional[int] = None) -> Column:
+    """List rows (None = a null list) -> a List column on the CPU."""
+    from .dtypes import List as ListT, Struct as StructT
+    if isinstance(values, np.ndarray) and values.ndim == 2:
+        seq = [list(r) for r in values]
+    else:
+        seq = [None if v is None else list(v) for v in values]
+    n = len(seq)
+    cap = capacity_for(n) if capacity is None else capacity
+    if cap < n:
+        raise ShapeError(f"capacity {cap} < row count {n}")
+    mask = np.array([v is not None for v in seq], dtype=bool)
+    lens = np.array([len(v) if v is not None else 0 for v in seq],
+                    dtype=np.int32)
+    W = width if width is not None else \
+        width_for(int(lens.max()) if n else 1)
+    inner_dt = dtype.inner if isinstance(dtype, ListT) else None
+    e0 = _first_list_elem(seq)
+    if isinstance(inner_dt, StructT) or \
+            (inner_dt is None and isinstance(e0, dict)):
+        return _list_of_struct_from_host(seq, mask, lens, W, inner_dt, cap)
+    if isinstance(inner_dt, ListT) or (inner_dt is None and isinstance(
+            e0, (list, tuple, np.ndarray))):
+        return _list_of_list_from_host(seq, mask, lens, W, inner_dt, cap)
+    # one flat coercion over the padded (cap, W) grid reuses the scalar
+    # coercion (strings, temporal, bool) unchanged
+    flat: list = [None] * (cap * W)
+    for i, row in enumerate(seq):
+        if row is not None:
+            flat[i * W:i * W + len(row)] = row
+    vals, emask, dt, sdict = _coerce_host_values(flat, inner_dt)
+    if emask is None:
+        emask = np.ones(cap * W, dtype=bool)
+    stor = storage_torch_dtype(dt)
+    host = np.asarray(vals)
+    if host.dtype == np.uint64:
+        host = host.view(np.int64)
+    data = torch.from_numpy(np.ascontiguousarray(host)).to(stor) \
+        .reshape(cap, W)
+    lens_full = np.zeros(cap, dtype=np.int32)
+    lens_full[:n] = lens
+    in_len = np.arange(W)[None, :] < lens_full[:, None]
+    em2 = emask.reshape(cap, W) & in_len
+    return Column(ListT(dt), data, _row_mask(mask, cap), sdict,
+                  lengths=torch.from_numpy(lens_full),
+                  elem_valid=None if (em2 == in_len).all()
+                  else torch.from_numpy(em2))
+
+
+def _list_of_struct_from_host(seq, mask, lens, W, inner_dt, cap) -> Column:
+    """List(Struct): lengths + one List column per field, of one width."""
+    from .dtypes import List as ListT, Struct as StructT
+    n = len(seq)
+    if isinstance(inner_dt, StructT):
+        names = [nm for nm, _ in inner_dt.fields]
+        fdts = dict(inner_dt.fields)
+    else:
+        names = []
+        for row in seq:
+            for e in (row or ()):
+                if isinstance(e, dict):
+                    names += [k for k in e if k not in names]
+        fdts = {}
+    ev = np.zeros((cap, W), dtype=bool)
+    for i, row in enumerate(seq):
+        for j, e in enumerate(row or ()):
+            ev[i, j] = e is not None
+    fields = {}
+    for nm in names:
+        frows = [None if row is None else
+                 [None if e is None else e.get(nm) for e in row]
+                 for row in seq]
+        fields[nm] = _list_column_from_host(
+            frows, ListT(fdts[nm]) if nm in fdts else None, cap, width=W)
+    lens_full = np.zeros(cap, dtype=np.int32)
+    lens_full[:n] = lens
+    in_len = np.arange(W)[None, :] < lens_full[:, None]
+    return Column(ListT(StructT([(nm, fields[nm].dtype.inner)
+                                 for nm in names])), None,
+                  _row_mask(mask, cap), None,
+                  lengths=torch.from_numpy(lens_full),
+                  elem_valid=None if (ev == in_len).all()
+                  else torch.from_numpy(ev), fields=fields)
+
+
+def _reshape_leading(col: Column, cap: int, W: int) -> Column:
+    """Lift a flat-leading column ((cap*W, ...) tensors) to a nested
+    child layout ((cap, W, ...) tensors), recursing into fields."""
+    return col.map_rows(lambda a: a.reshape((cap, W) + tuple(a.shape[1:])))
+
+
+def _flatten_leading(col: Column) -> Column:
+    """The inverse of `_reshape_leading`: (cap, W, ...) -> (cap*W, ...)."""
+    return col.map_rows(lambda a: a.reshape(
+        (a.shape[0] * a.shape[1],) + tuple(a.shape[2:])))
+
+
+def _list_of_list_from_host(seq, mask, lens, W1, inner_dt, cap) -> Column:
+    """List(List(T)) at any depth: the outer lengths and the child List
+    column (built flat over cap*W1 rows by the ordinary constructor, so
+    any inner composes) lifted to a (cap, W1, ...) leading layout."""
+    from .dtypes import List as ListT
+    from .errors import InvalidOperationError
+    n = len(seq)
+    child_seq: list = [None] * (cap * W1)
+    for i, row in enumerate(seq):
+        for j, e in enumerate(row or ()):
+            if e is None:
+                continue
+            if isinstance(e, np.ndarray):
+                e = e.tolist()
+            if not isinstance(e, (list, tuple)):
+                raise InvalidOperationError(
+                    f"List(List): inner elements must be lists, got "
+                    f"{type(e).__name__}")
+            child_seq[i * W1 + j] = e
+    child = _list_column_from_host(child_seq, inner_dt, cap * W1)
+    lens_full = np.zeros(cap, dtype=np.int32)
+    lens_full[:n] = lens
+    in_len1 = np.arange(W1)[None, :] < lens_full[:, None]
+    # the child's row validity marks the present inner lists: it becomes
+    # the outer element validity, and the lifted child carries none
+    ev = in_len1 if child.validity is None else \
+        child.validity.numpy().reshape(cap, W1)
+    child = _reshape_leading(
+        Column(child.dtype, child.data, None, child.sdict,
+               lengths=child.lengths, elem_valid=child.elem_valid,
+               fields=child.fields), cap, W1)
+    return Column(ListT(child.dtype), None, _row_mask(mask, cap), None,
+                  lengths=torch.from_numpy(lens_full),
+                  elem_valid=None if (ev == in_len1).all()
+                  else torch.from_numpy(ev), fields={"item": child})
+
+
+def _struct_column_from_host(values, dtype: Optional[DataType],
+                             capacity: Optional[int]) -> Column:
+    from .dtypes import Struct as StructT
+    seq = list(values)
+    n = len(seq)
+    cap = capacity_for(n) if capacity is None else capacity
+    if cap < n:
+        raise ShapeError(f"capacity {cap} < row count {n}")
+    mask = np.array([v is not None for v in seq], dtype=bool)
+    if isinstance(dtype, StructT):
+        keys = [k for k, _ in dtype.fields]
+        fdts = dict(dtype.fields)
+    else:
+        keys, fdts = [], {}
+        for row in seq:
+            for k in (row or ()):
+                if k not in keys:
+                    keys.append(k)
+    fields = {}
+    for k in keys:
+        fields[k] = Column.from_host(
+            [row.get(k) if row is not None else None for row in seq],
+            dtype=fdts.get(k), capacity=cap, device="cpu")
+    return Column(StructT([(k, fields[k].dtype) for k in keys]), None,
+                  _row_mask(mask, cap), fields=fields)
+
+
+def _empty_column(dt: DataType, cap: int, device=None) -> Column:
+    """A column of `dt` with every row empty (0, or an empty list)."""
+    from .dtypes import List as ListT, Struct as StructT
+
+    def zeros(shape, tdt):
+        return torch.zeros(shape, dtype=tdt, device=device)
+    if isinstance(dt, ListT) and isinstance(dt.inner, StructT):
+        return Column(dt, None, None, lengths=zeros(cap, torch.int32),
+                      fields={nm: _empty_column(ListT(fd), cap, device)
+                              for nm, fd in dt.inner.fields})
+    if isinstance(dt, ListT) and isinstance(dt.inner, ListT):
+        child = _reshape_leading(_empty_column(dt.inner, cap, device),
+                                 cap, 1)
+        return Column(dt, None, None, lengths=zeros(cap, torch.int32),
+                      fields={"item": child})
+    if isinstance(dt, ListT):
+        return Column(dt, zeros((cap, 1), storage_torch_dtype(dt.inner)),
+                      None, EMPTY_DICT if dt.inner.is_string else None,
+                      lengths=zeros(cap, torch.int32))
+    if isinstance(dt, StructT):
+        return Column(dt, None, None,
+                      fields={n: _empty_column(d, cap, device)
+                              for n, d in dt.fields})
+    return Column(dt, zeros(cap, storage_torch_dtype(dt)), None,
+                  EMPTY_DICT if dt.is_string else None)
+
+
+def _select_rows(x: Optional[torch.Tensor], nrows: int,
+                 valid_mask: Optional[np.ndarray]):
+    if x is None:
+        return None
+    h = x[:nrows].cpu().numpy()
+    return h[valid_mask[:nrows]] if valid_mask is not None else h
+
+
+def _py(x):
+    return x.item() if isinstance(x, np.generic) else x
+
+
+def _struct_to_numpy(col: Column, nrows: int,
+                     valid_mask: Optional[np.ndarray]) -> np.ndarray:
+    parts = {k: f.to_numpy(nrows, valid_mask) for k, f in col.fields.items()}
+    m = len(next(iter(parts.values()))) if parts else 0
+    vmask = _select_rows(col.validity, nrows, valid_mask)
+    out = np.empty(m, dtype=object)
+    for i in range(m):
+        out[i] = ({k: _py(parts[k][i]) for k in parts}
+                  if vmask is None or vmask[i] else None)
+    return out
+
+
+def _list_to_numpy(col: Column, nrows: int,
+                   valid_mask: Optional[np.ndarray]) -> np.ndarray:
+    data = _select_rows(col.data, nrows, valid_mask)
+    lens = _select_rows(col.lengths, nrows, valid_mask)
+    ev = _select_rows(col.elem_valid, nrows, valid_mask)
+    vmask = _select_rows(col.validity, nrows, valid_mask)
+    inner = col.dtype.inner
+    data = _host_logical(inner, data) if not inner.is_nested else data
+    out = np.empty(len(data), dtype=object)
+    for i in range(len(data)):
+        if vmask is not None and not vmask[i]:
+            out[i] = None
+            continue
+        L = int(lens[i])
+        vals = _decode_flat_host(inner, data[i, :L], col.sdict)
+        vals = [_py(v) for v in vals]
+        out[i] = vals if ev is None else \
+            [v if ev[i, j] else None for j, v in enumerate(vals)]
+    return out
+
+
+def _nested_list_to_numpy(col: Column, nrows: int,
+                          valid_mask: Optional[np.ndarray]) -> np.ndarray:
+    """List(Struct) and List(List) rows -> host lists."""
+    from .dtypes import Struct as StructT
+    lens = _select_rows(col.lengths, nrows, valid_mask)
+    ev = _select_rows(col.elem_valid, nrows, valid_mask)
+    vmask = _select_rows(col.validity, nrows, valid_mask)
+    m = len(lens)
+    out = np.empty(m, dtype=object)
+    if isinstance(col.dtype.inner, StructT):
+        parts = {nm: f.to_numpy(nrows, valid_mask)
+                 for nm, f in col.fields.items()}
+        for i in range(m):
+            if vmask is not None and not vmask[i]:
+                out[i] = None
+                continue
+            out[i] = [None if ev is not None and not ev[i, j] else
+                      {nm: (parts[nm][i][j] if parts[nm][i] is not None
+                            else None) for nm in parts}
+                      for j in range(int(lens[i]))]
+        return out
+    # List(List): decode the lifted child at its flat layout (recursion
+    # takes any depth), then regroup by the outer lengths
+    child = col.fields["item"]
+    W1 = (child.lengths if child.lengths is not None
+          else child.data).shape[1]
+    childrows = _flatten_leading(child).to_numpy(nrows * W1)
+    orig = np.nonzero(valid_mask[:nrows])[0] if valid_mask is not None \
+        else np.arange(m)
+    for i in range(m):
+        if vmask is not None and not vmask[i]:
+            out[i] = None
+            continue
+        oi = int(orig[i])
+        out[i] = [None if ev is not None and not ev[i, j] else
+                  childrows[oi * W1 + j] for j in range(int(lens[i]))]
+    return out
 
 
 def _coerce_host_values(values, dtype: Optional[DataType]):
@@ -202,6 +601,12 @@ def _coerce_host_values(values, dtype: Optional[DataType]):
             values = values.astype(physical_numpy_dtype(dt), copy=False)
         return values, None, dt, None
 
+    if isinstance(values, np.ndarray) and values.dtype.kind == "U" and \
+            (dtype is None or dtype.is_string):
+        # fixed-width unicode: the word-sort encode, no Python string per
+        # row (strings.py)
+        codes, sdict = StringDict.encode(values)
+        return codes, None, dtype or String, sdict
     seq = list(values)
     mask = np.array([v is not None for v in seq], dtype=bool)
     non_null = [v for v in seq if v is not None]
@@ -217,8 +622,10 @@ def _coerce_host_values(values, dtype: Optional[DataType]):
             dt = Int64
         elif isinstance(v0, (float, np.floating)):
             dt = Float64
-        elif isinstance(v0, (str, bytes)):
+        elif isinstance(v0, str):
             dt = String
+        elif isinstance(v0, (bytes, bytearray)):
+            dt = Binary()
         elif isinstance(v0, _pydt.datetime):
             dt = Datetime("us")
         elif isinstance(v0, _pydt.date):
@@ -271,7 +678,7 @@ class Table:
         self.valid = valid
         self.nrows_dev = nrows_dev
         if device is None:
-            device = next(iter(cols.values())).data.device if cols \
+            device = next(iter(cols.values())).device if cols \
                 else resolve_device(None)
         self.device = device
 

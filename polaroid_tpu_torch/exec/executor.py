@@ -94,6 +94,9 @@ def execute(plan: L.Plan, cache: Optional[Dict[int, Table]] = None
     if k == "distinct":
         return unique_table(execute(plan.input, cache), plan.subset,
                             plan.keep, plan.maintain_order)
+    if k == "explode":
+        from ..ops.nested import explode_table
+        return explode_table(execute(plan.input, cache), plan.columns)
     if k == "map_function":
         # an opaque Table -> Table function (the lazy rolling and the
         # overlapping group_by_dynamic build one)

@@ -216,9 +216,13 @@ def eval_agg(e, v: Val, table) -> Val:
         return _scalar(Float64, g, (n > (0 if bias else 3)) & (m2 > 0))
     if agg in ("bitwise_and", "bitwise_or", "bitwise_xor"):
         return _bitwise(agg, x, dt, mask, has)
-    if agg in ("implode", "agg_groups"):
-        raise NotImplementedError(
-            f"{agg} is not ported yet: nested columns come with Slice E2")
+    if agg == "implode":
+        from ..ops.nested import implode_all
+        packed, lengths, ev, ldt = implode_all(x, v.validity, live, dt)
+        return Val(ldt, packed, None, v.sdict, True, lengths=lengths,
+                   elem_valid=ev)
+    if agg == "agg_groups":
+        raise InvalidOperationError("agg_groups() outside group_by")
     raise ComputeError(f"unknown aggregation {agg!r}")
 
 

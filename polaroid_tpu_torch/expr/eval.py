@@ -20,7 +20,13 @@ kinds that change the length: `drop_nulls`, `gather_every`, a slice,
 marks the rows of its result (`Val.live`), as the JAX package's does; a
 group-by aggregate reads only those, a select compacts to them.
 
-Strings and lists come with Slice E2 and raise NotImplementedError.
+Strings and nested columns (Slice E2): casts to and from String and
+Binary, `concat_str`, list literals and the `bin` namespace live here,
+the `str` namespace in `expr/str.py` and the list and struct kinds in
+`expr/nested.py`. A cast to String and `concat_str` format only the
+distinct values on the host (`torch.unique` on the device, the inverse
+maps them back), so the dictionary stays sorted and no host loop runs
+over the rows.
 """
 
 from __future__ import annotations
@@ -59,21 +65,45 @@ class Val:
     aggregate of this value (set by `expr.filter(pred)`, carried through
     elementwise ops), beside the table's live rows."""
 
-    __slots__ = ("dtype", "data", "validity", "sdict", "is_scalar", "live")
+    __slots__ = ("dtype", "data", "validity", "sdict", "is_scalar", "live",
+                 "lengths", "elem_valid", "fields")
 
     def __init__(self, dtype, data, validity=None, sdict=None,
-                 is_scalar=False, live=None):
+                 is_scalar=False, live=None, lengths=None, elem_valid=None,
+                 fields=None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
         self.sdict = sdict
         self.is_scalar = is_scalar
         self.live = live
+        # nested layouts (batch.Column): a List holds 2-D data + lengths
+        # (+ elem_valid), a Struct a dict of child Vals in `fields`
+        self.lengths = lengths
+        self.elem_valid = elem_valid
+        self.fields = fields
+
+    @property
+    def rows(self) -> int:
+        """The leading size: the capacity, or 1 for a scalar."""
+        if self.data is not None:
+            return self.data.shape[0]
+        if self.lengths is not None:
+            return self.lengths.shape[0]
+        return max(f.rows for f in self.fields.values())
+
+    @property
+    def device(self):
+        if self.data is not None:
+            return self.data.device
+        if self.lengths is not None:
+            return self.lengths.device
+        return next(iter(self.fields.values())).device
 
     def valid_or_true(self):
         if self.validity is None:
-            return torch.ones(self.data.shape, dtype=torch.bool,
-                              device=self.data.device)
+            return torch.ones((self.rows,), dtype=torch.bool,
+                              device=self.device)
         return self.validity
 
 
@@ -117,17 +147,121 @@ def _with_live(out: Val, live) -> Val:
     return out
 
 
-def cast_val(v: Val, dtype: DataType) -> Val:
+def cast_val(v: Val, dtype: DataType, strict: bool = True,
+             live_mask=None) -> Val:
+    """`v` as `dtype`. A strict cast from String raises when a live,
+    non-null value does not parse (one host sync); `live_mask` narrows
+    which rows count."""
     if isinstance(dtype, type) and issubclass(dtype, DataType):
         dtype = dtype()
     if v.dtype == dtype:
         return v
+    if v.dtype.is_string and not dtype.is_string and dtype != Null and \
+            not dtype.is_nested:
+        return _with_live(_cast_from_string(v, dtype, strict, live_mask),
+                          v.live)
+    if v.dtype.is_binary and dtype.is_string and not dtype.is_binary:
+        return _with_live(_binary_to_string(v, dtype, strict, live_mask),
+                          v.live)
     return _with_live(_cast(v, dtype), v.live)
+
+
+# the host formatter's calls (one per distinct value formatted): a test
+# reads it to see that a cast to String formats the distinct values only
+FORMAT_CALLS = [0]
+
+
+def _fmt_float(x) -> str:
+    """A float as the JAX package writes it: integral values with one
+    decimal, the rest by repr."""
+    if math.isnan(x):
+        return "NaN"
+    if math.isinf(x):
+        return "inf" if x > 0 else "-inf"
+    if x == int(x) and abs(x) < 1e15:
+        return f"{x:.1f}"
+    return repr(float(x))
+
+
+def _format_host(dt: DataType, vals: np.ndarray) -> np.ndarray:
+    """Host strings of distinct values of a non-string dtype (storage
+    values in, object array out)."""
+    FORMAT_CALLS[0] += len(vals)
+    if dt.is_bool:
+        return np.where(vals, "true", "false").astype(object)
+    if dt.is_float:
+        return np.array([_fmt_float(float(x)) for x in vals], dtype=object)
+    if dt == Date:
+        return vals.astype("datetime64[D]").astype(str).astype(object)
+    if isinstance(dt, Datetime):
+        return vals.astype(f"datetime64[{dt.time_unit}]").astype(str) \
+            .astype(object)
+    if repr(dt) == "UInt64":
+        vals = vals.view(np.uint64)
+    return vals.astype(str).astype(object)
+
+
+def distinct_strings(v: Val):
+    """(int32 codes on the device, sorted StringDict) of a non-string
+    Val's values as strings: the distinct values by `torch.unique` on
+    the device, formatted on the host, encoded, and gathered back by the
+    inverse."""
+    uniq, inv = torch.unique(v.data, return_inverse=True)
+    txt = _format_host(v.dtype, uniq.cpu().numpy())
+    codes, sd = StringDict.encode(txt, np.ones(len(txt), bool))
+    lut = torch.from_numpy(codes).to(v.data.device)
+    return lut[inv], sd
+
+
+def _cast_from_string(v: Val, dst: DataType, strict: bool, live_mask) -> Val:
+    """Parse each dictionary entry once on the host into a lookup table,
+    gathered by code on the device."""
+    sd = v.sdict or EMPTY_DICT
+
+    def parse(s):
+        try:
+            if dst.is_float:
+                return float(s)
+            if dst.is_bool:
+                return s in ("true", "True", "1")
+            return int(str(s).strip())  # "12.5" is not an int (polars)
+        except (ValueError, TypeError):
+            return None
+    parsed = [parse(s) for s in sd.values]
+    oks = np.array([p is not None for p in parsed], dtype=bool)
+    stor = storage_torch_dtype(dst)
+    lut = torch.tensor([p if p is not None else 0 for p in parsed],
+                       dtype=torch.float64 if dst.is_float else torch.int64
+                       ).to(stor)
+    dev = v.data.device
+    if len(lut) == 0:
+        data = torch.zeros(v.data.shape, dtype=stor, device=dev)
+        okv = torch.zeros(v.data.shape, dtype=torch.bool, device=dev)
+    else:
+        code = v.data.clamp(0, len(lut) - 1).long()
+        data = lut.to(dev)[code]
+        okv = torch.from_numpy(oks).to(dev)[code]
+    if strict:
+        bad = ~okv
+        if v.validity is not None:
+            bad = bad & v.validity
+        for live in (v.live, live_mask):
+            if live is not None and live.shape == bad.shape:
+                bad = bad & live
+        if bool(bad.any()):
+            first = sd.values[int(v.data[int(torch.argmax(bad.to(
+                torch.int8)))])] if len(sd.values) else "?"
+            raise InvalidOperationError(
+                f"conversion from `str` to `{dst!r}` failed for value "
+                f"{first!r}; use strict=False to set failures to null")
+    return Val(dst, data, _and_valid(v.validity, okv), None, v.is_scalar)
 
 
 def _cast(v: Val, dtype: DataType) -> Val:
     src, dst = v.dtype, dtype
-    if src.is_string and dst.is_string and src.is_binary == dst.is_binary:
+    if src.is_string and dst.is_string:
+        if src.is_binary != dst.is_binary:   # Binary -> String: cast_val
+            return _string_to_binary(v, dst)
         # String <-> Categorical: same codes and dictionary, relabeled
         return Val(dst, v.data, v.validity, v.sdict, v.is_scalar)
     if src == Null:
@@ -136,10 +270,17 @@ def _cast(v: Val, dtype: DataType) -> Val:
         return Val(dst, data, torch.zeros(v.data.shape, dtype=torch.bool,
                                           device=v.data.device),
                    EMPTY_DICT if dst.is_string else None, v.is_scalar)
-    if src.is_string or dst.is_string:
-        raise NotImplementedError(
-            f"cast {src!r} -> {dst!r} is not ported yet: casts to and from "
-            "strings come with Slice E (the expression surface)")
+    if dst.is_string:
+        if src.is_nested:
+            raise InvalidOperationError(f"cast {src!r} -> {dst!r}")
+        codes, sd = distinct_strings(v)
+        if dst.is_binary:
+            return _string_to_binary(Val(String, codes, v.validity, sd,
+                                         v.is_scalar), dst)
+        return Val(dst, codes, v.validity, sd, v.is_scalar)
+    if src.is_nested or dst.is_nested:
+        from .nested import cast_nested
+        return cast_nested(v, dst)
     if src == Date and isinstance(dst, Datetime):
         data = v.data.to(torch.int64) * T.per_day(dst.time_unit)
         return Val(dst, data, v.validity, None, v.is_scalar)
@@ -156,6 +297,62 @@ def _cast(v: Val, dtype: DataType) -> Val:
                v.is_scalar)
 
 
+def _string_to_binary(v: Val, dst: DataType) -> Val:
+    """String -> Binary: UTF-8 keeps byte order as code-point order, so
+    the codes carry over."""
+    vals = np.array([str(w).encode("utf-8") for w in
+                     (v.sdict or EMPTY_DICT).values], dtype=object)
+    return Val(dst, v.data, v.validity, StringDict(vals), v.is_scalar)
+
+
+def _binary_to_string(v: Val, dst: DataType, strict: bool, live_mask) -> Val:
+    """Binary -> String: invalid UTF-8 becomes null, or raises when
+    `strict` and a live, non-null row holds it (one host sync)."""
+    mapped = []
+    for w in (v.sdict or EMPTY_DICT).values:
+        try:
+            mapped.append(bytes(w).decode("utf-8"))
+        except (UnicodeDecodeError, TypeError):
+            mapped.append(None)
+    out = remap_dict_val(v, mapped, dst)
+    if strict and any(m is None for m in mapped):
+        bad = out.data == NULL_CODE
+        for m in (v.validity, v.live, live_mask):
+            if m is not None and m.shape == bad.shape:
+                bad = bad & m
+        if bool(bad.any()):
+            w = (v.sdict or EMPTY_DICT).values[int(v.data[int(
+                torch.argmax(bad.to(torch.int8)))])]
+            raise InvalidOperationError(
+                f"cast Binary->String: invalid utf-8 {w!r}")
+    return out
+
+
+def remap_dict_val(v: Val, mapped, out_dt) -> Val:
+    """A dictionary-coded Val whose entries were transformed (to None,
+    or out of order): the new entries sorted and deduplicated, the codes
+    remapped on the device, None entries made null."""
+    keep = sorted({m for m in mapped if m is not None})
+    index = {m: i for i, m in enumerate(keep)}
+    remap = np.full(max(len(mapped), 1), NULL_CODE, dtype=np.int32)
+    for i, m in enumerate(mapped):
+        if m is not None:
+            remap[i] = index[m]
+    data = gather_codes(v.data, remap)
+    return Val(out_dt, data, _and_valid(v.validity, data != NULL_CODE),
+               StringDict(np.array(keep, dtype=object)), v.is_scalar)
+
+
+def gather_codes(code: torch.Tensor, remap: np.ndarray) -> torch.Tensor:
+    """remap[code] on the device, with -1 (null) kept."""
+    if len(remap) == 0:
+        return torch.full_like(code, int(NULL_CODE))
+    rm = torch.from_numpy(np.ascontiguousarray(remap, dtype=np.int32)) \
+        .to(code.device)
+    return torch.where(code >= 0, rm[code.clamp(0, len(remap) - 1).long()],
+                       torch.full_like(code, int(NULL_CODE)))
+
+
 def rescale_time(data: torch.Tensor, src_unit: str, dst_unit: str
                  ) -> torch.Tensor:
     """Epoch or duration counts from one time unit to another (a coarser
@@ -170,7 +367,8 @@ def rescale_time(data: torch.Tensor, src_unit: str, dst_unit: str
 # literals
 # ---------------------------------------------------------------------------
 
-def _lit_val(value, dtype: Optional[DataType], device) -> Val:
+def _lit_val(value, dtype: Optional[DataType], device,
+             table: Optional[Table] = None) -> Val:
     dt = meta._lit_dtype(value, dtype)
     if value is None:
         stor = storage_torch_dtype(dt) if dt != Null else torch.bool
@@ -179,9 +377,7 @@ def _lit_val(value, dtype: Optional[DataType], device) -> Val:
                    torch.zeros((1,), dtype=torch.bool, device=device),
                    EMPTY_DICT if dt.is_string else None, True)
     if isinstance(value, (list, tuple, np.ndarray)):
-        raise NotImplementedError(
-            f"literal {type(value).__name__} is not ported yet: list "
-            "literals come with Slice E (the expression surface)")
+        return _array_lit(value, dtype, device, table)
     if dt.is_temporal:
         return Val(dt, torch.full((1,), _temporal_count(value, dt),
                                   dtype=storage_torch_dtype(dt),
@@ -192,6 +388,37 @@ def _lit_val(value, dtype: Optional[DataType], device) -> Val:
                    None, sd, True)
     return Val(dt, torch.full((1,), value, dtype=storage_torch_dtype(dt),
                               device=device), None, None, True)
+
+
+def _array_lit(value, dtype: Optional[DataType], device,
+               table: Optional[Table]) -> Val:
+    """A list or array literal is a column of its own length, as in the
+    JAX package: on a compact frame of that many rows it lines up with
+    the rows; otherwise it carries its own rows (`live`), which a select
+    compacts to."""
+    from ..config import capacity_for
+    from ..dtypes import dtype_from_numpy
+    arr = np.asarray(value)
+    adt = dtype_from_numpy(arr.dtype) if dtype is None else dtype
+    if isinstance(adt, type):
+        adt = adt()
+    n = len(arr)
+    aligned = table is not None and table.valid is None and \
+        table._nrows == n and table.capacity >= n
+    cap = table.capacity if aligned else capacity_for(n)
+    if adt.is_string:
+        codes, sd = StringDict.encode(arr.astype(object))
+        host = np.full(cap, NULL_CODE, np.int32)
+        host[:n] = codes
+    else:
+        sd = None
+        host = np.zeros(cap, dtype=np.dtype(
+            torch.empty(0, dtype=storage_torch_dtype(adt)).numpy().dtype))
+        host[:n] = arr.astype(host.dtype)
+    data = torch.from_numpy(host).to(device)
+    live = None if aligned else \
+        torch.arange(cap, device=device) < n
+    return Val(adt, data, None, sd, False, live)
 
 
 def _temporal_count(value, dt: DataType) -> int:
@@ -252,12 +479,10 @@ def _align_strings(l: Val, r: Val) -> Tuple[Val, Val]:
 
     def recode(v, remap):
         if len(remap) == 0:
-            return Val(v.dtype, v.data, v.validity, merged, v.is_scalar)
-        rm = torch.from_numpy(remap).to(v.data.device)
-        code = v.data
-        new = torch.where(code >= 0, rm[code.clamp(0, len(remap) - 1)],
-                          torch.full_like(code, int(NULL_CODE)))
-        return Val(v.dtype, new, v.validity, merged, v.is_scalar)
+            return Val(v.dtype, v.data, v.validity, merged, v.is_scalar,
+                       v.live, v.lengths, v.elem_valid)
+        return Val(v.dtype, gather_codes(v.data, remap), v.validity, merged,
+                   v.is_scalar, v.live, v.lengths, v.elem_valid)
 
     return recode(l, ra), recode(r, rb)
 
@@ -468,7 +693,10 @@ def _unary(op: str, v: Val, attrs=None) -> Val:
         if dt.is_integer:
             return v
         m = 10.0 ** attrs.get("decimals", 0)
-        return mk(dt, torch.round(x * m) / m)
+        # a tensor divisor: CUDA divides by a host scalar as a multiply by
+        # its reciprocal, which is not correctly rounded
+        return mk(dt, torch.round(x * m) / torch.tensor(m, dtype=x.dtype,
+                                                        device=x.device))
     if op == "round_sig_figs":
         digits = int(attrs.get("digits", 1))
         if digits < 1:
@@ -591,12 +819,17 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
     if k == "col":
         return column_to_val(table.column(e.attrs["name"]))
     if k == "lit":
-        return _lit_val(e.attrs["value"], e.attrs["dtype"], table.device)
+        return _lit_val(e.attrs["value"], e.attrs["dtype"], table.device,
+                        table)
     if k in ("alias", "name_map", "name_keep", "exclude"):
         return eval_expr(e.children[0], table, ctx)
     if k == "cast":
-        return cast_val(eval_expr(e.children[0], table, ctx),
-                        e.attrs["dtype"])
+        strict = e.attrs.get("strict", True)
+        v = eval_expr(e.children[0], table, ctx)
+        # a strict cast from a string checks only the live rows
+        return cast_val(v, e.attrs["dtype"], strict,
+                        table.row_mask() if strict and v.dtype.is_string
+                        else None)
     if k == "binary":
         return _eval_binary(e.attrs["op"], eval_expr(e.children[0], table, ctx),
                             eval_expr(e.children[1], table, ctx))
@@ -642,17 +875,178 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
     if k == "when_then":
         return _eval_when_then(e, table, ctx)
     if k == "str":
-        raise NotImplementedError(
-            f"str.{e.attrs.get('op')} is not ported yet: the string "
-            "namespace (str.strptime and str.to_datetime with it) comes "
-            "with Slice E (the expression surface)")
+        from .str import eval_str
+        return eval_str(e, eval_expr(e.children[0], table, ctx), table)
+    if k == "bin":
+        return _eval_bin(e, eval_expr(e.children[0], table, ctx))
+    if k == "concat_str":
+        return _eval_concat_str(e, table, ctx)
+    if k in _NESTED_KINDS:
+        from . import nested
+        return nested.eval_nested(e, table, ctx)
     if k == "cumulative_eval":
         raise NotImplementedError(
-            "cumulative_eval is not ported yet: it comes with Slice E (the "
-            "expression surface)")
+            "cumulative_eval is not ported yet: it comes with Slice E3 (the "
+            "rest of the expression surface)")
     raise NotImplementedError(
-        f"expression kind {k!r} is not ported yet (later slices of the "
-        "port bring the rest of expr/eval.py)")
+        f"expression kind {k!r} is not ported yet: it comes with Slice E3 "
+        "(the rest of the expression surface) or later")
+
+
+# the list and struct kinds, evaluated by expr/nested.py
+_NESTED_KINDS = {"list", "list_eval", "list_filter", "list_set",
+                 "concat_list", "repeat_by", "int_ranges", "struct",
+                 "struct_with_fields", "struct_rename", "struct_json_encode",
+                 "struct_unnest", "struct_field", "field", "reshape"}
+
+
+# ---------------------------------------------------------------------------
+# concat_str and the bin namespace
+# ---------------------------------------------------------------------------
+
+def _eval_concat_str(e: Expr, table: Table, ctx: str) -> Val:
+    """The parts joined by the separator, per row, as the JAX package
+    joins them (a null part reads "" and makes the row null). Each part
+    becomes int32 string codes (a non-string part through
+    `distinct_strings`); the distinct code tuples are found on the device
+    by `torch.unique` over the tuples packed into int64 words, only those
+    are joined on the host, and the inverse maps them back."""
+    sep = e.attrs.get("separator", "")
+    cap = table.capacity
+    dev = table.device
+    codes, dicts, validity = [], [], None
+    for c in e.children:
+        v = eval_expr(c, table, ctx)
+        if v.dtype.is_string:
+            code, sd = v.data, v.sdict or EMPTY_DICT
+        else:
+            code, sd = distinct_strings(v)
+        codes.append(code.expand(cap).to(torch.int64) + 1)   # null -> 0
+        dicts.append(sd)
+        if v.validity is not None:
+            validity = _and_valid(validity, v.validity.expand(cap))
+    # pack the code tuples into as few int64 words as fit, then one
+    # unique over the word tuples
+    key = None
+    bits_used = 0
+    words = []
+    for code, sd in zip(codes, dicts):
+        b = max(int(len(sd) + 1).bit_length(), 1)
+        if key is None or bits_used + b > 62:
+            if key is not None:
+                words.append(key)
+            key, bits_used = code, b
+        else:
+            key = (key << b) | code
+            bits_used += b
+    words.append(key)
+    if len(words) == 1:
+        uniq, inv = torch.unique(words[0], return_inverse=True)
+        first_rows = torch.full((uniq.shape[0],), cap, dtype=torch.int64,
+                                device=dev).scatter_reduce_(
+            0, inv, torch.arange(cap, device=dev), "amin")
+    else:
+        stacked = torch.stack(words, 1)
+        uniq, inv = torch.unique(stacked, dim=0, return_inverse=True)
+        first_rows = torch.full((uniq.shape[0],), cap, dtype=torch.int64,
+                                device=dev).scatter_reduce_(
+            0, inv, torch.arange(cap, device=dev), "amin")
+    host_codes = [c[first_rows].cpu().numpy() - 1 for c in codes]
+    parts = []
+    for hc, sd in zip(host_codes, dicts):
+        dec = sd.decode(hc.astype(np.int32))
+        parts.append(["" if t is None else str(t) for t in dec])
+    joined = np.array([sep.join(p) for p in zip(*parts)], dtype=object)
+    FORMAT_CALLS[0] += len(joined)
+    tcodes, sd = StringDict.encode(joined, np.ones(len(joined), bool))
+    lut = torch.from_numpy(tcodes).to(dev)
+    return Val(String, lut[inv], validity, sd, False)
+
+
+def _eval_bin(e: Expr, v: Val) -> Val:
+    """The Binary (`bytes`) functions: host transforms of the dictionary
+    and gathers by code on the device, as the `str` namespace."""
+    from ..dtypes import Binary, physical_numpy_dtype
+    op = e.attrs["op"]
+    if not v.dtype.is_binary:
+        raise InvalidOperationError(f".bin.{op} on {v.dtype!r}")
+    sd = v.sdict or EMPTY_DICT
+    code = v.data
+    words = [bytes(w) for w in sd.values]
+
+    def lut_gather(lut: np.ndarray, out_dt, validity=None):
+        lt = torch.from_numpy(lut if len(lut) else np.zeros(1, lut.dtype))
+        data = lt.to(code.device)[code.clamp(0, max(len(lut) - 1, 0)).long()]
+        return Val(out_dt, data.to(storage_torch_dtype(out_dt)),
+                   _and_valid(v.validity, validity), None, v.is_scalar,
+                   v.live)
+
+    if op in ("contains", "starts_with", "ends_with"):
+        pat = e.attrs["pat"]
+        pat = pat.encode("utf-8") if isinstance(pat, str) else bytes(pat)
+        fn = {"contains": lambda w: pat in w,
+              "starts_with": lambda w: w.startswith(pat),
+              "ends_with": lambda w: w.endswith(pat)}[op]
+        return lut_gather(np.array([fn(w) for w in words], dtype=bool),
+                          Boolean)
+    if op == "size":
+        lut = np.array([len(w) for w in words], dtype=np.int64)
+        unit = e.attrs.get("unit", "b")
+        if unit != "b":
+            scale = {"kb": 1024, "mb": 1024 ** 2, "gb": 1024 ** 3,
+                     "tb": 1024 ** 4}[unit]
+            return lut_gather((lut / scale).astype(np.float64), Float64)
+        return lut_gather(lut, UInt32)
+    if op == "slice":
+        off, ln = e.attrs["offset"], e.attrs.get("length")
+
+        def cut(w):
+            start = off if off >= 0 else max(len(w) + off, 0)
+            return w[start:] if ln is None else w[start:start + ln]
+        return _with_live(remap_dict_val(v, [cut(w) for w in words],
+                                         Binary()), v.live)
+    if op == "encode":
+        import base64
+        mapped = [w.hex() for w in words] if e.attrs["encoding"] == "hex" \
+            else [base64.b64encode(w).decode("ascii") for w in words]
+        return _with_live(remap_dict_val(v, mapped, String), v.live)
+    if op == "decode":
+        import base64
+        strict = e.attrs.get("strict", True)
+        enc = e.attrs["encoding"]
+        mapped = []
+        for w in words:
+            try:
+                mapped.append(bytes.fromhex(w.decode("ascii")) if enc == "hex"
+                              else base64.b64decode(w, validate=True))
+            except Exception:
+                if strict:
+                    raise InvalidOperationError(
+                        f".bin.decode({enc!r}): invalid input {w!r}") \
+                        from None
+                mapped.append(None)
+        return _with_live(remap_dict_val(v, mapped, Binary()), v.live)
+    if op == "reinterpret":
+        out_dt = e.attrs["dtype"]
+        if isinstance(out_dt, type) and issubclass(out_dt, DataType):
+            out_dt = out_dt()
+        endian = e.attrs.get("endianness", "little")
+        npdt = np.dtype(physical_numpy_dtype(out_dt)).newbyteorder(
+            "<" if endian == "little" else ">")
+        vals = np.zeros(max(len(words), 1), dtype=npdt)
+        for i, w in enumerate(words):
+            if len(w) != npdt.itemsize:
+                raise InvalidOperationError(
+                    f".bin.reinterpret: value has {len(w)} bytes, "
+                    f"{out_dt!r} needs {npdt.itemsize}")
+            vals[i] = np.frombuffer(w, dtype=npdt)[0]
+        host = vals.astype(npdt.newbyteorder("="))
+        if host.dtype == np.uint64:
+            host = host.view(np.int64)
+        elif host.dtype.kind == "u" and host.dtype != np.uint8:
+            host = host.astype(np.int64)
+        return lut_gather(host, out_dt)
+    raise InvalidOperationError(f"unknown .bin op {op!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -977,16 +1371,25 @@ def _eval_when_then(e: Expr, table: Table, ctx: str) -> Val:
 
 
 def column_to_val(c: Column) -> Val:
-    return Val(c.dtype, c.data, c.validity, c.sdict, False)
+    """Column -> Val, recursively for nested layouts."""
+    fields = None if c.fields is None else \
+        {fn: column_to_val(f) for fn, f in c.fields.items()}
+    return Val(c.dtype, c.data, c.validity, c.sdict, False,
+               lengths=c.lengths, elem_valid=c.elem_valid, fields=fields)
+
+
+def _expand_rows(x: Optional[torch.Tensor], cap: int):
+    if x is None or x.shape[0] == cap:
+        return x
+    return x.expand((cap,) + tuple(x.shape[1:])).contiguous()
 
 
 def val_to_column(v: Val, cap: int) -> Column:
     """Materialize a Val as a contiguous Column of `cap` rows,
-    broadcasting scalars."""
-    data = v.data
-    if data.shape[0] != cap:
-        data = data.expand(cap).contiguous()
-    validity = v.validity
-    if validity is not None and validity.shape[0] != cap:
-        validity = validity.expand(cap).contiguous()
-    return Column(v.dtype, data, validity, v.sdict)
+    broadcasting scalars, nested layouts included."""
+    fields = None if v.fields is None else \
+        {fn: val_to_column(f, cap) for fn, f in v.fields.items()}
+    return Column(v.dtype, _expand_rows(v.data, cap),
+                  _expand_rows(v.validity, cap), v.sdict,
+                  lengths=_expand_rows(v.lengths, cap),
+                  elem_valid=_expand_rows(v.elem_valid, cap), fields=fields)

@@ -836,7 +836,7 @@ class Expr:
         return ExtNamespace(self)
 
     def register_plugin(self, *args, **kwargs) -> "Expr":
-        raise NotImplementedError("plugins come with Slice E of the port")
+        raise NotImplementedError("plugins come with Slice E3 of the port")
 
 
 class ExtNamespace:

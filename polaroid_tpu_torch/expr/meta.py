@@ -273,7 +273,7 @@ def output_dtype(e: Expr, schema: Dict[str, DataType]) -> DataType:
             inner = d if inner is None else supertype(inner, d)
         return ListT(inner)
     if k in ("cast", "ext_to"):
-        # dtype expressions (datatype_expr.py) come with Slice E
+        # dtype expressions (datatype_expr.py) come with Slice E3
         return e.attrs["dtype"]
     if k == "ext_storage":
         from ..dtypes import BaseExtension as _BaseExt

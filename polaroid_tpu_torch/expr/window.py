@@ -31,7 +31,7 @@ reads its neighbours, and the result goes back to the rows.
   `ops/wavelet.py`). `ewm_mean_by` is a doubling scan of (decay, value)
   pairs in float64, `interpolate_by` the fills' prefix count.
 
-`rolling_map` comes with Slice E and raises NotImplementedError naming
+`rolling_map` comes with Slice E3 and raises NotImplementedError naming
 it.
 """
 
@@ -54,7 +54,8 @@ __all__ = ["eval_window", "eval_fill_null", "eval_fill_null_strategy",
            "eval_rolling_pair", "NEXT_SLICE"]
 
 # window ops of later slices of the port
-NEXT_SLICE = {"rolling_map": "Slice E (the expression surface)"}
+NEXT_SLICE = {"rolling_map": "Slice E3 (the rest of the expression "
+                             "surface)"}
 # range windows by a companion column
 RANGE_BY = ("rolling_sum_by", "rolling_mean_by", "rolling_min_by",
             "rolling_max_by", "rolling_std_by", "rolling_var_by",

@@ -54,18 +54,30 @@ def _compact_prefix(table: Table, mask: torch.Tensor
                     ) -> Tuple[Table, torch.Tensor]:
     """(table with its live rows as a stable prefix, device live count)."""
     words = []
+    nested = [n for n in table.names if table.cols[n].is_nested]
     for name in table.names:
         c = table.cols[name]
+        if c.is_nested:
+            continue
         words.append(_word(c.data))
         if c.validity is not None:
             words.append(c.validity.to(torch.int32))
+    if nested:
+        # a nested column moves by its rows' positions, compacted as one
+        # more word, and one gather of each of its tensors
+        words.append(torch.arange(table.capacity, dtype=torch.int32,
+                                  device=mask.device))
     if not words:
         return table, mask.sum()
     outs, count = compact_words(mask, words)
+    rows = outs[-1].long().clamp(0, table.capacity - 1) if nested else None
     cols = {}
     it = iter(outs)
     for name in table.names:
         c = table.cols[name]
+        if c.is_nested:
+            cols[name] = c.take(rows)
+            continue
         data = _unword(next(it), c.data.dtype)
         validity = next(it) != 0 if c.validity is not None else None
         cols[name] = Column(c.dtype, data, validity, c.sdict)
@@ -92,9 +104,7 @@ def shrink_to(table: Table, nrows: int) -> Table:
     cap = capacity_for(nrows)
     if cap >= table.capacity:
         return table.with_valid(None, nrows)
-    cols = {name: Column(c.dtype, c.data[:cap],
-                         c.validity[:cap] if c.validity is not None
-                         else None, c.sdict)
+    cols = {name: c.map_rows(lambda x: x[:cap])
             for name, c in table.cols.items()}
     return Table(list(table.names), cols, cap, nrows, None,
                  device=table.device)
@@ -108,12 +118,12 @@ def grow_to(table: Table, capacity: int) -> Table:
     pad = capacity - table.capacity
 
     def grown(x: torch.Tensor, fill) -> torch.Tensor:
-        return torch.cat([x, x.new_full((pad,), fill)])
+        return torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
 
-    cols = {name: Column(c.dtype,
-                         grown(c.data, -1 if c.dtype.is_string else 0),
-                         None if c.validity is None
-                         else grown(c.validity, False), c.sdict)
+    cols = {name: c.map_rows(lambda x: grown(x, 0)) if c.is_nested else
+            Column(c.dtype, grown(c.data, -1 if c.dtype.is_string else 0),
+                   None if c.validity is None
+                   else grown(c.validity, False), c.sdict)
             for name, c in table.cols.items()}
     valid = None if table.valid is None else grown(table.valid, False)
     return Table(list(table.names), cols, capacity, table._nrows, valid,
@@ -132,9 +142,7 @@ def slice_rows(table: Table, offset: int, length: Optional[int]) -> Table:
     new_n = end - offset
     if offset == 0:
         return shrink_to(t, new_n) if new_n < n else t.with_valid(None, new_n)
-    cols = {name: Column(c.dtype, torch.roll(c.data, -offset, 0),
-                         torch.roll(c.validity, -offset, 0)
-                         if c.validity is not None else None, c.sdict)
+    cols = {name: c.map_rows(lambda x: torch.roll(x, -offset, 0))
             for name, c in t.cols.items()}
     out = Table(list(t.names), cols, t.capacity, new_n, None,
                 device=t.device)

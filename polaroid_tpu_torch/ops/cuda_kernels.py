@@ -31,7 +31,7 @@ from .segment import segment_minmax, segment_sum, segment_take
 
 __all__ = ["seg_sum", "seg_sum_plain", "seg_minmax", "seg_minmax_plain",
            "gather", "gather_plain", "MAX_GROUPS", "LAUNCHES",
-           "MINMAX_LAUNCHES", "GATHER_LAUNCHES", "RECORD"]
+           "MINMAX_LAUNCHES", "GATHER_LAUNCHES", "RECORD", "MINMAX_RECORD"]
 
 # the dense group-by's key-domain limit (the JAX package's
 # _MXU_GROUP_LIMIT): one block's C x G f64 partials must fit shared memory
@@ -47,6 +47,9 @@ GATHER_LAUNCHES = 0
 # (vals, gid, G), so that a caller can hold the kernel against its plain
 # version on the inputs a query gave it
 RECORD = None
+# the same for kernel C: each launch on the card appends its (x, gid, G,
+# is_max, identity)
+MINMAX_RECORD = None
 
 
 def seg_sum_plain(vals: torch.Tensor, gid: torch.Tensor, G: int
@@ -211,6 +214,8 @@ def seg_minmax(x: torch.Tensor, gid: torch.Tensor, G: int, is_max: bool,
             scratch.data_ptr(), blocks, stream)
         check(lib, err, "seg_minmax launch")
         MINMAX_LAUNCHES += 1
+        if MINMAX_RECORD is not None:
+            MINMAX_RECORD.append((x, gid, G, bool(is_max), identity))
     return out
 
 

@@ -53,14 +53,14 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from ..batch import Column, Table, storage_torch_dtype
+from ..batch import Column, Table, storage_torch_dtype, width_for
 from ..config import capacity_for
 from ..dtypes import Boolean, Float64, UInt32
 from ..errors import ComputeError, DuplicateError, InvalidOperationError
 from ..expr import meta
 from ..expr.eval import Val, _eval_binary, _eval_fma, _eval_unary, \
     _float_dt, _lit_val, _sum_dtype, _type_bounds, cast_val, \
-    column_to_val, eval_expr
+    column_to_val, eval_expr, val_to_column
 from ..expr.expr import Expr
 from . import hgroup
 from .compact import _unword, _word, compact_device, gather_table
@@ -80,10 +80,6 @@ __all__ = ["GroupContext", "HashGroupContext", "SortedGroupContext",
 _I64_SIGN = -(1 << 63)
 # the largest key domain of the hash tier: its key codes are u32 words
 _HASH_DOMAIN = 1 << 32
-# the slice of the port that brings the aggregates not ported yet: the
-# nested lists
-_NEXT_SLICE = {agg: "Slice E2 (nested columns)"
-               for agg in ("implode", "agg_groups")}
 # bits of a column counted in one batched sum by bitwise_xor
 _BIT_CHUNK = 16
 
@@ -502,6 +498,11 @@ def _count(ctx: GroupContext, rows: torch.Tensor) -> torch.Tensor:
 def reduce_group(agg: str, v: Val, ctx: GroupContext,
                  attrs: dict = None) -> Val:
     """One grouped reduction (reference: `polars-expr/src/reduce/*.rs`)."""
+    if agg in ("implode", "agg_groups"):
+        return group_implode(v, ctx, agg)
+    if v.lengths is not None or v.fields is not None:
+        raise InvalidOperationError(
+            f"group-by {agg} of the nested column {v.dtype!r}")
     cap, dt = ctx.cap, v.dtype
     sx, spart, present = _part(v, ctx)
     # batched sums of this request, keyed by column: they hold every
@@ -641,12 +642,96 @@ def reduce_group(agg: str, v: Val, ctx: GroupContext,
         h = -h / math.log(float(a.get("base", math.e)))
         return Val(out_dt, h.to(storage_torch_dtype(out_dt)),
                    counted(spart).data > 0)
-    if agg in _NEXT_SLICE:
-        raise NotImplementedError(
-            f"group-by {agg} is not ported yet: it comes with "
-            f"{_NEXT_SLICE[agg]}")
     raise NotImplementedError(
         f"group-by aggregation {agg!r} on {dt!r} is not ported yet")
+
+
+def _implode_layout(ctx: GroupContext, present: torch.Tensor,
+                    own_live: bool):
+    """Where each row goes in its group's list: the rows sorted by
+    (group id, row) stably, by one packed `torch.sort` of id * cap + row
+    (kernel F over the two words where that would pass 2^62), each
+    group's first sorted slot (a segment min, kernel C on the dense
+    tier), each row's place after it, the group counts (kernel A on the
+    dense tier) and the list width, `width_for` the largest count (one
+    host sync). The layout of the live rows is kept on the context for
+    the request's other implodes."""
+    if not own_live and "implode" in ctx.stash:
+        return ctx.stash["implode"]
+    cap, ncap = ctx.cap, ctx.out_cap
+    dev = ctx.gid.device
+    g = torch.where(present, ctx.gid.to(torch.int64),
+                    torch.full_like(ctx.gid, ncap, dtype=torch.int64))
+    slot = torch.arange(cap, dtype=torch.int64, device=dev)
+    if (ncap + 1) * cap < (1 << 62):
+        sslot = torch.sort(g * cap + slot).values % cap
+    else:
+        sslot = merge_sort_words([g, slot], 2, perm_only=True)[0].long()
+    sg = g[sslot]
+    idx = torch.arange(cap, dtype=torch.int32, device=dev)
+    inside = sg < ncap
+    base = ctx._extreme(torch.where(inside, idx, cap).contiguous(),
+                        torch.where(inside, sg, ncap).to(torch.int32)
+                        .contiguous(), False, cap)
+    pos = idx.to(torch.int64) - base[sg.clamp(max=ncap - 1)]
+    counts = _count(ctx, present)
+    W = width_for(int(counts.max()) if ncap else 1)
+    tgt = torch.where(inside & (pos < W), sg.clamp(max=ncap - 1) * W
+                      + pos.clamp(0, W - 1), ncap * W)
+    out = (sslot, tgt, counts.to(torch.int32), W)
+    if not own_live:
+        ctx.stash["implode"] = out
+    return out
+
+
+def _scatter_grid(vals: torch.Tensor, tgt: torch.Tensor, ncap: int, W: int
+                  ) -> torch.Tensor:
+    flat = vals.new_zeros(ncap * W + 1)
+    flat[tgt] = vals
+    return flat[:ncap * W].reshape(ncap, W)
+
+
+def group_implode(v: Val, ctx: GroupContext, agg: str = "implode") -> Val:
+    """Each group's rows, in row order, as one padded list row (polars'
+    implicit implode: `agg(pl.col("x"))`), or their row indices
+    (`agg_groups`). A List input is lifted one level (List(List)) and a
+    Struct input imploded field by field (List(Struct))."""
+    from ..batch import _reshape_leading
+    from ..dtypes import List as ListT, Struct as StructT
+    from ..expr.eval import val_to_column
+    cap, ncap = ctx.cap, ctx.out_cap
+    present = ctx.live if v.live is None else ctx.live & v.live.expand(cap)
+    sslot, tgt, counts, W = _implode_layout(ctx, present, v.live is not None)
+    nested = agg == "implode" and (v.lengths is not None or
+                                   v.fields is not None)
+    ev = None
+    if v.validity is not None and (nested or v.live is not None):
+        ev = _scatter_grid(v.validity.expand(cap)[sslot], tgt, ncap, W)
+    if nested and isinstance(v.dtype, StructT):
+        fields = {nm: group_implode(
+            Val(f.dtype, f.data, f.validity, f.sdict, False, v.live,
+                f.lengths, f.elem_valid, f.fields), ctx)
+            for nm, f in v.fields.items()}
+        return Val(ListT(v.dtype), None, None, None, False, lengths=counts,
+                   elem_valid=ev, fields=fields)
+    if nested:
+        rows = _scatter_grid(sslot, tgt, ncap, W).reshape(-1)
+        taken = val_to_column(v, cap).take(rows)
+        taken.validity = None
+        return Val(ListT(v.dtype), None, None, None, False, lengths=counts,
+                   elem_valid=ev, fields={"item": _reshape_leading(
+                       taken, ncap, W)})
+    if agg == "agg_groups":
+        return Val(ListT(UInt32), _scatter_grid(sslot, tgt, ncap, W), None,
+                   None, False, lengths=counts)
+    data2 = _scatter_grid(v.data.expand(cap)[sslot], tgt, ncap, W)
+    if v.validity is not None:
+        spart = present & v.validity.expand(cap)
+        ev = _scatter_grid(spart[sslot], tgt, ncap, W)
+    elif v.live is not None:
+        ev = _scatter_grid(present[sslot], tgt, ncap, W)
+    return Val(ListT(v.dtype), data2, None, v.sdict, False, lengths=counts,
+               elem_valid=ev)
 
 
 def _group_moment(agg: str, sx: torch.Tensor, dt, spart: torch.Tensor,
@@ -886,9 +971,18 @@ def eval_group_expr(e: Expr, table: Table, ctx: GroupContext,
     if k == "unary":
         return _eval_unary(e.attrs["op"], eval_group_expr(
             e.children[0], table, ctx, key_outputs), e.attrs)
+    if k in ("col", "expr_filter", "drop_nulls"):
+        # a column, filtered or not, without a reduction: polars' implicit
+        # implode
+        return group_implode(eval_expr(e, table, "agg"), ctx)
+    if k == "list":
+        from ..expr.nested import eval_list
+        v = eval_group_expr(e.children[0], table, ctx, key_outputs)
+        return eval_list(e, v, Table([], {}, ctx.out_cap, ctx.out_cap, None,
+                                     device=ctx.gid.device))
     raise NotImplementedError(
         f"expression kind {k!r} in a group-by aggregation is not ported "
-        "yet: it comes with Slice E (the expression surface)")
+        "yet: it comes with Slice E3 (the rest of the expression surface)")
 
 
 def _collect_stash_requests(agg_exprs, table: Table, cap: int) -> dict:
@@ -906,7 +1000,8 @@ def _collect_stash_requests(agg_exprs, table: Table, cap: int) -> dict:
             kind = e.attrs.get("agg")
             colo = table.cols.get(c.attrs.get("name")) \
                 if c.kind == "col" else None
-            if colo is not None and colo.data.shape[0] == cap:
+            if colo is not None and not colo.is_nested and \
+                    colo.data.shape[0] == cap:
                 did = id(colo.data)
                 dt = colo.dtype
                 if kind == "len":
@@ -1008,10 +1103,7 @@ def group_by_agg(table: Table, key_exprs: Sequence[Expr],
         if name in cols:
             raise DuplicateError(f"duplicate column name {name!r}")
         names.append(name)
-        data = v.data.expand(ocap).contiguous()
-        validity = v.validity.expand(ocap).contiguous() \
-            if v.validity is not None else None
-        cols[name] = Column(v.dtype, data, validity, v.sdict)
+        cols[name] = val_to_column(v, ocap)
 
     tmp = Table(names, cols, ocap, None, gvalid_rows, device=mask.device)
     order = gctx.group_start if maintain_order is True else \

@@ -25,7 +25,8 @@ nullable 8-byte value (three words) takes `_rank_over`: a second sort by
 (group, value). Range windows by a companion column (`rolling_*_by`)
 search each partition by one int64 key (the group id above the `by`
 value's offset, `range_bounds`) and rank within each partition.
-`mapping_strategy="join"` returns a List column and comes with Slice E.
+`mapping_strategy="join"` implodes each group's result into one list
+(`groupby.group_implode`) and joins it back to the group's rows.
 """
 
 from __future__ import annotations
@@ -97,11 +98,7 @@ def eval_over(e: Expr, table, ctx: str) -> Val:
     mask = table.row_mask()
     key_vals = [_full(eval_expr(p, table, ctx), cap) for p in parts]
     ms = e.attrs.get("mapping_strategy", "group_to_rows")
-    if ms == "join":
-        raise NotImplementedError(
-            "mapping_strategy='join' is not ported yet: it returns a List "
-            "column, which comes with Slice E (the expression surface)")
-    if ms not in ("group_to_rows", "explode"):
+    if ms not in ("group_to_rows", "explode", "join"):
         raise InvalidOperationError(
             f"unknown mapping_strategy {ms!r}; expected 'group_to_rows', "
             "'join' or 'explode'")
@@ -114,10 +111,12 @@ def eval_over(e: Expr, table, ctx: str) -> Val:
         if len(vw) <= 2:
             gctx = build_groups(key_vals, mask, vw, row_gid=False)
             return _rank_over_fused(inner, v, gctx, v.validity is not None)
-    by_row = inner.kind != "window"
+    by_row = inner.kind != "window" or ms == "join"
     gctx = build_groups(key_vals, mask,
                         _order_words(e, table, ctx, order_exprs, cap),
                         row_gid=by_row)
+    if ms == "join":
+        return _eval_over_join(inner, table, gctx, cap)
     if ms == "explode":
         return _eval_over_explode(inner, table, ctx, gctx)
     if inner.kind in ("agg", "table_len") or _is_agg_combo(inner):
@@ -130,6 +129,26 @@ def eval_over(e: Expr, table, ctx: str) -> Val:
         return _eval_window_over(inner, table, ctx, gctx)
     raise InvalidOperationError(
         f"expression kind {inner.kind!r} not supported with .over()")
+
+
+def _eval_over_join(inner: Expr, table: Table, gctx, cap: int) -> Val:
+    """mapping_strategy='join': each group's result as one list (its
+    rows imploded, or a one-element list of its aggregate), joined back
+    to every row of the group."""
+    from ..dtypes import List as ListT
+    from ..expr.eval import column_to_val, val_to_column
+    from .groupby import group_implode
+    g = gctx.gid.clamp(0, gctx.out_cap - 1).long()
+    if inner.kind in ("agg", "table_len") or _is_agg_combo(inner):
+        gv = _full(eval_group_expr(inner, table, gctx, {}), gctx.out_cap)
+        return Val(ListT(gv.dtype), gv.data[g].unsqueeze(1),
+                   None, gv.sdict, False,
+                   lengths=torch.ones(cap, dtype=torch.int32,
+                                      device=g.device),
+                   elem_valid=None if gv.validity is None
+                   else gv.validity[g].unsqueeze(1))
+    gv = group_implode(eval_expr(inner, table, "agg"), gctx)
+    return column_to_val(val_to_column(gv, gctx.out_cap).take(g))
 
 
 def _eval_over_explode(inner: Expr, table, ctx: str,

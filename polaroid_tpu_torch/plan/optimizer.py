@@ -792,6 +792,13 @@ def push_projection(plan: L.Plan, needed: Optional[Set[str]]) -> L.Plan:
                 set(plan.input.schema().keys())
         return plan.with_inputs([push_projection(plan.input, child_need)])
 
-    # opaque nodes (map_function, sink, explode, unpivot, hconcat): need all
+    if k == "explode":
+        # the exploded columns set the row count: they stay, the other
+        # columns only as far as they are needed above
+        child_need = None if needed is None else \
+            (needed | set(plan.columns)) & set(plan.input.schema().keys())
+        return plan.with_inputs([push_projection(plan.input, child_need)])
+
+    # opaque nodes (map_function, sink, unpivot, hconcat): need all
     return plan.with_inputs([push_projection(p, None) for p in plan.inputs]) \
         if plan.inputs else plan

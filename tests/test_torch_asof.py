@@ -33,6 +33,16 @@ from polaroid_tpu_torch.testing import frame_from_numpy
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as CS  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_reference_cache():
+    """The JAX package keeps compiled programs in a process-wide cache
+    (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) that an earlier test
+    file can leave stale for this one's plans; start each file clean."""
+    from polaroid_tpu.exec import compiled
+    compiled._CACHE.clear()
+
+
 NL, NR = 700, 400
 T0 = np.datetime64("2024-03-04T14:30", "us")
 

@@ -15,6 +15,15 @@ import polaroid_tpu_torch as pt
 from polaroid_tpu_torch.testing import frame_from_numpy
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_reference_cache():
+    """The JAX package keeps compiled programs in a process-wide cache
+    (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) that an earlier test
+    file can leave stale for this one's plans; start each file clean."""
+    from polaroid_tpu.exec import compiled
+    compiled._CACHE.clear()
+
+
 def frames(cols, valid=None):
     valid = valid or {}
     rcols = {k: [x[i].item() if hasattr(x[i], "item") else x[i]

@@ -947,3 +947,39 @@ def test_upsample_calendar_grid_on_card(dev, every):
     assert got.to_dict() == want.to_dict()
     assert str(got.to_dict()["t"][1])[:10] == {
         "1mo": "2024-02-29", "1q": "2024-04-30", "1y": "2025-01-31"}[every]
+
+
+@pytest.mark.parametrize("name", ["L1", "L2", "L3"])
+def test_implode_and_explode_launches_on_card(dev, name):
+    """chip_smoke.py's phase-14 L1 (implode of a flat, a String and a
+    Struct column on the dense tier), L2 (an explode, then a dense
+    group-by) and L3 (L1 exploded back to rows) at 2^16 trades on the
+    card: the kernels each launches (L1 and L3: A for the group counts
+    and C for each group's first sorted slot; L2: A, and B for the
+    collect's compaction), every A and C launch held to its plain
+    version, and the result against the smoke's numpy oracle."""
+    import chip_smoke as CS
+    d, x = CS.make_taq_data(1 << 16, 0)
+    queries = {n: (lf, must) for n, lf, must, _ in
+               CS.taq_queries(pt, CS.taq_frame(pt, d, "cuda"))}
+    lf, must = queries[name]
+    CS.reset_launches(TK, TP, TE, TH, TM)
+    TK.RECORD, TK.MINMAX_RECORD = [], []
+    try:
+        out = lf.collect()
+        sums, extremes = TK.RECORD, TK.MINMAX_RECORD
+    finally:
+        TK.RECORD = TK.MINMAX_RECORD = None
+    launched = CS.read_launches(TK, TP, TE, TH, TM)
+    for kernel in must:
+        assert launched[kernel] >= 1, kernel
+    assert launched["bucket_exchange"] == 0 and launched["merge_sort"] == 0
+    for vals, gid, G in sums:
+        got = TK.seg_sum(vals, gid, G)
+        want = TK.seg_sum_plain(vals, gid, G)
+        assert torch.allclose(got, want, rtol=1e-12, atol=0)
+    for xs, gid, G, is_max, ident in extremes:
+        assert torch.equal(TK.seg_minmax(xs, gid, G, is_max, ident),
+                           TK.seg_minmax_plain(xs, gid, G, is_max, ident))
+    assert (len(extremes) > 0) == (name != "L2")
+    CS.taq_oracle(name, CS._taq_cols(out), d, x)

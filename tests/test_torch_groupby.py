@@ -22,6 +22,16 @@ import polaroid_tpu_torch as pt
 from polaroid_tpu_torch.ops import cuda_kernels as TK
 from polaroid_tpu_torch.testing import frame_from_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_reference_cache():
+    """The JAX package keeps compiled programs in a process-wide cache
+    (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) that an earlier test
+    file can leave stale for this one's plans; start each file clean."""
+    from polaroid_tpu.exec import compiled
+    compiled._CACHE.clear()
+
+
 N = 5000
 SYMS = [f"S{i:02d}" for i in range(30)]
 SOLO = ["SOLO1", "SOLO2", "SOLO3"]   # one row each

@@ -27,6 +27,16 @@ import polaroid_tpu_torch as pt
 from polaroid_tpu_torch.ops import hgroup as TH
 from polaroid_tpu_torch.testing import frame_from_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_reference_cache():
+    """The JAX package keeps compiled programs in a process-wide cache
+    (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) that an earlier test
+    file can leave stale for this one's plans; start each file clean."""
+    from polaroid_tpu.exec import compiled
+    compiled._CACHE.clear()
+
+
 N = 2 * 8192 + 777
 NUNIQ = 6000
 RESERVED = 857_579_651   # fmix32_inv(0xFFFFFFFF): hashes to the dead fill

@@ -27,6 +27,16 @@ from polaroid_tpu_torch.ops import exchange as TE
 from polaroid_tpu_torch.ops import hgroup as TH
 from polaroid_tpu_torch.ops.hashing import fmix32
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_reference_cache():
+    """The JAX package keeps compiled programs in a process-wide cache
+    (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) that an earlier test
+    file can leave stale for this one's plans; start each file clean."""
+    from polaroid_tpu.exec import compiled
+    compiled._CACHE.clear()
+
+
 N = 2 * EX.S + 777
 EDGES = np.array([0, 1, 2, 1 << 31, (1 << 31) - 1, (1 << 32) - 1,
                   0x85EBCA6B, 0xFFFF0000], dtype=np.uint32)

@@ -22,6 +22,16 @@ import polaroid_tpu as ref
 import polaroid_tpu_torch as pt
 from polaroid_tpu_torch.testing import frame_from_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_reference_cache():
+    """The JAX package keeps compiled programs in a process-wide cache
+    (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) that an earlier test
+    file can leave stale for this one's plans; start each file clean."""
+    from polaroid_tpu.exec import compiled
+    compiled._CACHE.clear()
+
+
 NL, NR = 300, 90
 OPS = ["lt", "le", "gt", "ge"]
 _CMP = {"lt": "__lt__", "le": "__le__", "gt": "__gt__", "ge": "__ge__"}

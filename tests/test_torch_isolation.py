@@ -29,6 +29,9 @@ def test_import_loads_no_jax_module():
         "import polaroid_tpu_torch\n"
         "import polaroid_tpu_torch.exec.executor\n"
         "import polaroid_tpu_torch.ops.cuda_build\n"
+        "import polaroid_tpu_torch.ops.nested\n"
+        "import polaroid_tpu_torch.expr.nested\n"
+        "import polaroid_tpu_torch.expr.str\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')"
         " or m == 'polaroid_tpu' or m.startswith('polaroid_tpu.'))\n"

@@ -28,6 +28,15 @@ from polaroid_tpu_torch.ops import cuda_kernels as TK
 from polaroid_tpu_torch.ops import cuda_partition as TP
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_reference_cache():
+    """The JAX package keeps compiled programs in a process-wide cache
+    (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) that an earlier test
+    file can leave stale for this one's plans; start each file clean."""
+    from polaroid_tpu.exec import compiled
+    compiled._CACHE.clear()
+
+
 @pytest.mark.parametrize("n,G", [(64, 7), (1000, 130), (8192, 1000),
                                  (512, 4096)])
 def test_seg_sum_matches_pallas(n, G):

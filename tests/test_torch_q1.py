@@ -16,6 +16,16 @@ import polaroid_tpu as ref
 import polaroid_tpu_torch as pt
 from polaroid_tpu_torch.testing import frame_from_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_reference_cache():
+    """The JAX package keeps compiled programs in a process-wide cache
+    (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) that an earlier test
+    file can leave stale for this one's plans; start each file clean."""
+    from polaroid_tpu.exec import compiled
+    compiled._CACHE.clear()
+
+
 N = 5000
 SYMS = [f"S{i:02d}" for i in range(40)]
 
@@ -201,3 +211,24 @@ def test_key_stats_follow_the_live_rows():
     assert df.lazy().group_by("k").agg(pt.len()).collect().height == 500
     # and back to the filtered frame, after stats over a row count
     assert small.lazy().group_by("k").agg(pt.len()).collect().height == 50
+
+
+def test_q1_after_the_window_tests_in_one_process():
+    """The order that once failed: every test of test_torch_over.py, then
+    q1 against the JAX package, in one process. The JAX package's
+    compile cache (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) handed
+    the String-key q1 a UInt32 `symbol` after those tests; each port
+    test file now clears that cache when it starts."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    r = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-p", "no:xdist", "-p", "no:randomly",
+         "tests/test_torch_over.py",
+         "tests/test_torch_q1.py::test_q1_matches_reference"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]

@@ -29,6 +29,16 @@ from polaroid_tpu.ops import wavelet as WJ
 from polaroid_tpu_torch.ops import range_agg as R
 from polaroid_tpu_torch.ops import wavelet as W
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_reference_cache():
+    """The JAX package keeps compiled programs in a process-wide cache
+    (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) that an earlier test
+    file can leave stale for this one's plans; start each file clean."""
+    from polaroid_tpu.exec import compiled
+    compiled._CACHE.clear()
+
+
 N = 1000
 
 

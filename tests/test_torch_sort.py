@@ -27,6 +27,16 @@ from polaroid_tpu_torch.ops import fused_sort as TF
 from polaroid_tpu_torch.ops import keycode as TK
 from polaroid_tpu_torch.ops import merge_sort as TM
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_reference_cache():
+    """The JAX package keeps compiled programs in a process-wide cache
+    (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) that an earlier test
+    file can leave stale for this one's plans; start each file clean."""
+    from polaroid_tpu.exec import compiled
+    compiled._CACHE.clear()
+
+
 U32 = 0xFFFFFFFF
 DTYPES = ["Int8", "Int16", "Int32", "Int64", "UInt8", "UInt16", "UInt32",
           "UInt64", "Float32", "Float64", "Boolean"]

@@ -43,6 +43,16 @@ import polaroid_tpu as ref
 import polaroid_tpu_torch as pt
 from polaroid_tpu_torch.testing import frame_from_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_reference_cache():
+    """The JAX package keeps compiled programs in a process-wide cache
+    (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) that an earlier test
+    file can leave stale for this one's plans; start each file clean."""
+    from polaroid_tpu.exec import compiled
+    compiled._CACHE.clear()
+
+
 N = 600
 W = 5
 DTYPES = {"Int32": np.int32, "Int64": np.int64, "UInt32": np.uint32,
