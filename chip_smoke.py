@@ -2,6 +2,7 @@
 """Run polaroid_tpu_torch on one CUDA card and check it end to end.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--reps 5] [--only-taq]
+                          [--only-surface]
 
 Phases:
 1. the card (name and power limit from nvidia-smi) and a fresh build of
@@ -114,6 +115,25 @@ Phases:
    inputs of every launch of that first collect (C on those of every
    phase from 9 on). `--only-taq` runs the build, those checks and
    phase 14 alone, and prints no result line.
+15. SQL and the rest of the surface, on the H2O frame of phase 6 (10^7
+   rows) and the TAQ trades of phase 14 (2^23): sql_q1-sql_q10, the
+   db-benchmark group-by suite as its SQL solutions write it, through
+   SQLContext(x=frame).execute, each against the numpy checkers of
+   phases 6, 9 and 11 and, where those phases run the query through the
+   expression API, against that result bit for bit, with the host ms of
+   the parse and translation; sql_trf, each symbol's off-exchange (TRF)
+   share of volume, the 20 largest; E3_when, group-level when/then over
+   id3; E3_distinct, the distinct flags at 10^7 rows (over (id3, id6)
+   they mix both answers); E3_qcut and E3_cut
+   (price deciles and fixed breaks, volume per bin), E3_hist (64 price
+   bins), E3_pivot (volume by sym x ex) and E3_unpivot; and the string
+   and nested items of phase 14 not measured there: struct.json_encode,
+   str.json_decode, list.eval and the list set ops at 2^23 rows, each
+   against numpy, with the launches asserted where a route is known,
+   timed and traced the same way, with the host ms of each query's
+   first collect. Phase 2 also holds A, B, C, E and F on the inputs of
+   every launch of that first collect. `--only-surface` runs the build,
+   those checks and phase 15 alone, and prints no result line.
 
 The line before the last lists every ported kernel with its numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check raises,
@@ -132,6 +152,7 @@ import subprocess
 import sys
 import time
 
+START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 N_SYMBOLS = 1000
@@ -3065,6 +3086,492 @@ def run_taq_phase(args, torch, TK, TP, TE, TH, TM, queries, d, x,
             "top_op": tr["top"][0] if tr["top"] else None, "trace": tr}))
 
 
+# --- phase 15: SQL and the rest of the surface -------------------------------
+
+# the db-benchmark group-by suite as its SQL solutions write it
+# (h2oai/db-benchmark, duckdb/groupby-duckdb.R), with each query's keys
+SQL_H2O = [
+    ("sql_q1", "SELECT id1, sum(v1) AS v1 FROM x GROUP BY id1", ("id1",)),
+    ("sql_q2", "SELECT id1, id2, sum(v1) AS v1 FROM x GROUP BY id1, id2",
+     ("id1", "id2")),
+    ("sql_q3", "SELECT id3, sum(v1) AS v1, avg(v3) AS v3 FROM x GROUP BY id3",
+     ("id3",)),
+    ("sql_q4", "SELECT id4, avg(v1) AS v1, avg(v2) AS v2, avg(v3) AS v3 "
+     "FROM x GROUP BY id4", ("id4",)),
+    ("sql_q5", "SELECT id6, sum(v1) AS v1, sum(v2) AS v2, sum(v3) AS v3 "
+     "FROM x GROUP BY id6", ("id6",)),
+    ("sql_q6", "SELECT id4, id5, quantile_cont(v3, 0.5) AS median_v3, "
+     "stddev(v3) AS sd_v3 FROM x GROUP BY id4, id5", ("id4", "id5")),
+    ("sql_q7", "SELECT id3, max(v1)-min(v2) AS range_v1_v2 FROM x "
+     "GROUP BY id3", ("id3",)),
+    ("sql_q8", "SELECT id6, largest2_v3 FROM (SELECT id6, v3 AS largest2_v3, "
+     "row_number() OVER (PARTITION BY id6 ORDER BY v3 DESC) AS order_v3 "
+     "FROM x WHERE v3 IS NOT NULL) sub_query WHERE order_v3 <= 2",
+     ("id6",)),
+    ("sql_q9", "SELECT id2, id4, pow(corr(v1, v2), 2) AS r2 FROM x "
+     "GROUP BY id2, id4", ("id2", "id4")),
+    ("sql_q10", "SELECT id1, id2, id3, id4, id5, id6, sum(v3) AS v3, "
+     "count(*) AS count FROM x GROUP BY id1, id2, id3, id4, id5, id6",
+     ("id1", "id2", "id3", "id4", "id5", "id6")),
+]
+# the off-exchange (FINRA TRF) share of each symbol's volume, the 20
+# largest, over phase 14's TAQ trades
+SQL_TRF = ("SELECT sym, sum(CASE WHEN ex = 'D' THEN volume ELSE 0 END) / "
+           "sum(volume) AS trf_share FROM trades GROUP BY sym "
+           "ORDER BY trf_share DESC LIMIT 20")
+TRF_TOP = 20
+# each SQL query's twin through the expression API in phases 6, 9 and 11
+SQL_TWIN = {"sql_q2": "q2", "sql_q3": "q3", "sql_q5": "q5", "sql_q7": "q7",
+            "sql_q6": "q6", "sql_q9": "q9", "sql_q10": "q10_full",
+            "sql_q8": "q8"}
+H2O_OUTPUTS.update({
+    "sql_q1": {"v1": ("sum", "v1")},
+    "sql_q2": H2O_OUTPUTS["q2"], "sql_q3": H2O_OUTPUTS["q3"],
+    "sql_q4": {"v1": ("mean", "v1"), "v2": ("mean", "v2"),
+               "v3": ("mean", "v3")},
+    "sql_q5": H2O_OUTPUTS["q5"], "sql_q7": H2O_OUTPUTS["q7"],
+    "sql_q10": H2O_OUTPUTS["q10"],
+})
+CUT_BREAKS = (25.0, 50.0, 100.0, 150.0)
+QCUT_BINS = 10
+HIST_BINS = 64
+SET_OPS = ("set_intersection", "set_union", "set_difference",
+           "set_symmetric_difference")
+
+
+def sql_queries(pl, hdf, tdf):
+    """(name, lazy frame, host ms of its parse and translation) of phase
+    15's SQL queries: the H2O suite over x = the H2O frame, sql_trf over
+    trades = the TAQ frame."""
+    ctx = pl.SQLContext(x=hdf, trades=tdf)
+    out = []
+    for name, query in [(n, q) for n, q, _ in SQL_H2O] + [("sql_trf",
+                                                           SQL_TRF)]:
+        t0 = time.perf_counter()
+        lf = ctx.execute(query)
+        out.append((name, lf, (time.perf_counter() - t0) * 1e3))
+    return out
+
+
+class EagerQuery:
+    """An eager frame operation behind the `collect()` that the phase's
+    timers and recorders call."""
+
+    def __init__(self, fn):
+        self.collect = fn
+
+
+def json_dtype(pl):
+    return pl.Struct([pl.Field("ex", pl.String), pl.Field("cond", pl.String)])
+
+
+def surface_queries(pl, hdf, tdf):
+    """(name, query) of phase 15's expression and frame surface: E3_when,
+    group-level when/then over id3's 10^5 groups; E3_distinct, the
+    distinct flags at 10^7 rows, those over (id3, id6) mixing both
+    answers; E3_qcut/E3_cut, price deciles and fixed breaks, each
+    summing the volume per bin; E3_hist, 64 price bins;
+    E3_pivot, volume by sym x ex (eager: the venues are read back for
+    the column names) and E3_unpivot, back to rows; and the E2 items at
+    2^23 rows: struct.json_encode, str.json_decode, list.eval and the
+    list set ops."""
+    c = pl.col
+    t = tdf.lazy()
+    codes_a = pl.concat_list([c("volume") % 7, c("volume") % 5])
+    codes_b = pl.concat_list([c("volume") % 3, c("volume") % 11])
+    pivoted = tdf.pivot("ex", index="sym", values="volume",
+                        aggregate_function="sum")
+    jdf = tdf.select(pl.struct("ex", "cond").struct.json_encode().alias("j"))
+    return [
+        ("E3_when", hdf.lazy().group_by("id3").agg(
+            pl.when(c("v1").sum() >= 300).then(c("v3").max())
+            .otherwise(c("v3").min()).alias("x"))),
+        ("E3_distinct", hdf.lazy().select(
+            c("v3").is_unique().sum().alias("u"),
+            c("id6").is_first_distinct().alias("first"),
+            pl.struct("id4", "id5").is_duplicated().alias("dup"),
+            pl.struct("id3", "id6").is_duplicated().alias("dup36"),
+            pl.struct("id3", "id6").is_unique().alias("uniq36"))),
+        ("E3_qcut", t.with_columns(b=c("price").qcut(QCUT_BINS))
+         .group_by("b").agg(c("volume").sum())),
+        ("E3_cut", t.with_columns(b=c("price").cut(CUT_BREAKS))
+         .group_by("b").agg(c("volume").sum())),
+        ("E3_hist", t.select(c("price").hist(bin_count=HIST_BINS)
+                             .alias("n"))),
+        ("E3_pivot", EagerQuery(lambda: tdf.pivot(
+            "ex", index="sym", values="volume", aggregate_function="sum"))),
+        ("E3_unpivot", pivoted.lazy().unpivot(
+            index="sym", variable_name="ex", value_name="volume")),
+        ("E2_json_encode", t.select(pl.struct("ex", "cond").struct
+                                    .json_encode().alias("j"))),
+        ("E2_json_decode", jdf.lazy().select(
+            c("j").str.json_decode(json_dtype(pl)).alias("s")).unnest("s")),
+        ("E2_list_eval", t.select(
+            pl.concat_list([c("price"), c("price") * 2])
+            .list.eval(pl.element() * 2 + 1).alias("e"))),
+        ("E2_set_ops", t.select(*[getattr(codes_a.list, op)(codes_b)
+                                  .alias(op) for op in SET_OPS])),
+    ]
+
+
+# the kernels each phase-15 query must launch: the SQL queries those of
+# their API twins' routes, the histogram kernel A
+SURFACE_MUST = {"sql_q1": ("seg_sum",), "sql_q4": ("seg_sum",),
+                "sql_q2": ("bucket_exchange",), "sql_q3": ("bucket_exchange",),
+                "sql_q5": ("bucket_exchange",), "sql_q7": ("bucket_exchange",),
+                "sql_q6": ("merge_sort", "compact_words", "bucket_exchange"),
+                "sql_q8": ("merge_sort", "compact_words"),
+                "sql_q9": ("compact_words", "bucket_exchange"),
+                "sql_q10": ("merge_sort", "compact_words"),
+                "E3_when": ("bucket_exchange",),
+                "E3_distinct": ("merge_sort",), "E3_hist": ("seg_sum",)}
+
+
+def twin_frames(pl, hdf):
+    """The API twins of the SQL queries, by name (phases 6, 9 and 11)."""
+    twins = {n: lf for n, _, lf, _ in h2o_queries(pl, hdf)}
+    twins.update({n: lf for n, lf, _ in sorted_tier_queries(pl, hdf, hdf)})
+    twins.update({n: lf for n, lf, _ in window_queries(pl, hdf, hdf)
+                  if n == "q8"})
+    return {s: twins[t] for s, t in SQL_TWIN.items()}
+
+
+def _bits(a):
+    import numpy as np
+    a = np.asarray(a)
+    return a.view(f"u{a.itemsize}") if a.dtype.kind == "f" else \
+        a.astype(np.int64)
+
+
+def check_twin(name, got, twin):
+    """A SQL result against its API twin's: the same columns (q8's
+    largest2_v3 is the twin's v3) and rows, compared after sorting both
+    by the keys (q8 keeps the frame's order on both); keys, integers and
+    nulls bit for bit, Float64 within rtol 1e-12, as the checkers of
+    phases 6 and 9 hold them: the hash tier's float sums are atomic
+    scatter-adds, whose order, and so whose last bits, vary from one
+    collect to the next. Returns the largest relative difference of the
+    Float64 columns and whether every column matched bit for bit."""
+    import numpy as np
+    if name == "sql_q8":
+        got = {("v3" if k == "largest2_v3" else k): v for k, v in got.items()}
+    assert sorted(got) == sorted(twin), \
+        f"{name}: columns {sorted(got)}, twin {sorted(twin)}"
+    keys = dict((n, k) for n, _, k in SQL_H2O)[name]
+
+    def order(cols):
+        if name == "sql_q8":
+            return np.arange(len(cols[keys[0]][0]))
+        return np.lexsort([cols[k][0] for k in reversed(keys)])
+    og, ot = order(got), order(twin)
+    rel, bits = 0.0, True
+    for k in twin:
+        g, gv = got[k]
+        w, wv = twin[k]
+        assert len(g) == len(w), f"{name}: {k} has {len(g)} rows, twin " \
+            f"{len(w)}"
+        assert g.dtype == w.dtype, f"{name}: {k} is {g.dtype}, twin {w.dtype}"
+        gv = np.ones(len(g), bool) if gv is None else gv
+        wv = np.ones(len(w), bool) if wv is None else wv
+        assert np.array_equal(gv[og], wv[ot]), f"{name}: {k} nulls differ"
+        g, w = g[og][gv[og]], w[ot][wv[ot]]
+        same = np.array_equal(_bits(g), _bits(w))
+        bits = bits and same
+        if g.dtype.kind == "f" and k not in keys:
+            both_nan = np.isnan(g) & np.isnan(w)
+            err = np.where(both_nan, 0.0, np.abs(g - w))
+            bound = 1e-12 * np.abs(w)
+            assert np.all(err <= bound), f"{name}: {k} differs from the twin"
+            rel = max(rel, float(np.max(np.where(err > 0, err / np.abs(w),
+                                                 0.0))) if len(g) else 0.0)
+        else:
+            assert same, f"{name}: {k} differs from the twin"
+    return rel, bits
+
+
+def trf_oracle(got, d, x):
+    """sql_trf against numpy: the 20 largest off-exchange shares (volume
+    printed on venue D over all volume, per symbol), each returned
+    symbol's share exact, largest first."""
+    import numpy as np
+    sym_id = x["sym_id"]
+    vol = d["volume"].astype(np.int64)
+    trf = np.bincount(sym_id, np.where(d["ex"] == "D", vol, 0),
+                      minlength=N_SYMBOLS)
+    tot = np.bincount(sym_id, vol, minlength=N_SYMBOLS)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        share = trf / tot
+    share = np.where(tot > 0, share, -np.inf)
+    sym, _, values = got["sym"]
+    names = np.asarray(values, dtype=object)[sym]
+    g = got["trf_share"][0]
+    assert len(g) == TRF_TOP, f"sql_trf: {len(g)} rows"
+    assert np.all(g[:-1] >= g[1:]), "sql_trf: not largest first"
+    ids = np.array([int(np.flatnonzero(x["tickers"] == s)[0]) for s in names])
+    assert np.array_equal(g, share[ids]), "sql_trf: a share differs"
+    assert np.array_equal(np.sort(g), np.sort(share)[-TRF_TOP:]), \
+        "sql_trf: not the 20 largest"
+    return len(g)
+
+
+def _bin_sums(labels, bins, vol, nb):
+    """{label: volume sum} of the non-empty bins."""
+    import numpy as np
+    s = np.bincount(bins, vol, minlength=nb).astype(np.int64)
+    n = np.bincount(bins, minlength=nb)
+    return {labels[i]: int(s[i]) for i in range(nb) if n[i]}
+
+
+def _cut_labels(breaks):
+    edges = ["-inf"] + [str(int(b)) if float(b).is_integer() else
+                        _fmt_float(b) for b in breaks] + ["inf"]
+    return [f"({a}, {b}]" for a, b in zip(edges[:-1], edges[1:])]
+
+
+def surface_oracle(name, got, h2o, d, x):
+    """A phase-15 surface query's result (_taq_cols) against numpy; the
+    row count and the largest error of each inexact column."""
+    import numpy as np
+    errs = {}
+    price = d["price"].astype(np.float64)
+    vol = d["volume"].astype(np.int64)
+    if name == "E3_when":
+        keys = h2o["id3"]
+        order = np.argsort(keys, kind="stable")
+        sk = keys[order]
+        starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+        s1 = np.add.reduceat(h2o["v1"][order].astype(np.int64), starts)
+        mx = np.maximum.reduceat(h2o["v3"][order], starts)
+        mn = np.minimum.reduceat(h2o["v3"][order], starts)
+        want = np.where(s1 >= 300, mx, mn)
+        gk, gx = got["id3"][0], got["x"][0]
+        perm = np.argsort(gk, kind="stable")
+        assert np.array_equal(gk[perm], sk[starts]), f"{name}: keys"
+        assert np.array_equal(_bits(gx[perm]), _bits(want)), f"{name}: x"
+        return len(starts), errs
+    if name == "E3_distinct":
+        n = len(h2o["v3"])
+        u = len(np.unique(h2o["v3"]))
+        first = np.zeros(n, bool)
+        first[np.unique(h2o["id6"], return_index=True)[1]] = True
+        def dup(a, b):
+            code = h2o[a].astype(np.int64) * (int(h2o[b].max()) + 1) + h2o[b]
+            _, inv, cnt = np.unique(code, return_inverse=True,
+                                    return_counts=True)
+            return cnt[inv] > 1
+        dup36 = dup("id3", "id6")
+        # v3 is tie-free and (id4, id5) has ~1000 rows a pair, so u and
+        # dup are constant; first, dup36 and uniq36 mix both answers, so
+        # a flag kernel that sets every flag alike fails here
+        for flags in (first, dup36):
+            assert 0 < flags.sum() < n, f"{name}: oracle flags constant"
+        assert np.all(got["u"][0] == u), f"{name}: u"
+        assert np.array_equal(got["first"][0], first), f"{name}: first"
+        assert np.array_equal(got["dup"][0], dup("id4", "id5")), \
+            f"{name}: dup"
+        assert np.array_equal(got["dup36"][0], dup36), f"{name}: dup36"
+        assert np.array_equal(got["uniq36"][0], ~dup36), f"{name}: uniq36"
+        return n, errs
+    if name in ("E3_qcut", "E3_cut"):
+        if name == "E3_qcut":
+            xs = np.sort(price)
+            n = len(xs)
+            qs = np.array([i / QCUT_BINS for i in range(1, QCUT_BINS)])
+            posf = qs * (n - 1)
+            lo = np.clip(np.floor(posf).astype(np.int64), 0, n - 1)
+            hi = np.minimum(lo + 1, n - 1)
+            lo = np.minimum(lo, hi)
+            frac = posf - lo
+            breaks = xs[lo] * (1 - frac) + xs[hi] * frac
+        else:
+            breaks = np.array(CUT_BREAKS)
+        bins = np.searchsorted(np.sort(breaks), price, "left")
+        want = _bin_sums(_cut_labels(breaks), bins, vol, len(breaks) + 1)
+        b, _, values = got["b"]
+        labels = np.asarray(values, dtype=object)[b]
+        have = dict(zip(labels.tolist(), got["volume"][0].tolist()))
+        assert have == want, f"{name}: {have} != {want}"
+        return len(have), errs
+    if name == "E3_hist":
+        lo, hi = price.min(), price.max()
+        edges = lo + (hi - lo) * np.arange(HIST_BINS + 1,
+                                           dtype=np.float64) / HIST_BINS
+        bins = np.searchsorted(edges[1:HIST_BINS], price, "left")
+        want = np.bincount(bins, minlength=HIST_BINS)
+        assert np.array_equal(got["n"][0].astype(np.int64), want), \
+            f"{name}: counts"
+        return HIST_BINS, errs
+    if name in ("E3_pivot", "E3_unpivot"):
+        sym, ex = x["sym_id"], x["ex_id"]
+        tab = np.zeros((N_SYMBOLS, len(VENUE_CODES)), np.int64)
+        np.add.at(tab, (sym, ex), vol)
+        has = np.zeros_like(tab, bool)
+        has[sym, ex] = True
+        s, _, values = got["sym"]
+        names = np.asarray(values, dtype=object)[s]
+        pos = {t: i for i, t in enumerate(x["tickers"].tolist())}
+        rows = np.array([pos[t] for t in names.tolist()])
+        if name == "E3_pivot":
+            first = np.unique(sym, return_index=True)[1]
+            assert np.array_equal(rows, sym[np.sort(first)]), \
+                f"{name}: the rows are not in order of first sight"
+            for j, code in enumerate(VENUE_CODES):
+                g, gv = got[code]
+                gv = np.ones(len(g), bool) if gv is None else gv
+                assert np.array_equal(gv, has[rows, j]), f"{name}: {code} nulls"
+                assert np.array_equal(g[gv], tab[rows, j][gv]), \
+                    f"{name}: {code}"
+            return len(rows), errs
+        e, _, evalues = got["ex"]
+        exj = np.array([VENUE_CODES.index(v) for v in
+                        np.asarray(evalues, dtype=object)[e].tolist()])
+        npiv = len(rows) // len(VENUE_CODES)
+        assert np.array_equal(exj, np.repeat(np.arange(len(VENUE_CODES)),
+                                             npiv)), f"{name}: ex"
+        g, gv = got["volume"]
+        gv = np.ones(len(g), bool) if gv is None else gv
+        assert np.array_equal(gv, has[rows, exj]), f"{name}: nulls"
+        assert np.array_equal(g[gv], tab[rows, exj][gv]), f"{name}: volume"
+        return len(rows), errs
+    if name == "E2_json_encode":
+        j, _, values = got["j"]
+        want = np.char.add(np.char.add(np.char.add(
+            np.char.add('{"ex": "', d["ex"]), '", "cond": "'), d["cond"]),
+            '"}')
+        assert np.array_equal(np.asarray(values, dtype=object)[j]
+                              .astype(str), want), f"{name}: strings"
+        return len(j), errs
+    if name == "E2_json_decode":
+        for k in ("ex", "cond"):
+            codes, _, values = got[k]
+            assert np.array_equal(np.asarray(values, dtype=object)[codes]
+                                  .astype(str), d[k]), f"{name}: {k}"
+        return len(d["ex"]), errs
+    if name == "E2_list_eval":
+        p = d["price"]
+        want = np.stack([p * 2 + 1, (p * 2) * 2 + 1], 1)
+        col = got["e"]
+        assert np.all(col["lengths"] == 2), f"{name}: lengths"
+        _same(name, "e", col["data"][:, :2].astype(np.float32), want)
+        return len(p), errs
+    if name == "E2_set_ops":
+        v = d["volume"].astype(np.int64)
+        a = (1 << (v % 7)) | (1 << (v % 5))
+        b = (1 << (v % 3)) | (1 << (v % 11))
+        want = {"set_intersection": a & b, "set_union": a | b,
+                "set_difference": a & ~b, "set_symmetric_difference": a ^ b}
+        for op, w in want.items():
+            col = got[op]
+            inside = np.arange(col["data"].shape[1])[None, :] < \
+                col["lengths"][:, None]
+            bits = np.where(inside, 1 << col["data"].astype(np.int64),
+                            0).sum(1)
+            assert np.array_equal(bits, w), f"{name}: {op}"
+            pop = np.array([bin(int(u)).count("1") for u in
+                            np.unique(w)])[np.searchsorted(np.unique(w), w)]
+            assert np.array_equal(col["lengths"], pop), \
+                f"{name}: {op} repeats an element"
+        return len(v), errs
+    raise AssertionError(f"no oracle for {name}")
+
+
+def sql_oracle(name, out, h2o, d, x):
+    """A SQL result against numpy: the H2O queries by the checkers of
+    phases 6 (check_h2o), 9 (check_sorted_tier) and 11 (check_window),
+    sql_trf by trf_oracle; the row count and the largest errors."""
+    if name == "sql_trf":
+        return trf_oracle(_taq_cols(out), d, x), {}
+    if name in ("sql_q6", "sql_q9"):
+        return check_sorted_tier(name[4:], out, h2o, {})
+    if name == "sql_q8":
+        got = {("v3" if k == "largest2_v3" else k): v
+               for k, v in host_columns(out).items()}
+        return check_window("q8", got, h2o, None, None)
+    keys = dict(((n, k) for n, _, k in SQL_H2O))[name]
+    return check_h2o(name, out, h2o, keys, None), {}
+
+
+def run_surface_phase(args, torch, TK, TP, TE, TH, TM, sqlq, surfq, twins,
+                      h2o, d, x, first_ms, runs):
+    """Phase 15: every query's collect with its launches asserted, its
+    result kept, a trace and the timed collects; then each SQL twin's
+    trace; then the oracles, and each SQL query's twin collected and
+    compared."""
+    parse_ms = {n: ms for n, _, ms in sqlq}
+    results = []
+    for name, q in [(n, lf) for n, lf, _ in sqlq] + surfq:
+        reset_launches(TK, TP, TE, TH, TM)
+        out = q.collect()
+        ql = read_launches(TK, TP, TE, TH, TM)
+        for kernel in SURFACE_MUST.get(name, ()):
+            assert ql[kernel] >= 1, f"{name} did not launch {kernel}"
+        assert ql["fallbacks"] == 0, f"{name} took the fallback"
+        runs.append(ql)
+        tr = trace_collect(q, top_n=8)
+        times = time_collects(q, args.reps)
+        results.append((name, out, ql, times, tr))
+    twin_busy = {}
+    for name, lf in twins.items():
+        twin_busy[name] = trace_collect(lf)["device_busy_ms"]
+    for name, out, ql, times, tr in results:
+        if name.startswith("sql_"):
+            nout, errs = sql_oracle(name, out, h2o, d, x)
+            if name in twins:
+                twin = host_columns(twins[name].collect())
+                rel, bits = check_twin(name, host_columns(out), twin)
+                # the twin against itself, collected again: do its float
+                # bits repeat?
+                _, self_bits = check_twin(name, twin, host_columns(
+                    twins[name].collect()))
+                errs.update(twin_rel_diff=rel, twin_bits_equal=bits,
+                            twin_repeats_bits=self_bits)
+        else:
+            nout, errs = surface_oracle(name, _taq_cols(out), h2o, d, x)
+        med = statistics.median(times)
+        print(json.dumps({
+            "phase": "surface", "query": name, "out_rows": nout,
+            "rows": H2O_ROWS if name.startswith(("sql_q", "E3_when",
+                                                 "E3_distinct"))
+            else len(d["ts"]),
+            "launches": {"F": ql["merge_sort"], "B": ql["compact_words"],
+                         "A": ql["seg_sum"], "C": ql["seg_minmax"],
+                         "D": ql["gather"], "E": ql["bucket_exchange"]},
+            "largest_error": errs, "parse_translate_ms": parse_ms.get(name),
+            "twin": SQL_TWIN.get(name),
+            "twin_busy_ms": twin_busy.get(name),
+            "first_collect_ms": first_ms.get(name), "median_ms": med,
+            "ms": times, "busy_ms": tr["device_busy_ms"],
+            "device_ops": tr["device_ops"],
+            "idle_share": 1 - tr["device_busy_ms"] / med
+            if tr["device_ops"] else None,
+            "top_op": tr["top"][0] if tr["top"] else None, "trace": tr}))
+        del out
+
+
+def make_surface(args, torch, pl, hdf, taq):
+    """Phase 15's queries over the H2O frame and the TAQ frame."""
+    tdf = taq["frame"]
+    return {"sql": sql_queries(pl, hdf, tdf),
+            "surface": surface_queries(pl, hdf, tdf),
+            "twins": twin_frames(pl, hdf)}
+
+
+def run_surface_only(args, torch, pl, TK, TP, TE, TH, TM):
+    """--only-surface: phase 2 on phase 15's launches, then phase 15."""
+    import numpy as np
+    h2o = make_h2o_data(H2O_ROWS, args.seed)
+    assert len(np.unique(h2o["v3"])) == H2O_ROWS, "v3 has ties"
+    hdf = pl.DataFrame(h2o, device="cuda")
+    taq = make_taq(args, torch, pl)
+    sf = make_surface(args, torch, pl, hdf, taq)
+    _, first_ms = check_recorded_kernels(
+        args, torch, TK, TE, TM, TP,
+        [(n, lf) for n, lf, _ in sf["sql"]] + sf["surface"])
+    run_surface_phase(args, torch, TK, TP, TE, TH, TM, sf["sql"],
+                      sf["surface"], sf["twins"], h2o, taq["data"],
+                      taq["draws"], first_ms, [])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3073,6 +3580,9 @@ def main() -> int:
     ap.add_argument("--only-taq", action="store_true",
                     help="build, then phase 2 on phase 14's launches and "
                     "phase 14 alone; prints no result line")
+    ap.add_argument("--only-surface", action="store_true",
+                    help="build, then phase 2 on phase 15's launches and "
+                    "phase 15 alone; prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -3111,6 +3621,9 @@ def main() -> int:
 
     if args.only_taq:
         run_taq_only(args, torch, pl, TK, TP, TE, TH, TM)
+        return 0
+    if args.only_surface:
+        run_surface_only(args, torch, pl, TK, TP, TE, TH, TM)
         return 0
 
     # phase 10's data, made before the first trace: on the H100 hosts this
@@ -3211,6 +3724,17 @@ def main() -> int:
         [(name, lf) for name, lf, *_ in taq["queries"]])
     for kernel, by_shape in shapes.items():
         recorded[kernel].update(by_shape)
+    # kernels F, B, A, C and E at every shape that phase 15's SQL and
+    # surface queries give them (each query's first collect, as above)
+    t0 = time.perf_counter()
+    sf = make_surface(args, torch, pl, hdf, taq)
+    shapes, surface_first_ms = check_recorded_kernels(
+        args, torch, TK, TE, TM, TP,
+        [(n, lf) for n, lf, _ in sf["sql"]] + sf["surface"])
+    for kernel, by_shape in shapes.items():
+        recorded[kernel].update(by_shape)
+    print(json.dumps({"phase": "surface_kernel_checks",
+                      "seconds": time.perf_counter() - t0}))
     lookup = check_lookup_join(args, torch, TE)
     print(json.dumps({"phase": "kernel", "shape": "lookup_join_4m_x_1m",
                       **lookup}))
@@ -3428,7 +3952,15 @@ def main() -> int:
     run_taq_phase(args, torch, TK, TP, TE, TH, TM, taq["queries"],
                   taq["data"], taq["draws"], taq_first_ms, taq["build_ms"],
                   runs)
-    del taq
+
+    # --- 15. SQL and the rest of the surface -----------------------------
+    t0 = time.perf_counter()
+    run_surface_phase(args, torch, TK, TP, TE, TH, TM, sf["sql"],
+                      sf["surface"], sf["twins"], h2o, taq["data"],
+                      taq["draws"], surface_first_ms, runs)
+    del taq, sf
+    print(json.dumps({"phase": "surface_seconds",
+                      "seconds": time.perf_counter() - t0}))
 
     # --- result ---------------------------------------------------------------
     def launches(name):
@@ -3485,6 +4017,8 @@ def main() -> int:
         exch_entry,
         msort_entry,
     ]
+    print(json.dumps({"phase": "wall", "seconds":
+                      time.perf_counter() - START}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

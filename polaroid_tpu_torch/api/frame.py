@@ -17,9 +17,9 @@ import torch
 from ..batch import Column, Table, resolve_device
 from ..config import capacity_for
 from ..dtypes import DataType
-from ..errors import ComputeError, DuplicateError
+from ..errors import ColumnNotFoundError, ComputeError, DuplicateError
 from ..expr import meta
-from ..expr.eval import eval_expr, val_to_column
+from ..expr.eval import cse_rewrite, cse_scope, eval_expr, val_to_column
 from ..expr.expr import Expr, col as _col
 from ..ops import compact as C
 from ..ops import temporal as T
@@ -165,6 +165,23 @@ class DataFrame:
                 all(isinstance(x, Series) for x in data):
             self._table = _table_of_series(data)
             return
+        if isinstance(data, (list, tuple)) and data and \
+                all(isinstance(x, dict) for x in data):
+            # row dicts
+            keys = []
+            for r in data:
+                keys.extend(k for k in r if k not in keys)
+            data = {k: [r.get(k) for r in data] for k in keys}
+        if not data and schema:
+            # an empty frame that keeps the declared schema
+            from ..batch import _empty_column
+            dev = resolve_device(device)
+            items = schema.items() if isinstance(schema, dict) else schema
+            cap = capacity_for(0)
+            cols = {n: _empty_column(d() if isinstance(d, type) else d, cap,
+                                     dev) for n, d in items}
+            self._table = Table(list(cols), cols, cap, 0, None, device=dev)
+            return
         if not isinstance(data, dict):
             raise ComputeError(
                 f"cannot construct DataFrame from {type(data)}; the port "
@@ -217,8 +234,24 @@ class DataFrame:
         return self.height
 
     def __repr__(self) -> str:
-        return f"DataFrame{self.shape} on {self.device}: " + \
-            ", ".join(f"{k}: {v!r}" for k, v in self.schema.items())
+        from .fmt import format_frame
+        return format_frame(self)
+
+    def is_empty(self) -> bool:
+        return self.height == 0
+
+    def __getitem__(self, key):
+        if isinstance(key, str):
+            return self.get_column(key)
+        if isinstance(key, (list, tuple)) and key and isinstance(key[0], str):
+            return self.select(list(key))
+        if isinstance(key, slice):
+            start = key.start or 0
+            stop = key.stop if key.stop is not None else self.height
+            return self.slice(start, stop - start)
+        if isinstance(key, int):
+            return self.row(key)
+        raise ComputeError(f"unsupported index {key!r}")
 
     # --- expression contexts --------------------------------------------
     def select(self, *exprs, **named_exprs) -> "DataFrame":
@@ -238,16 +271,22 @@ class DataFrame:
             if e0.kind == "struct_unnest":
                 inner = self.select(e0.children[0])
                 return inner.unnest(inner.columns[0])
+            if e0.kind == "rle":
+                return self._select_rle(e0, meta.output_name(es[0]))
+            if e0.kind == "cat_categories":
+                return self._select_categories(e0, meta.output_name(es[0]))
         t = self._table
         results = []
-        for e in es:
-            name = meta.output_name(e)
-            if e.kind == "col" and e.attrs["name"] in t.cols:
-                # bare column: pass the Column object through (keeps stats)
-                results.append((name, t.cols[name], False))
-                continue
-            v = eval_expr(e, t, "select")
-            results.append((name, v, v.is_scalar))
+        es, _ = cse_rewrite(es)
+        with cse_scope():
+            for e in es:
+                name = meta.output_name(e)
+                if e.kind == "col" and e.attrs["name"] in t.cols:
+                    # a bare column: the Column passes through (keeps stats)
+                    results.append((name, t.cols[name], False))
+                    continue
+                v = eval_expr(e, t, "select")
+                results.append((name, v, v.is_scalar))
         if not results:
             return DataFrame._from_table(
                 Table([], {}, capacity_for(0), 0, None, device=t.device))
@@ -270,6 +309,52 @@ class DataFrame:
                 device=t.device))
         return DataFrame._from_table(Table(names, cols, cap, 1, None,
                                            device=t.device))
+
+    def _select_rle(self, e0: Expr, name: str) -> "DataFrame":
+        """The runs of equal values of one column in the live order, as a
+        Struct{len, value} column: run starts by comparing neighbours,
+        compacted by kernel B."""
+        from ..dtypes import Struct as StructT, UInt32
+        from ..ops.cuda_partition import compact_words
+        t = C.compact(self._table)
+        n = t.count_rows()
+        v = eval_expr(e0.children[0], t, "select")
+        cap = t.capacity
+        x = v.data.expand(cap)
+        xv = v.valid_or_true().expand(cap)
+        idx = torch.arange(cap, device=t.device)
+        new = idx < n
+        new[1:] &= (xv[1:] != xv[:-1]) | (xv[1:] & (x[1:] != x[:-1]))
+        (starts,), runs = compact_words(new, [idx.to(torch.int32)])
+        runs = int(runs)
+        starts = starts.long()
+        nxt = torch.where(idx + 1 < runs, starts.roll(-1), n)
+        lens = torch.where(idx < runs, nxt - starts, 0)
+        at = starts.clamp(0, cap - 1)
+        fields = {"len": Column(UInt32, lens),
+                  "value": Column(v.dtype, x[at], None if v.validity is None
+                                  else xv[at], v.sdict)}
+        col = Column(StructT([("len", UInt32), ("value", v.dtype)]), None,
+                     fields=fields)
+        return DataFrame._from_table(C.shrink_to(
+            Table([name], {name: col}, cap, runs, None, device=t.device),
+            runs))
+
+    def _select_categories(self, e0: Expr, name: str) -> "DataFrame":
+        """The dictionary entries that the live rows use (one device
+        unique of the codes, one readback)."""
+        t = self._table
+        v = eval_expr(e0.children[0], t, "select")
+        if not v.dtype.is_string:
+            raise ComputeError(f".cat.get_categories on {v.dtype!r}")
+        codes = v.data.expand(t.capacity)
+        live = t.row_mask() & v.valid_or_true().expand(t.capacity) & \
+            (codes >= 0)
+        used = torch.unique(codes[live]).cpu().numpy()
+        cats = list((v.sdict.values if v.sdict is not None
+                     else np.array([], dtype=object))[used])
+        return DataFrame({name: cats}, schema={name: v.dtype}
+                         if not cats else None, device=self.device)
 
     def _select_compacted(self, results) -> "DataFrame":
         """A select whose results have rows of their own (a Val's `live`
@@ -310,15 +395,24 @@ class DataFrame:
     def with_columns(self, *exprs, **named_exprs) -> "DataFrame":
         es = meta.expand_exprs(_to_exprs(exprs, named_exprs), self.schema)
         t = self._table
+        # common subexpressions are shared when no expression reads a
+        # column that another one (re)defines (every expression sees the
+        # input frame)
+        reads = set()
         for e in es:
-            v = eval_expr(e, t, "select")
-            if v.live is not None:
-                from ..errors import InvalidOperationError
-                raise InvalidOperationError(
-                    f"{meta.output_name(e)!r}: an expression that changes "
-                    "the frame's length works only in a select")
-            t = t.with_column(meta.output_name(e),
-                              val_to_column(v, t.capacity))
+            reads |= meta.root_names(e)
+        if not ({meta.output_name(e) for e in es} & reads):
+            es, _ = cse_rewrite(es)
+        with cse_scope():
+            for e in es:
+                v = eval_expr(e, t, "select")
+                if v.live is not None:
+                    from ..errors import InvalidOperationError
+                    raise InvalidOperationError(
+                        f"{meta.output_name(e)!r}: an expression that "
+                        "changes the frame's length works only in a select")
+                t = t.with_column(meta.output_name(e),
+                                  val_to_column(v, t.capacity))
         return DataFrame._from_table(t)
 
     def filter(self, *predicates, **constraints) -> "DataFrame":
@@ -658,3 +752,572 @@ class DataFrame:
         d = self._table.to_numpy_dict()
         return np.column_stack([np.asarray(v) for v in d.values()]) \
             if d else np.zeros((0, 0))
+
+    # --- the rest of the frame surface ------------------------------------
+    def with_row_index(self, name: str = "index", offset: int = 0
+                       ) -> "DataFrame":
+        """A UInt32 row number (from `offset`) as the first column."""
+        from ..dtypes import UInt32
+        t = C.compact(self._table)
+        idx = torch.arange(t.capacity, device=t.device) + offset
+        out = t.with_column(name, Column(UInt32, idx))
+        return DataFrame._from_table(out.select_columns(
+            [name] + [n for n in out.names if n != name]))
+
+    def with_row_count(self, name: str = "row_nr", offset: int = 0
+                       ) -> "DataFrame":
+        return self.with_row_index(name, offset)
+
+    def drop(self, *names, strict: bool = True) -> "DataFrame":
+        flat = _column_names(names)
+        if strict:
+            for n in flat:
+                if n not in self._table.cols:
+                    raise ColumnNotFoundError(f"{n!r} not found")
+        return DataFrame._from_table(self._table.drop_columns(flat))
+
+    def drop_in_place(self, name: str) -> Series:
+        s = self.get_column(name)
+        self._table = self.drop(name)._table
+        return s
+
+    def rename(self, mapping: Dict[str, str], strict: bool = True
+               ) -> "DataFrame":
+        return DataFrame._from_table(self._table.rename(mapping, strict))
+
+    def cast(self, dtypes, strict: bool = True) -> "DataFrame":
+        exprs = [_col(k).cast(v, strict=strict) for k, v in dtypes.items()] \
+            if isinstance(dtypes, dict) else \
+            [_col(n).cast(dtypes, strict=strict) for n in self.columns]
+        return self.with_columns(exprs)
+
+    def limit(self, n: int = 5) -> "DataFrame":
+        return self.head(n)
+
+    def slice(self, offset: int, length: Optional[int] = None
+              ) -> "DataFrame":
+        return DataFrame._from_table(C.slice_rows(self._table, offset,
+                                                  length))
+
+    def reverse(self) -> "DataFrame":
+        t = C.compact(self._table)
+        n = t.count_rows()
+        idx = torch.arange(t.capacity, device=t.device)
+        perm = torch.where(idx < n, n - 1 - idx, idx)
+        return DataFrame._from_table(C.gather_table(t, perm, n, None))
+
+    def gather_every(self, n: int, offset: int = 0) -> "DataFrame":
+        return self.select([_col(c).gather_every(n, offset)
+                            for c in self.columns])
+
+    def n_unique(self, subset=None) -> int:
+        return self.unique(subset).height
+
+    def approx_n_unique(self) -> "DataFrame":
+        return self.select([_col(n).n_unique().alias(n)
+                            for n in self.columns])
+
+    def product(self) -> "DataFrame":
+        return self._agg_all("product")
+
+    def quantile(self, q: float, interpolation: str = "nearest"
+                 ) -> "DataFrame":
+        return self._agg_all("quantile", q=q, interpolation=interpolation)
+
+    def count(self) -> "DataFrame":
+        return self.select([_col(n).count().alias(n) for n in self.columns])
+
+    def fill_nan(self, value) -> "DataFrame":
+        return self.with_columns([_col(n).fill_nan(value)
+                                  for n in self.columns
+                                  if self.schema[n].is_float])
+
+    def drop_nans(self, subset=None) -> "DataFrame":
+        """The rows with no NaN in the float `subset` columns (nulls
+        stay)."""
+        names = [subset] if isinstance(subset, str) else \
+            (subset or self.columns)
+        pred = None
+        for n in names:
+            if self.schema[n].is_float:
+                p = _col(n).is_not_nan().fill_null(True)
+                pred = p if pred is None else pred & p
+        return self.filter(pred) if pred is not None else self
+
+    def remove(self, *predicates, **constraints) -> "DataFrame":
+        """The rows where the predicates do not all hold."""
+        preds = [p if isinstance(p, Expr) else _col(str(p))
+                 for p in predicates]
+        preds += [_col(k) == v for k, v in constraints.items()]
+        if not preds:
+            return self
+        keep = preds[0]
+        for p in preds[1:]:
+            keep = keep & p
+        return self.filter(~keep.fill_null(False))
+
+    # --- horizontal -------------------------------------------------------
+    def fold(self, operation) -> Series:
+        acc = self.get_column(self.columns[0])
+        for n in self.columns[1:]:
+            acc = operation(acc, self.get_column(n))
+        return acc
+
+    def _horizontal(self, fn, name: str) -> Series:
+        from . import functions as F
+        return self.select(getattr(F, fn)(*self.columns).alias(name)) \
+            .get_column(name)
+
+    def max_horizontal(self) -> Series:
+        return self._horizontal("max_horizontal", "max")
+
+    def min_horizontal(self) -> Series:
+        return self._horizontal("min_horizontal", "min")
+
+    def sum_horizontal(self) -> Series:
+        return self._horizontal("sum_horizontal", "sum")
+
+    def mean_horizontal(self) -> Series:
+        return self._horizontal("mean_horizontal", "mean")
+
+    # --- distinct rows ----------------------------------------------------
+    def is_duplicated(self) -> Series:
+        """Whether each row's values occur in another row too: one sort of
+        the rows by all columns (`expr/misc.distinct_flags`)."""
+        return self._row_flags("is_duplicated", "dup")
+
+    def is_unique(self) -> Series:
+        return self._row_flags("is_unique", "uniq")
+
+    def _row_flags(self, kind: str, name: str) -> Series:
+        from ..dtypes import Boolean
+        from ..expr.eval import column_to_val
+        from ..expr.misc import distinct_flags
+        t = C.compact(self._table)
+        n = t.count_rows()
+        keys = [column_to_val(t.cols[c]) for c in t.names]
+        flags = distinct_flags(keys, t.row_mask(), kind)
+        return Series._from_column(name, Column(Boolean, flags), n)
+
+    # --- reshaping ----------------------------------------------------------
+    def pivot(self, on, *, index=None, values=None,
+              aggregate_function: str = "first", on_columns=None,
+              separator: str = "_") -> "DataFrame":
+        """One column per distinct `on` value (sorted; `on_columns` names
+        them instead), filled by the aggregate of each `values` column
+        over the rows of that value, per `index` group; a combination
+        with no rows is null. The distinct values are found on the device
+        and read back once, for the column names."""
+        from ..expr.expr import when
+        on_names = [on] if isinstance(on, str) else list(on)
+        if len(on_names) != 1:
+            raise ComputeError("pivot supports a single `on` column")
+        on_col = on_names[0]
+        index = [index] if isinstance(index, str) else list(index or [])
+        if not index:
+            index = [c for c in self.columns if c != on_col and
+                     (values is None or c not in values)][:1]
+        if values is None:
+            values = [c for c in self.columns
+                      if c != on_col and c not in index]
+        values = [values] if isinstance(values, str) else list(values)
+        if on_columns is not None:
+            distinct = list(on_columns.to_list()
+                            if hasattr(on_columns, "to_list") else on_columns)
+        else:
+            distinct = sorted(self.select(on_col).unique()
+                              .get_column(on_col).to_list(),
+                              key=lambda x: (x is None, x))
+        aggs = []
+        for v in values:
+            for d in distinct:
+                sel = _col(on_col).is_null() if d is None \
+                    else _col(on_col) == d
+                agg = getattr(_col(v).filter(sel), aggregate_function)()
+                name = str(d) if len(values) == 1 else f"{v}{separator}{d}"
+                aggs.append(when(sel.sum() > 0).then(agg).alias(name))
+        return self.group_by(index, maintain_order=True).agg(aggs)
+
+    def unpivot(self, on=None, *, index=None,
+                variable_name: str = "variable",
+                value_name: str = "value") -> "DataFrame":
+        return self.lazy().unpivot(on, index=index,
+                                   variable_name=variable_name,
+                                   value_name=value_name).collect()
+
+    melt = unpivot
+
+    def partition_by(self, *by, as_dict: bool = False,
+                     maintain_order: bool = True):
+        """One frame per distinct key of the `by` columns."""
+        names = _column_names(by)
+        key_rows = self.select(names).unique(
+            maintain_order=maintain_order).rows()
+        out = []
+        for row in key_rows:
+            pred = None
+            for n, v in zip(names, row):
+                p = _col(n).is_null() if v is None else _col(n) == v
+                pred = p if pred is None else pred & p
+            out.append(self.filter(pred))
+        if as_dict:
+            return {row if len(row) > 1 else row[0]: df
+                    for row, df in zip(key_rows, out)}
+        return out
+
+    def transpose(self, include_header: bool = False,
+                  header_name: str = "column", column_names=None
+                  ) -> "DataFrame":
+        d = self.to_dict()
+        rows = list(zip(*[d[n] for n in self.columns])) if self.columns \
+            else []
+        names = list(column_names) if column_names is not None else \
+            [f"column_{i}" for i in range(self.height)]
+        out = {header_name: list(self.columns)} if include_header else {}
+        for i, r in enumerate(rows):
+            out[names[i]] = list(r)
+        return DataFrame(out, device=self.device)
+
+    def unstack(self, *, step: int, how: str = "vertical", columns=None,
+                fill_values=None) -> "DataFrame":
+        cols = [columns] if isinstance(columns, str) else \
+            (list(columns) if columns is not None else list(self.columns))
+        d = self.to_dict()
+        n = self.height
+        k = -(-n // step)
+        out = {}
+        for c in cols:
+            vals = d[c]
+            for i in range(step):
+                chunk = vals[i * k:(i + 1) * k] if how == "vertical" \
+                    else vals[i::step]
+                out[f"{c}_{i}"] = chunk + [fill_values] * (k - len(chunk))
+        return DataFrame(out, device=self.device)
+
+    def to_dummies(self, columns=None, *, separator: str = "_",
+                   drop_first: bool = False) -> "DataFrame":
+        """A UInt8 indicator column per distinct value of each column;
+        the distinct values are read back once per column."""
+        from ..dtypes import UInt8
+        cols = [columns] if isinstance(columns, str) else \
+            (list(columns) if columns is not None else list(self.columns))
+        exprs = []
+        for n in self.columns:
+            if n not in cols:
+                exprs.append(_col(n))
+                continue
+            cats = sorted((v for v in self.select(n).unique()
+                           .get_column(n).to_list() if v is not None),
+                          key=str)
+            for c in cats[1:] if drop_first else cats:
+                exprs.append((_col(n) == c).fill_null(False).cast(UInt8)
+                             .alias(f"{n}{separator}{c}"))
+        return self.select(exprs)
+
+    # --- sampling -----------------------------------------------------------
+    def sample(self, n: Optional[int] = None, *,
+               fraction: Optional[float] = None, with_replacement: bool = False,
+               shuffle: bool = False, seed: Optional[int] = None
+               ) -> "DataFrame":
+        """`n` rows (or `fraction` of them) drawn on the device from a
+        seeded `torch.Generator` (`expr/misc.sample_order`); in frame order
+        unless `shuffle`."""
+        from ..expr.misc import sample_order
+        t = C.compact(self._table)
+        total = t.count_rows()
+        if n is None:
+            n = total if fraction is None else int(total * fraction)
+        if not with_replacement:
+            n = min(n, total)
+        if with_replacement and n > t.capacity:
+            t = C.grow_to(t, capacity_for(n))
+        src, _ = sample_order(t.row_mask() if total else
+                              torch.zeros(t.capacity, dtype=torch.bool,
+                                          device=t.device),
+                              seed, with_replacement)
+        head = src[:n]
+        if not shuffle:
+            head = torch.sort(head).values
+        perm = torch.cat([head, src[n:]])
+        return DataFrame._from_table(C.shrink_to(
+            C.gather_table(t, perm, n, None), n))
+
+    def shuffle(self, seed: Optional[int] = None) -> "DataFrame":
+        return self.sample(fraction=1.0, shuffle=True, seed=seed)
+
+    # --- combining ------------------------------------------------------------
+    def extend(self, other: "DataFrame") -> "DataFrame":
+        """Append `other`'s rows in place."""
+        self._table = self.vstack(other)._table
+        return self
+
+    def insert_column(self, index: int, series: Series) -> "DataFrame":
+        names = list(self.columns)
+        names.insert(index, series.name)
+        t = self.hstack(series.to_frame())._table
+        return DataFrame._from_table(t.select_columns(names))
+
+    def replace_column(self, index: int, series: Series) -> "DataFrame":
+        names = list(self.columns)
+        out = self.drop(names[index]).hstack(series.to_frame())
+        names[index] = series.name
+        return DataFrame._from_table(out._table.select_columns(names))
+
+    def merge_sorted(self, other: "DataFrame", key: str) -> "DataFrame":
+        return self.lazy().merge_sorted(other.lazy(), key).collect()
+
+    def update(self, other: "DataFrame", on=None, how: str = "left",
+               include_nulls: bool = False) -> "DataFrame":
+        """This frame's values replaced by `other`'s non-null values (or
+        all of them with `include_nulls`), matched by `on` or by row
+        position."""
+        from ..expr.expr import when
+        shared = [c for c in other.columns if c in self.columns]
+        if on is None:
+            left = self.with_row_index("__pt_upd")
+            right = other.with_row_index("__pt_upd")
+            keys = ["__pt_upd"]
+        else:
+            left, right = self, other
+            keys = [on] if isinstance(on, str) else list(on)
+        upd = [c for c in shared if c not in keys]
+        right = right.select([_col(k) for k in keys] +
+                             [_col(c).alias(f"__pt_new_{c}") for c in upd])
+        j = left.join(right, on=keys, how=how)
+        exprs = []
+        for c in j.columns:
+            if c.startswith("__pt_new_") or c == "__pt_upd":
+                continue
+            if c in upd:
+                new = _col(f"__pt_new_{c}")
+                exprs.append(new.alias(c) if include_nulls else
+                             when(new.is_not_null()).then(new)
+                             .otherwise(_col(c)).alias(c))
+            else:
+                exprs.append(_col(c))
+        return j.select(exprs)
+
+    # --- introspection and conversion ------------------------------------------
+    def collect_schema(self) -> Dict[str, DataType]:
+        return dict(self.schema)
+
+    def get_column_index(self, name: str) -> int:
+        if name not in self.columns:
+            raise ColumnNotFoundError(name)
+        return self.columns.index(name)
+
+    def get_columns(self) -> List[Series]:
+        return [self.get_column(n) for n in self.columns]
+
+    def iter_columns(self):
+        for n in self.columns:
+            yield self.get_column(n)
+
+    def to_series(self, index: int = 0) -> Series:
+        return self.get_column(self.columns[index])
+
+    def row(self, index: int, *, named: bool = False):
+        r = self.slice(index, 1).rows(named=named)
+        return r[0]
+
+    def item(self, row: Optional[int] = None, column=None):
+        if row is None and column is None:
+            if self.shape != (1, 1):
+                from ..errors import ShapeError
+                raise ShapeError(
+                    f"can only call .item() on 1x1 frame, got {self.shape}")
+            return self.rows()[0][0]
+        name = column if isinstance(column, str) else self.columns[column]
+        return self.get_column(name).to_list()[row]
+
+    def iter_rows(self, named: bool = False):
+        yield from self.rows(named=named)
+
+    def iter_slices(self, n_rows: int = 10000):
+        for off in range(0, self.height, n_rows):
+            yield self.slice(off, n_rows)
+
+    def to_dicts(self) -> List[Dict[str, Any]]:
+        return self.rows(named=True)
+
+    def rows_by_key(self, key, *, named: bool = False, unique: bool = False,
+                    include_key: bool = False):
+        keys = [key] if isinstance(key, str) else list(key)
+        vnames = [c for c in self.columns
+                  if include_key or c not in keys]
+        out: Dict[Any, Any] = {}
+        for r in self.rows(named=True):
+            kv = r[keys[0]] if len(keys) == 1 else tuple(r[k] for k in keys)
+            val = {c: r[c] for c in vnames} if named \
+                else tuple(r[c] for c in vnames)
+            if unique:
+                out[kv] = val
+            else:
+                out.setdefault(kv, []).append(val)
+        return out
+
+    def equals(self, other: "DataFrame", *, null_equal: bool = True) -> bool:
+        return self.columns == other.columns and \
+            self.schema == other.schema and self.rows() == other.rows()
+
+    def estimated_size(self, unit: str = "b"):
+        total = 0
+        for c in self._table.cols.values():
+            for x in (c.data, c.validity, c.lengths, c.elem_valid):
+                if x is not None:
+                    total += x.numel() * x.element_size()
+        div = {"b": 1, "kb": 1024, "mb": 1024 ** 2, "gb": 1024 ** 3}[unit]
+        return total / div if div > 1 else int(total)
+
+    def hash_rows(self, seed: int = 0) -> Series:
+        """A UInt32 hash of each row's values (the port's mix of
+        `ops/hashing`; the JAX package's hashes differ in value)."""
+        from ..dtypes import UInt32
+        from ..ops.hashing import combine_hashes, hash_array
+        t = C.compact(self._table)
+        acc = None
+        for n in t.names:
+            c = t.cols[n]
+            h = hash_array(c.data, c.dtype, seed)
+            acc = h if acc is None else combine_hashes(acc, h)
+        return Series._from_column("", Column(UInt32, acc), t.count_rows())
+
+    def match_to_schema(self, schema, *, missing_columns: str = "raise",
+                        extra_columns: str = "raise") -> "DataFrame":
+        from ..errors import SchemaError
+        from ..expr.expr import lit
+        tgt = dict(schema)
+        out = self
+        extra = [n for n in out.columns if n not in tgt]
+        if extra:
+            if extra_columns != "ignore":
+                raise SchemaError(f"extra columns {extra}")
+            out = out.drop(*extra)
+        exprs = []
+        for n, dt in tgt.items():
+            dt = dt() if isinstance(dt, type) else dt
+            if n in out.columns:
+                exprs.append(_col(n).cast(dt) if out.schema[n] != dt
+                             else _col(n))
+            elif missing_columns == "insert":
+                exprs.append(lit(None, dtype=dt).alias(n))
+            else:
+                raise SchemaError(f"missing column {n!r}")
+        return out.select(exprs)
+
+    def to_torch(self, return_type: str = "tensor"):
+        """The columns as tensors on the frame's device: a dict of them,
+        or one float32 (rows, columns) tensor."""
+        t = C.compact(self._table)
+        n = t.count_rows()
+        if return_type == "dict":
+            return {c: t.cols[c].data[:n] for c in t.names}
+        return torch.stack([t.cols[c].data[:n].to(torch.float32)
+                            for c in t.names], 1)
+
+    def to_init_repr(self, n: int = 1000) -> str:
+        d = self.head(n).to_dict()
+        body = ",\n    ".join(
+            f'pl.Series("{c}", {d[c]!r}, dtype=pl.{self.schema[c]!r})'
+            for c in self.columns)
+        return f"pl.DataFrame([\n    {body}\n])"
+
+    def corr(self, **kw) -> "DataFrame":
+        """The Pearson correlation matrix of the numeric columns."""
+        num = [c for c in self.columns if self.schema[c].is_numeric]
+        t = C.compact(self._table)
+        n = t.count_rows()
+        mat = torch.corrcoef(torch.stack(
+            [t.cols[c].data[:n].to(torch.float64) for c in num]))
+        mat = torch.atleast_2d(mat).cpu().numpy()
+        return DataFrame({c: mat[i] for i, c in enumerate(num)},
+                         device=self.device)
+
+    # --- misc -------------------------------------------------------------
+    def pipe(self, function, *args, **kwargs):
+        return function(self, *args, **kwargs)
+
+    def select_seq(self, *exprs, **named) -> "DataFrame":
+        return self.select(*exprs, **named)
+
+    def with_columns_seq(self, *exprs, **named) -> "DataFrame":
+        return self.with_columns(*exprs, **named)
+
+    def map_rows(self, function, return_dtype=None) -> "DataFrame":
+        """`function` over each row tuple, on the host."""
+        outs = [function(r) for r in self.rows()]
+        if outs and isinstance(outs[0], tuple):
+            cols = {f"column_{i}": [o[i] for o in outs]
+                    for i in range(len(outs[0]))}
+        else:
+            cols = {"map": outs}
+        return DataFrame(cols, device=self.device)
+
+    def map_columns(self, names, function) -> "DataFrame":
+        names = [names] if isinstance(names, str) else list(names)
+        out = self
+        for n in names:
+            s = function(out.get_column(n))
+            out = out.replace_column(out.columns.index(n), s.alias(n))
+        return out
+
+    def glimpse(self, *, return_as_string: bool = False):
+        from .fmt import glimpse
+        out = glimpse(self)
+        if return_as_string:
+            return out
+        print(out)
+        return None
+
+    def show(self, n: int = 10) -> None:
+        print(self.head(n))
+
+    def sql(self, query: str, *, table_name: str = "self") -> "DataFrame":
+        """SQL over this frame, registered as `table_name`."""
+        from ..sql.context import SQLContext
+        return SQLContext({table_name: self}).execute(query, eager=True)
+
+    def clear(self, n: int = 0) -> "DataFrame":
+        """A frame of this schema with `n` rows, all null."""
+        from ..batch import _empty_column
+        cap = capacity_for(n)
+        none = torch.zeros(cap, dtype=torch.bool, device=self.device)
+        cols = {}
+        for k, dt in self.schema.items():
+            c = _empty_column(dt, cap, self.device)
+            cols[k] = c if not n else Column(c.dtype, c.data, none, c.sdict,
+                                             lengths=c.lengths,
+                                             elem_valid=c.elem_valid,
+                                             fields=c.fields)
+        return DataFrame._from_table(Table(list(cols), cols, cap, n, None,
+                                           device=self.device))
+
+    def clone(self) -> "DataFrame":
+        return DataFrame._from_table(self._table)
+
+    def rechunk(self) -> "DataFrame":
+        return self
+
+    def shrink_to_fit(self, in_place: bool = False) -> "DataFrame":
+        return self if in_place else self.clone()
+
+    def n_chunks(self, strategy: str = "first"):
+        return 1 if strategy == "first" else [1] * self.width
+
+    def flags(self) -> Dict[str, dict]:
+        return {n: {"SORTED_ASC": False, "SORTED_DESC": False}
+                for n in self.columns}
+
+    def set_sorted(self, column, *, descending: bool = False
+                   ) -> "DataFrame":
+        return self     # sortedness is found where it is needed
+
+    @property
+    def style(self):
+        raise ModuleNotFoundError(
+            "DataFrame.style requires great_tables, which is not bundled")
+
+    @property
+    def plot(self):
+        raise ModuleNotFoundError(
+            "plotting requires altair, which is not bundled")

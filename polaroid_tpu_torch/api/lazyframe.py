@@ -280,10 +280,281 @@ class LazyFrame:
     def lazy(self) -> "LazyFrame":
         return self
 
+    # --- the rest of the lazy surface --------------------------------------
+    def collect_schema(self) -> Dict[str, object]:
+        return self.schema
+
+    @property
+    def dtypes(self):
+        return list(self._plan.schema().values())
+
+    @property
+    def width(self) -> int:
+        return len(self.columns)
+
+    def show_graph(self) -> str:
+        return self.explain()
+
+    def optimized_plan(self) -> L.Plan:
+        return optimize(self._plan)
+
+    def drop(self, *names, strict: bool = True) -> "LazyFrame":
+        from .frame import _column_names
+        return LazyFrame._from_plan(L.Drop(self._plan, _column_names(names),
+                                           strict))
+
+    def rename(self, mapping: Dict[str, str], strict: bool = True
+               ) -> "LazyFrame":
+        return LazyFrame._from_plan(L.Rename(self._plan, dict(mapping)))
+
+    def cast(self, dtypes, strict: bool = True) -> "LazyFrame":
+        exprs = [_col(k).cast(v, strict=strict) for k, v in dtypes.items()] \
+            if isinstance(dtypes, dict) else \
+            [_col(n).cast(dtypes, strict=strict) for n in self.columns]
+        return self.with_columns(exprs)
+
+    def with_row_index(self, name: str = "index", offset: int = 0
+                       ) -> "LazyFrame":
+        return LazyFrame._from_plan(L.WithRowIndex(self._plan, name, offset))
+
+    def with_row_count(self, name: str = "row_nr", offset: int = 0
+                       ) -> "LazyFrame":
+        return self.with_row_index(name, offset)
+
+    def drop_nulls(self, subset=None) -> "LazyFrame":
+        names = [subset] if isinstance(subset, str) else \
+            (subset or self.columns)
+        pred = None
+        for n in names:
+            p = _col(n).is_not_null()
+            pred = p if pred is None else pred & p
+        return self.filter(pred) if pred is not None else self
+
+    def drop_nans(self, subset=None) -> "LazyFrame":
+        sch = self.schema
+        names = [subset] if isinstance(subset, str) else (subset or list(sch))
+        pred = None
+        for n in names:
+            if sch[n].is_float:
+                p = _col(n).is_not_nan().fill_null(True)  # nulls are kept
+                pred = p if pred is None else pred & p
+        return self.filter(pred) if pred is not None else self
+
+    def fill_nan(self, value) -> "LazyFrame":
+        exprs = [_col(n).fill_nan(value) for n, dt in self.schema.items()
+                 if dt.is_float]
+        return self.with_columns(exprs) if exprs else self
+
+    def remove(self, *predicates, **constraints) -> "LazyFrame":
+        preds = [p if isinstance(p, Expr) else _col(str(p))
+                 for p in predicates]
+        preds += [_col(k) == v for k, v in constraints.items()]
+        if not preds:
+            return self
+        keep = preds[0]
+        for p in preds[1:]:
+            keep = keep & p
+        return self.filter(~keep.fill_null(False))
+
+    def gather_every(self, n: int, offset: int = 0) -> "LazyFrame":
+        return self.select([_col(c).gather_every(n, offset)
+                            for c in self.columns])
+
+    def reverse(self) -> "LazyFrame":
+        return self.select([_col(c).reverse() for c in self.columns])
+
+    def merge_sorted(self, other: "LazyFrame", key: str) -> "LazyFrame":
+        """Two frames sorted by `key` merged into one: a stable sort of
+        their union by the key."""
+        union = L.Union([self._plan, other._plan], "vertical_relaxed")
+        return LazyFrame._from_plan(
+            L.Sort(union, [_col(key)], [False], [False], True))
+
+    def unpivot(self, on=None, *, index=None,
+                variable_name: str = "variable",
+                value_name: str = "value") -> "LazyFrame":
+        index = [index] if isinstance(index, str) else list(index or [])
+        if on is None:
+            on = [c for c in self.columns if c not in index]
+        on = [on] if isinstance(on, str) else list(on)
+        return LazyFrame._from_plan(
+            L.Unpivot(self._plan, on, index, variable_name, value_name))
+
+    melt = unpivot
+
+    def pivot(self, on, on_columns, *, index=None, values=None,
+              aggregate_function=None, maintain_order: bool = False,
+              separator: str = "_") -> "LazyFrame":
+        """A pivot whose output columns `on_columns` names up front (so
+        the schema is known before the run)."""
+        on_col = on if isinstance(on, str) else list(on)[0]
+        combos = list(on_columns.to_list() if hasattr(on_columns, "to_list")
+                      else on_columns)
+        schema = self._plan.schema()
+        idx = [index] if isinstance(index, str) else list(index or [])
+        vals = [values] if isinstance(values, str) else \
+            list(values) if values is not None else None
+        if not idx:
+            idx = [c for c in schema if c != on_col and
+                   (vals is None or c not in vals)][:1]
+        if vals is None:
+            vals = [c for c in schema if c != on_col and c not in idx]
+
+        def run(df):
+            return df.pivot(on_col, index=idx, values=vals,
+                            aggregate_function=aggregate_function or "first",
+                            on_columns=combos, separator=separator)
+
+        def out_schema(ins):
+            out = {c: ins[c] for c in idx}
+            for v in vals:
+                for c in combos:
+                    out[str(c) if len(vals) == 1
+                        else f"{v}{separator}{c}"] = ins[v]
+            return out
+        return self._map_frame(run, out_schema, "pivot")
+
+    def _map_frame(self, fn, schema_fn=None, label: str = "map"
+                   ) -> "LazyFrame":
+        """An opaque DataFrame -> DataFrame step of the plan."""
+        def wrapped(t):
+            from .frame import DataFrame
+            return fn(DataFrame._from_table(t))._table
+        return LazyFrame._from_plan(L.MapFunction(self._plan, wrapped,
+                                                  schema_fn, False, label))
+
+    def map_batches(self, fn, schema=None, streamable: bool = False
+                    ) -> "LazyFrame":
+        return self._map_frame(fn, (lambda s: dict(schema)) if schema
+                               else None)
+
+    def match_to_schema(self, schema, **kw) -> "LazyFrame":
+        sch = {n: (d() if isinstance(d, type) else d)
+               for n, d in dict(schema).items()}
+        return self._map_frame(lambda df: df.match_to_schema(schema, **kw),
+                               lambda _s: sch)
+
+    def update(self, other: "LazyFrame", on=None, how: str = "left",
+               include_nulls: bool = False) -> "LazyFrame":
+        def fn(df):
+            o = other.collect() if isinstance(other, LazyFrame) else other
+            return df.update(o, on=on, how=how, include_nulls=include_nulls)
+        return self._map_frame(fn)
+
+    def with_context(self, other) -> "LazyFrame":
+        """The other frames' columns beside this one's, at collect."""
+        others = other if isinstance(other, (list, tuple)) else [other]
+
+        def fn(df):
+            for o in others:
+                df = df.hstack(o.collect() if isinstance(o, LazyFrame)
+                               else o)
+            return df
+        return self._map_frame(fn)
+
+    def inspect(self, fmt: str = "{}") -> "LazyFrame":
+        def fn(df):
+            print(fmt.format(df))
+            return df
+        return self._map_frame(fn, label="inspect")
+
+    def cache(self) -> "LazyFrame":
+        return LazyFrame._from_plan(L.Cache(self._plan))
+
+    def clone(self) -> "LazyFrame":
+        return LazyFrame._from_plan(self._plan)
+
+    def clear(self, n: int = 0) -> "LazyFrame":
+        return self.collect().clear(n).lazy()
+
+    def set_sorted(self, column, *, descending: bool = False
+                   ) -> "LazyFrame":
+        return self     # sortedness is found where it is needed
+
+    def pipe(self, function, *args, **kwargs):
+        return function(self, *args, **kwargs)
+
+    def pipe_with_schema(self, function) -> "LazyFrame":
+        return function(self, dict(self._plan.schema()))
+
+    def select_seq(self, *exprs, **named) -> "LazyFrame":
+        return self.select(*exprs, **named)
+
+    def with_columns_seq(self, *exprs, **named) -> "LazyFrame":
+        return self.with_columns(*exprs, **named)
+
+    def _agg_all(self, agg: str, **kw) -> "LazyFrame":
+        cols = [n for n, dt in self._plan.schema().items()
+                if agg in ("count", "null_count", "first", "last")
+                or dt.is_numeric or dt.is_bool or dt.is_temporal
+                or (agg in ("min", "max") and dt.is_string)]
+        return self.select([Expr("agg", (_col(n),), agg=agg, **kw).alias(n)
+                            for n in cols])
+
+    def sum(self) -> "LazyFrame":
+        return self._agg_all("sum")
+
+    def mean(self) -> "LazyFrame":
+        return self._agg_all("mean")
+
+    def min(self) -> "LazyFrame":
+        return self._agg_all("min")
+
+    def max(self) -> "LazyFrame":
+        return self._agg_all("max")
+
+    def median(self) -> "LazyFrame":
+        return self._agg_all("median")
+
+    def std(self, ddof: int = 1) -> "LazyFrame":
+        return self._agg_all("std", ddof=ddof)
+
+    def var(self, ddof: int = 1) -> "LazyFrame":
+        return self._agg_all("var", ddof=ddof)
+
+    def quantile(self, q: float, interpolation: str = "nearest"
+                 ) -> "LazyFrame":
+        return self._agg_all("quantile", q=q, interpolation=interpolation)
+
+    def null_count(self) -> "LazyFrame":
+        return self._agg_all("null_count")
+
+    def count(self) -> "LazyFrame":
+        return self._agg_all("count")
+
+    def approx_n_unique(self) -> "LazyFrame":
+        return self._agg_all("n_unique")
+
+    def describe(self):
+        return self.collect().describe()
+
+    def fetch(self, n_rows: int = 500):
+        return self.head(n_rows).collect()
+
+    def profile(self, **kw):
+        """(the result, a frame of the run's wall time on the host)."""
+        import time
+        from .frame import DataFrame
+        t0 = time.perf_counter()
+        out = self.collect()
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, DataFrame({"node": ["collect"], "ms": [ms]},
+                              device=out.device)
+
+    def show(self, n: int = 10) -> None:
+        print(self.head(n).collect())
+
+    def sql(self, query: str, *, table_name: str = "self") -> "LazyFrame":
+        """SQL over this frame, registered as `table_name`."""
+        from ..sql.context import SQLContext
+        return SQLContext({table_name: self}).execute(query)
+
     # --- execution ------------------------------------------------------
-    def collect(self):
+    def collect(self, **kw):
         """Run the plan; the result's live rows are compacted on the
-        device and its row count stays there until the host reads it."""
+        device and its row count stays there until the host reads it.
+        polars' engine options are accepted and change nothing: every
+        plan runs in memory on the frame's device."""
         from .frame import DataFrame
         from ..exec.executor import execute
         from ..ops.compact import compact

@@ -34,7 +34,8 @@ from .dtypes import (
     Null, String,
     dtype_from_numpy, physical_numpy_dtype,
 )
-from .errors import ColumnNotFoundError, ShapeError
+from .errors import ColumnNotFoundError, ComputeError, DuplicateError, \
+    SchemaError, ShapeError
 from .strings import EMPTY_DICT, NULL_CODE, StringDict
 
 __all__ = ["Column", "Table", "resolve_device", "storage_torch_dtype",
@@ -61,8 +62,7 @@ def storage_torch_dtype(dt: DataType) -> torch.dtype:
     try:
         return _STORAGE[name]
     except KeyError:
-        raise NotImplementedError(
-            f"{name} columns are not ported yet") from None
+        raise SchemaError(f"no physical dtype for {name}") from None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -633,8 +633,9 @@ def _coerce_host_values(values, dtype: Optional[DataType]):
         elif isinstance(v0, _pydt.timedelta):
             dt = Duration("us")
         else:
-            raise NotImplementedError(
-                f"host values of type {type(v0).__name__} are not ported yet")
+            raise ComputeError(
+                f"cannot build a column from host values of type "
+                f"{type(v0).__name__}")
     if dt.is_string:
         codes, sdict = StringDict.encode(np.asarray(seq, dtype=object), mask)
         return codes, mask, dt, sdict
@@ -764,6 +765,23 @@ class Table:
                     f"{n!r} not found; available: {self.names}")
         return Table(list(names), {n: self.cols[n] for n in names},
                      self.capacity, self._nrows, self.valid,
+                     nrows_dev=self.nrows_dev, device=self.device)
+
+    def drop_columns(self, names: Sequence[str]) -> "Table":
+        drop = set(names)
+        return self.select_columns([n for n in self.names if n not in drop])
+
+    def rename(self, mapping: Dict[str, str], strict: bool = True
+               ) -> "Table":
+        for old in mapping:
+            if old not in self.cols and strict:
+                raise ColumnNotFoundError(f"{old!r} not found")
+        new_names = [mapping.get(n, n) for n in self.names]
+        if len(set(new_names)) != len(new_names):
+            raise DuplicateError(
+                f"duplicate column names after rename: {new_names}")
+        cols = {mapping.get(n, n): c for n, c in self.cols.items()}
+        return Table(new_names, cols, self.capacity, self._nrows, self.valid,
                      nrows_dev=self.nrows_dev, device=self.device)
 
     def with_column(self, name: str, col: Column) -> "Table":

@@ -3,13 +3,15 @@
 The port's cut of the JAX package's `config.py` (itself the analogue of
 the reference's env-var flags, `polars-core/src/config.rs:1-55`): values
 come from PT_* env vars and can be set programmatically via `Config`.
-The port reads two of them:
+The port reads these:
 * `device` — where new frames live, "cuda" unless PT_DEVICE says
   otherwise. There is no silent fallback: "cuda" without a card raises
   (`batch.resolve_device`).
 * `min_capacity` — the smallest row-capacity bucket. Capacities are the
   JAX package's power-of-two buckets, so that masked tables and dense
   group slots line up with it slot for slot.
+* `fmt_max_rows`, `fmt_max_cols`, `fmt_str_len` — how a frame prints
+  (polars' `tbl_rows`, `tbl_cols`, `fmt_str_lengths`).
 Float64 is always stored as float64: the card computes it natively.
 """
 
@@ -34,6 +36,14 @@ class Config:
     def reload(self) -> None:
         self.device: str = os.environ.get("PT_DEVICE", "cuda")
         self.min_capacity: int = _env_int("PT_MIN_CAPACITY", 128)
+        # how a frame prints (`api/fmt.py`)
+        self.fmt_max_rows: int = _env_int("PT_FMT_MAX_ROWS", 10)
+        self.fmt_max_cols: int = _env_int("PT_FMT_MAX_COLS", 12)
+        self.fmt_str_len: int = _env_int("PT_FMT_STR_LEN", 30)
+
+    # the polars option names of the formatting settings
+    _PL_NAMES = {"tbl_rows": "fmt_max_rows", "tbl_cols": "fmt_max_cols",
+                 "fmt_str_lengths": "fmt_str_len"}
 
     def set(self, **kwargs: Any) -> "Config":
         for k, v in kwargs.items():
@@ -46,10 +56,23 @@ class Config:
         # pl.Config(device="cpu"): applies immediately, restores on exit
         self._saved = {}
         for k, v in options.items():
+            k = self._PL_NAMES.get(k, k)
             if not hasattr(self, k):
                 raise AttributeError(f"unknown config option: {k}")
             self._saved[k] = getattr(self, k)
             setattr(self, k, v)
+        return self
+
+    def set_tbl_rows(self, n: int) -> "Config":
+        self.fmt_max_rows = n
+        return self
+
+    def set_tbl_cols(self, n: int) -> "Config":
+        self.fmt_max_cols = n
+        return self
+
+    def set_fmt_str_lengths(self, n: int) -> "Config":
+        self.fmt_str_len = n
         return self
 
     def __enter__(self) -> "Config":
@@ -97,3 +120,8 @@ def capacity_for(n: int) -> int:
     while b < c:
         b <<= 1
     return b
+
+
+# the seed of `pl.set_random_seed`: sampling without a seed of its own
+# draws from it (None: fresh entropy)
+RANDOM_SEED = None

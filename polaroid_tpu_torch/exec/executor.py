@@ -98,12 +98,35 @@ def execute(plan: L.Plan, cache: Optional[Dict[int, Table]] = None
         from ..ops.nested import explode_table
         return explode_table(execute(plan.input, cache), plan.columns)
     if k == "map_function":
-        # an opaque Table -> Table function (the lazy rolling and the
-        # overlapping group_by_dynamic build one)
+        # an opaque Table -> Table function (the lazy rolling, the
+        # overlapping group_by_dynamic and map_batches build one)
         return plan.fn(execute(plan.input, cache))
+    if k == "rename":
+        return execute(plan.input, cache).rename(plan.mapping, strict=False)
+    if k == "drop":
+        t = execute(plan.input, cache)
+        return t.drop_columns([n for n in plan.names if n in t.cols])
+    if k == "with_row_index":
+        from ..api.frame import DataFrame
+        return DataFrame._from_table(execute(plan.input, cache)) \
+            .with_row_index(plan.name, plan.offset)._table
+    if k == "unpivot":
+        return _unpivot(execute(plan.input, cache), plan)
     raise NotImplementedError(
-        f"plan node {k!r} is not ported yet: it comes with a later slice "
-        "of the port")
+        f"plan node {k!r} is not ported yet: file scans and sinks come "
+        "with Slice H (host IO)")
+
+
+def _unpivot(t: Table, plan: L.Unpivot) -> Table:
+    """The `on` columns stacked under the index columns: one select per
+    column (the column's name as a literal), stacked by one vstack."""
+    from ..api.frame import DataFrame
+    from ..expr.expr import col, lit
+    df = DataFrame._from_table(t)
+    parts = [df.select([col(i) for i in plan.index] + [
+        lit(n).alias(plan.variable_name), col(n).alias(plan.value_name)]
+    )._table for n in plan.on]
+    return vstack_tables(parts, "vertical")
 
 
 def _apply_node(node: L.Plan, table: Table) -> Table:

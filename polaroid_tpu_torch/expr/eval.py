@@ -27,6 +27,11 @@ the `str` namespace in `expr/str.py` and the list and struct kinds in
 distinct values on the host (`torch.unique` on the device, the inverse
 maps them back), so the dictionary stays sorted and no host loop runs
 over the rows.
+
+The rest of the select kinds (the distinct flags, sampling, cut/qcut,
+hist, the host UDFs, ...) live in `expr/misc.py`; a repeated
+subexpression of one select or with_columns is evaluated once
+(`cse_rewrite`, `cse_scope`).
 """
 
 from __future__ import annotations
@@ -41,13 +46,13 @@ import torch
 from ..batch import Column, Table, storage_torch_dtype
 from ..dtypes import Boolean, DataType, Date, Datetime, Duration, Float32, \
     Float64, Int64, Null, String, UInt32, supertype
-from ..errors import InvalidOperationError
+from ..errors import ComputeError, InvalidOperationError
 from ..ops import temporal as T
 from ..strings import EMPTY_DICT, NULL_CODE, StringDict
 from . import meta
 from .expr import Expr
 
-__all__ = ["Val", "eval_expr", "val_to_column"]
+__all__ = ["Val", "eval_expr", "val_to_column", "cse_rewrite", "cse_scope"]
 
 _CMP_OPS = {"eq", "neq", "lt", "le", "gt", "ge"}
 _BOOL_OPS = {"and", "or", "xor"}
@@ -549,7 +554,7 @@ def _binary(op: str, l: Val, r: Val) -> Val:
     out_dt = st
     if op in _CMP_OPS:
         out_dt = Boolean
-    elif op == "truediv":
+    elif op in ("truediv", "arctan2"):
         out_dt = st = _float_dt(st)
     x, y = cast_val(l, st).data, cast_val(r, st).data
     validity = _and_valid(l.validity, r.validity)
@@ -574,13 +579,15 @@ def _binary(op: str, l: Val, r: Val) -> Val:
                 else torch.remainder(x, y)
     elif op == "pow":
         data = torch.pow(x, y)
+    elif op == "arctan2":
+        data = torch.atan2(x, y)
     elif op in _CMP_OPS:
         data = _cmp(op, x, y)
     elif op in _BOOL_OPS:  # bitwise on ints
         data = {"and": torch.bitwise_and, "or": torch.bitwise_or,
                 "xor": torch.bitwise_xor}[op](x, y)
     else:
-        raise NotImplementedError(f"binary op {op!r} is not ported yet")
+        raise ComputeError(f"unknown binary op {op!r}")
     return Val(out_dt, data, validity, None, l.is_scalar and r.is_scalar)
 
 
@@ -816,6 +823,14 @@ def _bit_unary(op: str, x: torch.Tensor, dt) -> torch.Tensor:
 
 def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
     k = e.kind
+    if k == "cse_cached":
+        if not _CSE_STACK:
+            return eval_expr(e.children[0], table, ctx)
+        cache = _CSE_STACK[-1]
+        hit = cache.get(e.attrs["fp"])
+        if hit is None:
+            hit = cache[e.attrs["fp"]] = eval_expr(e.children[0], table, ctx)
+        return hit
     if k == "col":
         return column_to_val(table.column(e.attrs["name"]))
     if k == "lit":
@@ -824,10 +839,12 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
     if k in ("alias", "name_map", "name_keep", "exclude"):
         return eval_expr(e.children[0], table, ctx)
     if k == "cast":
+        from ..datatype_expr import resolve_dtype
         strict = e.attrs.get("strict", True)
         v = eval_expr(e.children[0], table, ctx)
+        dt = resolve_dtype(e.attrs["dtype"], dict(table.schema), v.dtype)
         # a strict cast from a string checks only the live rows
-        return cast_val(v, e.attrs["dtype"], strict,
+        return cast_val(v, dt, strict,
                         table.row_mask() if strict and v.dtype.is_string
                         else None)
     if k == "binary":
@@ -884,13 +901,10 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
     if k in _NESTED_KINDS:
         from . import nested
         return nested.eval_nested(e, table, ctx)
-    if k == "cumulative_eval":
-        raise NotImplementedError(
-            "cumulative_eval is not ported yet: it comes with Slice E3 (the "
-            "rest of the expression surface)")
-    raise NotImplementedError(
-        f"expression kind {k!r} is not ported yet: it comes with Slice E3 "
-        "(the rest of the expression surface) or later")
+    from .misc import MISC_KINDS
+    if k in MISC_KINDS:
+        return MISC_KINDS[k](e, table, ctx)
+    raise ComputeError(f"cannot evaluate expr kind {k!r}")
 
 
 # the list and struct kinds, evaluated by expr/nested.py
@@ -1318,15 +1332,20 @@ def _eval_datetime_components(e: Expr, table: Table, ctx: str) -> Val:
                validity, None, y.is_scalar and mo.is_scalar and d.is_scalar)
 
 
-def _eval_when_then(e: Expr, table: Table, ctx: str) -> Val:
-    """when/then/otherwise in a select context (the JAX package's
-    `_eval_when_then`): the first branch whose condition holds (and is
-    not null) gives the row's value, else the otherwise value; every
-    value is cast to their supertype, and string values are recoded onto
-    one merged dictionary."""
+def _eval_when_then(e: Expr, table: Table, ctx: str, evalf=None,
+                    cap: Optional[int] = None) -> Val:
+    """when/then/otherwise (the JAX package's `_eval_when_then`): the
+    first branch whose condition holds (and is not null) gives the row's
+    value, else the otherwise value; every value is cast to their
+    supertype, and string values are recoded onto one merged dictionary.
+    `evalf` and `cap` replace the child evaluator and the output length:
+    a group-by evaluates the children per group over its group slots."""
+    if evalf is None:
+        def evalf(c):
+            return eval_expr(c, table, ctx)
     nb = e.attrs["n_branches"]
-    conds = [eval_expr(c, table, ctx) for c in e.children[:nb]]
-    vals = [eval_expr(c, table, ctx) for c in e.children[nb:]]
+    conds = [evalf(c) for c in e.children[:nb]]
+    vals = [evalf(c) for c in e.children[nb:]]
     out_dt = Null
     for v in vals:
         if v.dtype != Null:
@@ -1334,7 +1353,7 @@ def _eval_when_then(e: Expr, table: Table, ctx: str) -> Val:
                 String if out_dt.is_string else supertype(out_dt, v.dtype))
     if out_dt == Null:
         out_dt = Boolean
-    cap = table.capacity
+    cap = table.capacity if cap is None else cap
     dev = table.device
     sdict = None
     if out_dt.is_string:
@@ -1368,6 +1387,71 @@ def _eval_when_then(e: Expr, table: Table, ctx: str) -> Val:
         validity = torch.where(decided, validity,
                                ov.valid_or_true().expand(cap))
     return Val(out_dt, data, validity, sdict, False)
+
+
+# ---------------------------------------------------------------------------
+# common subexpressions
+# ---------------------------------------------------------------------------
+
+_CSE_STACK: list = []
+
+
+class cse_scope:
+    """A Val cache for the `cse_cached` nodes of one context."""
+
+    def __enter__(self):
+        _CSE_STACK.append({})
+        return self
+
+    def __exit__(self, *exc):
+        _CSE_STACK.pop()
+        return False
+
+
+_CSE_TRIVIAL = {"col", "lit", "wildcard", "cols", "nth", "dtype_cols",
+                "table_len", "alias", "name_map", "name_keep"}
+# kinds whose evaluators read their children's structure, or evaluate
+# them over another table (a partition, a list's elements, a prefix):
+# shared whole at most, never opened
+_CSE_OPAQUE = {"over", "list_eval", "list_filter", "cumulative_eval",
+               "struct_with_fields", "map_groups_udf"}
+
+
+def cse_rewrite(es):
+    """Repeated non-trivial subexpressions wrapped in `cse_cached` nodes,
+    evaluated once per table inside a `cse_scope` (the JAX package's
+    `cse_rewrite`). Counting recurses into a subtree only on first
+    sight, so the descendants of a shared subtree are not marked too;
+    it does not open the `_CSE_OPAQUE` kinds."""
+    counts = {}
+
+    def count(e):
+        fp = e.fingerprint()
+        c = counts.get(fp, 0)
+        counts[fp] = c + 1
+        if c == 0 and e.kind not in _CSE_OPAQUE:
+            for ch in e.children:
+                count(ch)
+
+    for e in es:
+        count(e)
+    shared = {fp for fp, c in counts.items() if c > 1}
+    if not shared:
+        return list(es), False
+
+    def rewrite(e):
+        fp = e.fingerprint()
+        if fp in shared and e.children and e.kind not in _CSE_TRIVIAL \
+                and e.kind != "cse_cached":
+            return Expr("cse_cached", (children(e),), fp=fp)
+        return children(e)
+
+    def children(e):
+        if not e.children or e.kind in _CSE_OPAQUE:
+            return e
+        return Expr(e.kind, tuple(rewrite(c) for c in e.children), **e.attrs)
+
+    return [rewrite(e) for e in es], True
 
 
 def column_to_val(c: Column) -> Val:

@@ -783,13 +783,13 @@ class Expr:
         return Expr("cumulative_eval", (self, expr), min_samples=min_samples)
 
     def serialize(self, format: str = "json"):
-        raise NotImplementedError("expression serde comes with a later "
-                                  "slice of the port (expr/serde.py)")
+        raise NotImplementedError("expression serde comes with Slice H of "
+                                  "the port (expr/serde.py)")
 
     @classmethod
     def deserialize(cls, source, format: str = "json") -> "Expr":
-        raise NotImplementedError("expression serde comes with a later "
-                                  "slice of the port (expr/serde.py)")
+        raise NotImplementedError("expression serde comes with Slice H of "
+                                  "the port (expr/serde.py)")
 
     from_json = deserialize
 
@@ -835,8 +835,30 @@ class Expr:
     def ext(self) -> "ExtNamespace":
         return ExtNamespace(self)
 
-    def register_plugin(self, *args, **kwargs) -> "Expr":
-        raise NotImplementedError("plugins come with Slice E3 of the port")
+    def register_plugin(self, *, lib, symbol, args=None, kwargs=None,
+                        is_elementwise: bool = False,
+                        input_wildcard_expansion: bool = False,
+                        returns_scalar: bool = False,
+                        cast_to_supertypes: bool = False,
+                        pass_name_to_apply: bool = False,
+                        changes_length: bool = False) -> "Expr":
+        """Deprecated plugin hook: `plugins.register_plugin_function`
+        with this expression as the first input."""
+        import warnings
+        warnings.warn(
+            "`register_plugin` is deprecated; use "
+            "`polaroid_tpu_torch.plugins.register_plugin_function` instead.",
+            DeprecationWarning, stacklevel=2)
+        from ..plugins import register_plugin_function
+        return register_plugin_function(
+            plugin_path=lib, function_name=symbol,
+            args=[self, *(args or [])], kwargs=kwargs,
+            is_elementwise=is_elementwise,
+            input_wildcard_expansion=input_wildcard_expansion,
+            returns_scalar=returns_scalar,
+            cast_to_supertype=cast_to_supertypes,
+            pass_name_to_apply=pass_name_to_apply,
+            changes_length=changes_length)
 
 
 class ExtNamespace:

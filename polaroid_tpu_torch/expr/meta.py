@@ -273,8 +273,11 @@ def output_dtype(e: Expr, schema: Dict[str, DataType]) -> DataType:
             inner = d if inner is None else supertype(inner, d)
         return ListT(inner)
     if k in ("cast", "ext_to"):
-        # dtype expressions (datatype_expr.py) come with Slice E3
-        return e.attrs["dtype"]
+        dt = e.attrs["dtype"]
+        from ..datatype_expr import DataTypeExpr as _DTE
+        if isinstance(dt, _DTE):
+            return dt._resolve(schema, output_dtype(e.children[0], schema))
+        return dt
     if k == "ext_storage":
         from ..dtypes import BaseExtension as _BaseExt
         ct = output_dtype(e.children[0], schema)
@@ -575,6 +578,15 @@ def output_dtype(e: Expr, schema: Dict[str, DataType]) -> DataType:
     if k == "map_batches":
         rd = e.attrs.get("return_dtype")
         return rd if rd is not None else output_dtype(e.children[0], schema)
+    if k == "map_groups_udf":
+        # the UDF's dtype shows only when it runs: its return_dtype, else
+        # the first input's (a list of it per group when not scalar)
+        rd = e.attrs.get("return_dtype")
+        if rd is not None:
+            return rd
+        from ..dtypes import List as ListT
+        dt = output_dtype(e.children[0], schema)
+        return dt if e.attrs.get("returns_scalar") else ListT(dt)
     if k == "replace":
         return output_dtype(e.children[0], schema)
     if k == "arg_true":

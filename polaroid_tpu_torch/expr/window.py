@@ -31,8 +31,8 @@ reads its neighbours, and the result goes back to the rows.
   `ops/wavelet.py`). `ewm_mean_by` is a doubling scan of (decay, value)
   pairs in float64, `interpolate_by` the fills' prefix count.
 
-`rolling_map` comes with Slice E3 and raises NotImplementedError naming
-it.
+* `rolling_map` runs its function on the host over each window, after
+  one copy of the column there, as the JAX package's host path does.
 """
 
 from __future__ import annotations
@@ -51,22 +51,14 @@ from .eval import Val, _float_dt, _type_bounds, cast_val, eval_expr
 from .expr import Expr
 
 __all__ = ["eval_window", "eval_fill_null", "eval_fill_null_strategy",
-           "eval_rolling_pair", "NEXT_SLICE"]
+           "eval_rolling_pair"]
 
-# window ops of later slices of the port
-NEXT_SLICE = {"rolling_map": "Slice E3 (the rest of the expression "
-                             "surface)"}
 # range windows by a companion column
 RANGE_BY = ("rolling_sum_by", "rolling_mean_by", "rolling_min_by",
             "rolling_max_by", "rolling_std_by", "rolling_var_by",
             "rolling_quantile_by", "rolling_rank_by")
 _ROLLING = ("rolling_sum", "rolling_mean", "rolling_min", "rolling_max",
             "rolling_std", "rolling_var")
-
-
-def _next_slice(what: str, op: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} {op!r} is not ported yet: it comes with {NEXT_SLICE[op]}")
 
 
 class LiveOrder:
@@ -195,8 +187,6 @@ def _acc(dt) -> torch.dtype:
 
 def eval_window(e: Expr, table, ctx: str) -> Val:
     op = e.attrs["op"]
-    if op in NEXT_SLICE:
-        raise _next_slice("window op", op)
     v = eval_expr(e.children[0], table, ctx)
     fillv = eval_expr(e.children[1], table, ctx)
     byv = eval_expr(e.children[2], table, ctx) if len(e.children) > 2 \
@@ -283,6 +273,8 @@ def eval_window(e: Expr, table, ctx: str) -> Val:
                     (has_p & has_n) | xv, out_dt)
     if op == "arg_sort":
         return _arg_sort(e, v, x, xv, lo.front, back)
+    if op == "rolling_map":
+        return _rolling_map_host(e, x, xv, count, back)
     if op == "interpolate_by":
         return interpolate_by(v, x, xv, lo.gather(byv.data), back)
     if op == "ewm_mean_by":
@@ -929,3 +921,28 @@ def eval_rolling_pair(e: Expr, table, ctx: str) -> Val:
     return Val(Float64, lo.back(data), lo.back(validity), None, False,
                a.live if a.live is not None else b.live)
 
+
+def _rolling_map_host(e: Expr, x, xv, count, back) -> Val:
+    """The function over each row's trailing window of `window_size`
+    rows (a Series of its values, nulls included), with at least
+    `min_samples` valid values: one copy of the column to the host, one
+    of the result back."""
+    from ..api.series import Series
+    w = e.attrs["window_size"]
+    min_p = e.attrs.get("min_samples") or w
+    fn = e.attrs["fn"]
+    n = int(count)
+    xs = x[:n].cpu().tolist()
+    vs = xv[:n].cpu().tolist()
+    data = torch.zeros(x.shape[0], dtype=torch.float64)
+    valid = torch.zeros(x.shape[0], dtype=torch.bool)
+    for i in range(n):
+        vals = [a if ok else None for a, ok in
+                zip(xs[max(0, i - w + 1):i + 1], vs[max(0, i - w + 1):i + 1])]
+        if sum(u is not None for u in vals) < min_p:
+            continue
+        r = fn(Series("", vals, device="cpu"))
+        if r is not None:
+            data[i] = float(r)
+            valid[i] = True
+    return back(data.to(x.device), valid.to(x.device), Float64)

@@ -51,6 +51,7 @@ from __future__ import annotations
 import math
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..batch import Column, Table, storage_torch_dtype, width_for
@@ -642,8 +643,7 @@ def reduce_group(agg: str, v: Val, ctx: GroupContext,
         h = -h / math.log(float(a.get("base", math.e)))
         return Val(out_dt, h.to(storage_torch_dtype(out_dt)),
                    counted(spart).data > 0)
-    raise NotImplementedError(
-        f"group-by aggregation {agg!r} on {dt!r} is not ported yet")
+    raise ComputeError(f"unknown group aggregation {agg!r} on {dt!r}")
 
 
 def _implode_layout(ctx: GroupContext, present: torch.Tensor,
@@ -952,6 +952,14 @@ def eval_group_expr(e: Expr, table: Table, ctx: GroupContext,
         return Val(UInt32, ctx.group_count)
     if k == "lit":
         return _lit_val(e.attrs["value"], e.attrs["dtype"], table.device)
+    if k == "when_then":
+        # the branches over per-group values, one result per group slot
+        from ..expr.eval import _eval_when_then
+        return _eval_when_then(
+            e, table, "agg", evalf=lambda c: eval_group_expr(
+                c, table, ctx, key_outputs), cap=ctx.out_cap)
+    if k == "map_groups_udf":
+        return _eval_map_groups_udf(e, table, ctx)
     if k == "col" and e.attrs["name"] in key_outputs:
         return key_outputs[e.attrs["name"]]
     if k == "cast":
@@ -980,9 +988,42 @@ def eval_group_expr(e: Expr, table: Table, ctx: GroupContext,
         v = eval_group_expr(e.children[0], table, ctx, key_outputs)
         return eval_list(e, v, Table([], {}, ctx.out_cap, ctx.out_cap, None,
                                      device=ctx.gid.device))
-    raise NotImplementedError(
-        f"expression kind {k!r} in a group-by aggregation is not ported "
-        "yet: it comes with Slice E3 (the rest of the expression surface)")
+    raise InvalidOperationError(
+        f"expression kind {k!r} not supported in group_by aggregation")
+
+
+def _eval_map_groups_udf(e: Expr, table: Table, ctx: GroupContext) -> Val:
+    """pl.map_groups(exprs, fn): the host function over each group's
+    Series. The group ids and the input columns go to the host once, the
+    results come back once, each at its group's slot."""
+    from ..api.series import Series
+    from ..expr.misc import _series_val, host_values
+    fn = e.attrs["fn"]
+    returns_scalar = e.attrs.get("returns_scalar", False)
+    cols = [host_values(eval_expr(c, table, "agg"), table)[0]
+            for c in e.children]
+    gid = ctx.gid.cpu().numpy()
+    live = ctx.live.cpu().numpy()
+    rows = np.nonzero(live)[0]
+    rows = rows[np.argsort(gid[rows], kind="stable")]
+    slots, starts = np.unique(gid[rows], return_index=True)
+    ncap = ctx.out_cap
+    results = [None] * ncap
+    filled = np.zeros(ncap, dtype=bool)
+    for g, part in zip(slots, np.split(rows, starts[1:])):
+        out = fn([Series("", [c[i] for i in part], device="cpu")
+                  for c in cols])
+        if isinstance(out, Series):
+            out = out.to_list()
+        if returns_scalar and isinstance(out, list):
+            out = out[0] if out else None
+        results[int(g)] = out
+        filled[int(g)] = True
+    v = _series_val(results, None, table.device)
+    has = torch.from_numpy(filled).to(table.device)
+    return Val(v.dtype, v.data, has if v.validity is None
+               else v.validity & has, v.sdict, False, lengths=v.lengths,
+               elem_valid=v.elem_valid, fields=v.fields)
 
 
 def _collect_stash_requests(agg_exprs, table: Table, cap: int) -> dict:

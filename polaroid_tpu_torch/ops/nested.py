@@ -445,7 +445,17 @@ def list_namespace_op(op: str, v, attrs: dict):
             .clamp(min=0)
         return listy(take(src), ln2.to(torch.int32), inb & take_m(src))
     if op == "sample":
-        raise NotImplementedError(
-            ".list.sample is not ported yet: it comes with Slice E3 (the "
-            "rest of the expression surface)")
+        # each row's elements in a random order (uniform keys from a
+        # seeded generator on the device, outside the length last), the
+        # first n kept
+        from ..expr.misc import random_generator
+        n = int(attrs.get("n", 1))
+        g = random_generator(attrs.get("seed"), dev)
+        u = torch.rand((cap, W), generator=g, device=dev,
+                       dtype=torch.float64)
+        order = torch.sort(torch.where(in_len, u, 2.0), dim=1,
+                           stable=True).indices
+        ln2 = lens.clamp(max=n).to(torch.int32)
+        return listy(torch.gather(data, 1, order), ln2,
+                     torch.gather(m, 1, order) & (jidx < ln2.unsqueeze(1)))
     raise InvalidOperationError(f"unsupported .list op {op!r}")

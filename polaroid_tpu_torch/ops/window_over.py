@@ -223,8 +223,6 @@ class _Layout:
 def _eval_window_over(e: Expr, table, ctx: str,
                       gctx: SortedGroupContext) -> Val:
     op = e.attrs["op"]
-    if op in W.NEXT_SLICE:
-        raise W._next_slice("window op", op)
     v = _full(eval_expr(e.children[0], table, ctx), gctx.cap)
     fillv = eval_expr(e.children[1], table, ctx)
     L = _Layout(gctx, v)

@@ -168,7 +168,8 @@ def _resolve_file_schema(scan: Scan) -> Schema:
     # file scans (io/parquet.py, io/arrow_interop.py) come with Slice A3:
     # the JAX package decodes through pyarrow, which the card's host lacks
     raise NotImplementedError(
-        f"{scan.fmt} scans are not ported yet (Slice A3 of the port)")
+        f"{scan.fmt} scans are not ported yet: they come with Slice H "
+        "(host IO; Slice A3's file scans moved there)")
 
 
 class _Unary(Plan):

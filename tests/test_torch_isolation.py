@@ -32,6 +32,15 @@ def test_import_loads_no_jax_module():
         "import polaroid_tpu_torch.ops.nested\n"
         "import polaroid_tpu_torch.expr.nested\n"
         "import polaroid_tpu_torch.expr.str\n"
+        "import polaroid_tpu_torch.expr.misc\n"
+        "import polaroid_tpu_torch.sql.context\n"
+        "import polaroid_tpu_torch.sql.parser\n"
+        "import polaroid_tpu_torch.sql.translate\n"
+        "import polaroid_tpu_torch.selectors\n"
+        "import polaroid_tpu_torch.datatype_expr\n"
+        "import polaroid_tpu_torch.monads\n"
+        "import polaroid_tpu_torch.plugins\n"
+        "import polaroid_tpu_torch.api.fmt\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')"
         " or m == 'polaroid_tpu' or m.startswith('polaroid_tpu.'))\n"
@@ -66,6 +75,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
         pt.LazyFrame(data)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         frame_from_numpy(data)
+    for build, arg in ((pt.from_torch, torch.arange(4)),
+                       (pt.from_numpy, np.arange(4)),
+                       (pt.from_dicts, [{"a": 1}])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build(arg)
     df = pt.DataFrame(data, device="cpu")
     assert df.device.type == "cpu" and df.height == 4
     with pt.Config(device="cpu"):
