@@ -2,7 +2,7 @@
 """Run polaroid_tpu_torch on one CUDA card and check it end to end.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--reps 5] [--only-taq]
-                          [--only-surface]
+                          [--only-surface] [--only-stream]
 
 Phases:
 1. the card (name and power limit from nvidia-smi) and a fresh build of
@@ -18,10 +18,22 @@ Phases:
    each phase-10 join, each phase-11 window query and each phase-12
    time query makes (recorded by their wrappers; each sort timed in the
    mode the query called it in);
+   A launch whose shape (every tensor's shape and dtype, every other
+   argument) was timed already is held to its plain version again and
+   keeps the earlier launch's times ("timed_at").
 3. the headline query q1 (filter -> with_columns -> group_by(symbol) ->
    agg(len, sum, mean) -> collect) at --rows rows, against a numpy
    oracle, with the kernels' launch counts during one collect, the
-   median of --reps collects and a torch.profiler trace of one more;
+   median of --reps collects and a torch.profiler trace of one more.
+   Phases 3-5 run through the fused chain (exec/compiled.py): the first
+   collect runs the chain eagerly and captures it as a CUDA graph (its
+   host ms, capture included, is printed); every later collect must
+   replay it once, with no capture, and is checked by the same oracle;
+   a replay launches its kernels from the graph, where no wrapper
+   counts, so the kernels of one traced collect after the first are
+   counted from the trace's device events and must be the first
+   collect's launches (OHLC may stay eager where its route reads a
+   value back, and then prints the op);
 4. filter -> with_columns -> collect at --rows rows, bit-exact against
    numpy boolean indexing, through a full-width compaction, timed and
    traced the same way;
@@ -134,8 +146,36 @@ Phases:
    first collect. Phase 2 also holds A, B, C, E and F on the inputs of
    every launch of that first collect. `--only-surface` runs the build,
    those checks and phase 15 alone, and prints no result line.
+16. fused chains and the streaming engine. G: q1, filter, OHLC, J1, W4
+   (rolling mean, cum_sum) and T4 sum_by through the fused route (a
+   collect) and through the same chains applied node by node (the
+   executor's eager function), each the median of --reps, busy ms,
+   device ops and idle share from a trace, the two results held to each
+   other (bit for bit but for float sums, within the query's bound),
+   every fused chain replayed once per collect, or named with the op
+   that read back. Then the trades of phase 12 split by session into 10
+   day frames and streamed as their union, collect(engine="streaming")
+   held against the in-memory collect of the same plan (bit for bit in
+   keys, integers, extremes and nulls; Float64 within rtol 1e-12; std
+   within the bound of its sum-of-squares formula) and against numpy,
+   with each stream's batch count asserted: ST1 per-symbol VWAP, count,
+   min/max/mean/std (kernel A per batch on the card, counted in a trace
+   of the first collect, whose kernels the next collect, all replays,
+   runs again; one replay per batch after the first), ST2 a filter -> with_columns -> select chain under head(10^6)
+   (stops after two batches), ST3 inner and left joins with a 1000-row
+   symbol table (the build side) and a group-by of sector, ST4 top_k,
+   unique over (symbol, day) and with_row_index, ST5 cum_sum,
+   rolling_mean and shift across the day boundaries, ST6 the external
+   sort by (price descending, ts) and a grace join, both spilling, and
+   ST7 collect_batches, sink_batches, collect_async and profile.
+   `--only-stream` runs the build, phase 2's checks on G's first
+   collects and phase 16 alone, and prints no result line.
+Each phase prints its seconds.
 
 The line before the last lists every ported kernel with its numbers;
+"launches" counts the wrappers' launches of the main path's run, and
+"replay_launches" the kernels that the traced collects after the first
+(phases 3-5, ST1) ran on the card, from the traces;
 the last line is {"ok": true, "device": {...}}. Any failed check raises,
 and the script exits non-zero without a result line. Needs one card; it
 exits non-zero where CUDA is not available.
@@ -146,6 +186,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -159,6 +200,22 @@ N_SYMBOLS = 1000
 H2O_ROWS = 10_000_000       # the rows of H2O's G1_1e7_1e2_0_0
 
 
+_MARK = [START]
+
+
+def phase_seconds(name: str) -> None:
+    """Print the seconds since the last phase ended (or the start)."""
+    now = time.perf_counter()
+    print(json.dumps({"phase": "seconds", "of": name,
+                      "seconds": now - _MARK[0], "wall": now - START}))
+    _MARK[0] = now
+
+
+# True while phase 2 checks a launch whose shape it has timed already:
+# cuda_ms and the one-call traces then time nothing (the check stands)
+_NO_TIMING = [False]
+
+
 def cuda_ms(fn, reps: int, window_ms: float = 20.0) -> float:
     """Mean device time of fn() over back-to-back calls, after a warm-up
     call, with CUDA events: at least `reps` calls, and enough of them to
@@ -166,6 +223,8 @@ def cuda_ms(fn, reps: int, window_ms: float = 20.0) -> float:
     microseconds is not timed over a window shorter than the card's
     clock and launch jitter."""
     import torch
+    if _NO_TIMING[0]:
+        return None
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     fn()
@@ -231,7 +290,8 @@ def trace_collect(lf, top_n: int = 5):
 def trace_call(fn, top_n: int = 5, each: bool = False, attempts: int = 6):
     """fn() under torch.profiler: the device's busy ms (the sum of the
     durations of the device-side events — kernels, memsets, copies; one
-    stream, so they do not overlap), how many there were, the `top_n`
+    stream, so they do not overlap), how many there were, the launches
+    of the wrappers' kernels among them (kernel_launches), the `top_n`
     costliest by name and, with `each`, every device event in the order
     it ran (name, ms). A trace that recorded no device event at all (the
     profiler can drop a window's events, at times several in a row) is
@@ -243,6 +303,27 @@ def trace_call(fn, top_n: int = 5, each: bool = False, attempts: int = 6):
             break
         time.sleep(0.2)
     return {**out, "traces_taken": attempt}
+
+
+# the __global__ function each wrapper's count stands for: the wrapper
+# launches it once per count (polaroid_tpu_torch/csrc/*.cu); a graph's
+# replay launches it too, and only a trace sees that
+KERNEL_OF = {"seg_sum_kernel": "seg_sum", "compact_kernel": "compact_words",
+             "minmax_kernel": "seg_minmax", "gather_kernel": "gather",
+             "exchange_kernel": "bucket_exchange",
+             "place_kernel": "merge_sort"}
+_KERNEL_NAME = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+)[<(]")
+
+
+def kernel_launches(names) -> dict:
+    """The launches of the wrappers' kernels among device events' names,
+    under read_launches' names (fallbacks aside)."""
+    out = dict.fromkeys(KERNEL_OF.values(), 0)
+    for name in names:
+        m = _KERNEL_NAME.match(name)
+        if m and m.group(1) in KERNEL_OF:
+            out[KERNEL_OF[m.group(1)]] += 1
+    return out
 
 
 def _one_trace(fn, top_n, each):
@@ -264,6 +345,7 @@ def _one_trace(fn, top_n, each):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
     out = {"device_busy_ms": sum(ms for ms, _ in by_name.values()),
            "device_ops": sum(c for _, c in by_name.values()),
+           "launches": kernel_launches(e.name for e in device),
            "top": [{"name": k[:80], "ms": ms, "count": c}
                    for k, (ms, c) in top]}
     if each:
@@ -369,6 +451,8 @@ def one_kernel_call(fn, what):
     """The device-only ms and device events of one fn() call from a
     trace (trace_call); asserts that the call ran exactly one device
     kernel (no torch op, memset or copy beside it)."""
+    if _NO_TIMING[0]:
+        return {}
     tr = trace_call(fn, each=True)
     assert tr["device_ops"] == 1, f"one {what} call ran {tr['events']}"
     return {"trace_ms": tr["device_busy_ms"],
@@ -382,6 +466,8 @@ def device_ms_of(fn, kernel: str):
     back empty, the profiler (not the port) lost the window, and the
     time is reported as None (the kernel's CUDA-event time stands
     beside it)."""
+    if _NO_TIMING[0]:
+        return {}
     tr = trace_call(fn, each=True)
     if not tr["device_ops"]:
         print(json.dumps({"phase": "trace_dropped", "kernel": kernel,
@@ -854,7 +940,8 @@ def compare_merge_sort(args, torch, TM, words, nk, stable=True,
     recorded()
     digit_passes = TM.PASSES
     packed = (words[nk - 1] << 31) | torch.arange(n, device=words[0].device)
-    tr = trace_call(recorded)
+    tr = trace_call(recorded) if not _NO_TIMING[0] else \
+        {"device_busy_ms": None, "device_ops": 0, "traces_taken": 0}
     out = {
         "kernel": "merge_sort", "n": n, "num_keys": nk, "words": len(words),
         "mode": "perm_only" if perm_only else "every_word",
@@ -886,6 +973,10 @@ def record_kernel_inputs(torch, TK, TE, TM, TP, lf):
     [(starts, counts, words, fills)], [(words, num_keys, stable,
     perm_only)], [(mask, words)] and [(x, gid, G, is_max, identity)],
     and the host ms of that collect, fenced."""
+    from polaroid_tpu_torch.exec import compiled as CM
+    # a replay records nothing: each chain is seen for the first time,
+    # and runs eagerly
+    CM.clear_cache(nofuse=False)
     TK.RECORD, TE.RECORD, TM.RECORD, TP.RECORD = [], [], [], []
     TK.MINMAX_RECORD = []
     try:
@@ -899,6 +990,21 @@ def record_kernel_inputs(torch, TK, TE, TM, TP, lf):
     finally:
         TK.RECORD = TE.RECORD = TM.RECORD = TP.RECORD = None
         TK.MINMAX_RECORD = None
+
+
+# (kernel, launch_signature) -> (the launch it was timed at, its numbers)
+_TIMED = {}
+
+
+def launch_signature(inputs):
+    """The shape of a recorded launch: every tensor's shape and dtype
+    and every other argument, in order."""
+    import torch
+    if isinstance(inputs, torch.Tensor):
+        return ("t", tuple(inputs.shape), str(inputs.dtype))
+    if isinstance(inputs, (list, tuple)):
+        return tuple(launch_signature(x) for x in inputs)
+    return repr(inputs)
 
 
 def check_recorded_kernels(args, torch, TK, TE, TM, TP, queries):
@@ -928,7 +1034,24 @@ def check_recorded_kernels(args, torch, TK, TE, TM, TP, queries):
         seen = {}
         for kernel, inputs, check in checks:
             i = seen[kernel] = seen.get(kernel, -1) + 1
-            m = check(inputs)
+            sig = (kernel, launch_signature(inputs))
+            prior = _TIMED.get(sig)
+            if prior is None:
+                m = check(inputs)
+                _TIMED[sig] = (f"{name}#{i}", m)
+            else:
+                # a shape timed already: held to the plain version again,
+                # the times are those of the launch it was timed at
+                _NO_TIMING[0] = True
+                try:
+                    m = check(inputs)
+                finally:
+                    _NO_TIMING[0] = False
+                m = {**prior[1], **{k: v for k, v in m.items()
+                                    if v is not None and k in (
+                                        "max_abs_err", "live",
+                                        "digit_passes")},
+                     "timed_at": prior[0]}
             out[kernel][f"{name}#{i}"] = m
             print(json.dumps({"phase": "kernel", "shape": f"{name}#{i}",
                               **m}))
@@ -3572,6 +3695,662 @@ def run_surface_only(args, torch, pl, TK, TP, TE, TH, TM):
                       taq["draws"], first_ms, [])
 
 
+def first_fused_collect(torch, lf, TK, TP, TE, TH, TM):
+    """The first collect of a query whose plan holds a fused chain: the
+    chain runs eagerly and is captured. Returns (the result, the kernels'
+    launches, {"first_collect_ms": host ms, capture included, fenced;
+    "first_counts": the fused route's counts})."""
+    from polaroid_tpu_torch.exec import compiled as CM
+    reset_launches(TK, TP, TE, TH, TM)
+    CM.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = lf.collect()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, read_launches(TK, TP, TE, TH, TM), {
+        "first_collect_ms": ms, "first_counts": fused_counts()}
+
+
+def traced_collect(lf, TK, TP, TE, TH, TM, tries: int = 2, **opts):
+    """One collect of `lf` (with `opts`) under the profiler, `tries`
+    times, each from counts set to 0; the profiler at times drops device
+    events, so the trace with the most is kept. Returns that collect's
+    (result, the wrappers' launches, the fused route's counts, trace);
+    the trace's "launches" are the wrappers' kernels that ran on the
+    card, in graphs too."""
+    from polaroid_tpu_torch.exec import compiled as CM
+    best = None
+    for _ in range(tries):
+        box = {}
+
+        def one():
+            reset_launches(TK, TP, TE, TH, TM)
+            CM.reset_counts()
+            box["out"] = lf.collect(**opts)
+            box["host"] = read_launches(TK, TP, TE, TH, TM)
+            box["fused"] = fused_counts()
+        tr = trace_call(one, top_n=3)
+        if best is None or tr["device_ops"] > best[3]["device_ops"]:
+            best = (box["out"], box["host"], box["fused"], tr)
+        del box
+    return best
+
+
+def kernel_counts(launches: dict) -> dict:
+    """read_launches' kernels, without the count of fallbacks."""
+    return {k: v for k, v in launches.items() if k != "fallbacks"}
+
+
+def replayed_collects(args, torch, lf, launches, TK, TP, TE, TH, TM, check,
+                      may_stay_eager=False):
+    """The collects after the first: one more, traced and checked by
+    `check`, with exactly one replay and no capture, whose kernels on
+    the card (the trace's) are the first collect's launches; then
+    --reps timed collects, one replay each. A chain that read a value
+    back stays eager (allowed with `may_stay_eager`), and the op that
+    read back is returned. Returns ({"replay_counts", "timed_counts",
+    "replay_launches": the traced collect's kernels on the card,
+    "host_launches": those its wrappers launched outside a graph,
+    "nofuse"}, the timed collects' host ms)."""
+    from polaroid_tpu_torch.exec import compiled as CM
+    out, got, counts, tr = traced_collect(lf, TK, TP, TE, TH, TM)
+    nofuse = dict(CM.NOFUSE)
+    measured = tr["launches"]
+    assert measured == kernel_counts(launches), f"a replayed collect ran " \
+        f"{measured} on the card, the first launched {launches}"
+    if counts["eager"]:
+        assert may_stay_eager, f"the chain stayed eager: {nofuse}"
+        assert got == launches, f"an eager collect launched {got}, the " \
+            f"first {launches}"
+        print(json.dumps({"phase": "nofuse", "ops": nofuse}))
+    else:
+        assert counts["replays"] == 1 and counts["captures"] == 0, \
+            f"a collect after the first did not replay once: {counts}"
+    check(out)
+    del out
+    CM.reset_counts()
+    times = time_collects(lf, args.reps)
+    reps = fused_counts()
+    if not counts["eager"]:
+        assert reps["replays"] == args.reps and reps["captures"] == 0, \
+            f"{args.reps} collects: {reps}"
+    return {"replay_counts": counts, "timed_counts": reps,
+            "replay_launches": measured, "host_launches": got,
+            "nofuse": nofuse if counts["eager"] else {}}, times
+
+
+# --- phase 16: fused chains and the streaming engine ----------------------
+
+N_SESSIONS = 10
+STREAM_TOP_K = 100
+STREAM_HEAD = 1_000_000
+SECTORS = 11                 # GICS sectors of the symbol table
+ROLL_W = 20                  # ST5's rolling window (rows)
+
+
+def fused_counts():
+    from polaroid_tpu_torch.exec import compiled as CM
+    return {k: CM.COUNTS[k] for k in ("captures", "replays", "nofuse",
+                                      "eager", "static_copy_bytes",
+                                      "pool_bytes")}
+
+
+def collect_eager(pl, lf):
+    """The collect of `lf` with every fusable chain applied node by node:
+    the executor's eager function, called directly on the optimized plan
+    that `lf.collect()` runs (kept on the frame)."""
+    from polaroid_tpu_torch.exec.executor import execute_eager
+    from polaroid_tpu_torch.ops.compact import compact
+    return pl.DataFrame._from_table(compact(execute_eager(lf._optimized(
+        pl.CONFIG.engine_affinity))))
+
+
+def time_calls(fn, reps: int):
+    """Host ms of `reps` calls of fn(), each fenced."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def same_frames(name, got, want, f64_rtol, f32_ulps=1, sort_by=None):
+    """`got` against `want`: the same columns, dtypes and row count; keys,
+    integers, strings, booleans, extremes and nulls bit for bit; Float64
+    within `f64_rtol` (a dict per column, or one number) and Float32
+    within `f32_ulps` ulps (0: bit for bit). With `sort_by`, both are
+    sorted by those columns first."""
+    import numpy as np
+    if sort_by:
+        got, want = got.sort(sort_by), want.sort(sort_by)
+    assert got.columns == want.columns, f"{name}: {got.columns} vs " \
+        f"{want.columns}"
+    assert got.height == want.height, f"{name}: {got.height} rows vs " \
+        f"{want.height}"
+    g, w = host_columns(got), host_columns(want)
+    worst = {}
+    for k in want.columns:
+        (a, av), (b, bv) = g[k], w[k]
+        assert a.dtype == b.dtype, f"{name}: {k} {a.dtype} vs {b.dtype}"
+        va = np.ones(len(a), bool) if av is None else av
+        vb = np.ones(len(b), bool) if bv is None else bv
+        assert np.array_equal(va, vb), f"{name}: the nulls of {k} differ"
+        a, b = a[vb], b[vb]
+        if a.ndim > 1:
+            a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
+        u = f"u{a.itemsize}"
+        if np.array_equal(a.view(u), b.view(u)):
+            worst[k] = 0.0
+            continue
+        assert a.dtype.kind == "f", f"{name}: {k} differs"
+        tol = f64_rtol.get(k, 1e-12) if isinstance(f64_rtol, dict) \
+            else f64_rtol
+        d = np.abs(a.astype(np.float64) - b.astype(np.float64))
+        if a.dtype == np.float32:
+            lim = f32_ulps * np.spacing(np.abs(b)).astype(np.float64)
+        elif callable(tol):
+            lim = tol(b)
+        else:
+            lim = tol * np.abs(b)
+        ok = (d <= lim) | (np.isnan(a) & np.isnan(b))
+        assert ok.all(), f"{name}: {k} differs by {float(d[~ok].max())} " \
+            f"beyond its bound"
+        worst[k] = float(d.max())
+    return worst
+
+
+def fused_vs_eager_queries(pl, df, qdf, tdf, jframes):
+    """(name, lazy frame, Float64 bound, sort keys) of phase 16's G: the
+    queries whose idle share PERF.md traces to host dispatch."""
+    c = pl.col
+    qf = qdf.lazy().filter(c("volume") > 1000)
+    return [
+        ("q1", q1_frame(pl, df), 1e-10, None),
+        ("filter", df.lazy().filter(c("volume") > 1000).with_columns(
+            (c("price") * c("volume")).alias("notional")), 0.0, None),
+        ("ohlc", ohlc_frame(pl, df), 1e-12, None),
+        ("J1", jframes["orders"].lazy().join(
+            jframes["users"].lazy(), on="user_id").group_by("country").agg(
+                pl.len().alias("n"), c("amount").sum().alias("s")), 1e-12,
+         ["country"]),
+        ("W4_rolling_mean", qf.select(c("price").rolling_mean(W_WINDOW)
+                                      .alias("x")), 1e-12, None),
+        ("W4_cum_sum", qf.select(c("price").cast(pl.Float64).cum_sum()
+                                 .alias("x")), 1e-12, None),
+        ("T4_sum_by", tdf.lazy().select(c("volume").rolling_sum_by(
+            "ts", "1m").alias("x")), 1e-12, None),
+    ]
+
+
+def run_fused_vs_eager(args, torch, pl, queries):
+    """G: each query through the fused route (a collect) and through the
+    same chains applied node by node (the executor's eager function),
+    the median of --reps of each, busy ms, device ops and idle share
+    from a trace of each; their results held to each other. A chain that
+    stays eager names the op that read back."""
+    import statistics as st
+    from polaroid_tpu_torch.exec import compiled as CM
+    from polaroid_tpu_torch.exec.compiled import collect_fusable_chain, \
+        plan_chain_fingerprint
+    rows = []
+    for name, lf, rtol, sort_by in queries:
+        plan = lf._optimized(pl.CONFIG.engine_affinity)
+        chains = []
+        top = None
+        stack = [plan]
+        while stack:
+            p = stack.pop()
+            if p.kind in ("filter", "select", "with_columns", "group_by",
+                          "sort"):
+                chain, inp = collect_fusable_chain(p)
+                if chain and (len(chain) >= 2 or
+                              chain[-1].kind in ("group_by", "sort")):
+                    chains.append(plan_chain_fingerprint(chain))
+                    top = top or (chain, inp)
+                    stack.append(inp)
+                    continue
+            stack.extend(p.inputs)
+        CM.reset_counts()
+        fused = lf.collect()
+        first = fused_counts()
+        eager = collect_eager(pl, lf)
+        worst = same_frames(f"G {name}", fused, eager, rtol, 1, sort_by)
+        CM.reset_counts()
+        tf = time_collects(lf, args.reps)
+        reps = fused_counts()
+        again = lf.collect()
+        same_frames(f"G {name} (replayed)", again, eager, rtol, 1, sort_by)
+        del again, fused
+        te = time_calls(lambda: collect_eager(pl, lf), args.reps)
+        # the first trace after the timed collects at times lacks device
+        # events; each route takes two and keeps the fuller
+        trf = max((trace_collect(lf, top_n=3) for _ in range(2)),
+                  key=lambda tr: tr["device_ops"])
+        tre = max((trace_call(lambda: collect_eager(pl, lf), top_n=3)
+                   for _ in range(2)), key=lambda tr: tr["device_ops"])
+        nofuse = {fp: CM.NOFUSE[fp] for fp in chains if fp in CM.NOFUSE}
+        # the first chain alone, on its input table: run_fused (a replay)
+        # against apply_chain (node by node), host ms fenced
+        chain_ms = None
+        if top is not None:
+            from polaroid_tpu_torch.exec.compiled import apply_chain, \
+                run_fused
+            from polaroid_tpu_torch.exec.executor import execute
+            t_in = execute(top[1])
+            run_fused(top[0], t_in)
+            chain_ms = {
+                "fused": st.median(time_calls(
+                    lambda: run_fused(top[0], t_in), args.reps)),
+                "eager": st.median(time_calls(
+                    lambda: apply_chain(top[0], t_in), args.reps))}
+            del t_in
+        if chains and not nofuse:
+            # one replay per chain per collect; a chain whose input each
+            # collect makes anew (a join's output) is captured once more,
+            # over buffers of its own, the first time other tensors come
+            assert reps["replays"] == args.reps * len(chains) and \
+                reps["captures"] <= len(chains), \
+                f"G {name}: {reps} over {args.reps} collects"
+        mf, me = st.median(tf), st.median(te)
+        row = {"phase": "stream_G", "query": name,
+               "fused_chains": len(chains),
+               "nofuse": nofuse, "first_counts": first,
+               "rep_counts": reps, "chain_ms": chain_ms,
+               "largest_error": worst,
+               "fused": {"median_ms": mf, "ms": tf,
+                         "busy_ms": trf["device_busy_ms"],
+                         "device_ops": trf["device_ops"],
+                         "idle_share": 1 - trf["device_busy_ms"] / mf
+                         if trf["device_ops"] else None, "top": trf["top"]},
+               "eager": {"median_ms": me, "ms": te,
+                         "busy_ms": tre["device_busy_ms"],
+                         "device_ops": tre["device_ops"],
+                         "idle_share": 1 - tre["device_busy_ms"] / me
+                         if tre["device_ops"] else None, "top": tre["top"]}}
+        print(json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def day_frames(pl, torch, tdata):
+    """The trades split by session into N_SESSIONS frames on the card,
+    with the session's index as `day` (Int32); returns (the frames, the
+    row offsets of the sessions)."""
+    import numpy as np
+    opens = np.array(SESSION_OPENS, dtype="datetime64[us]").astype(np.int64)
+    day = np.searchsorted(opens, tdata["ts"], side="right") - 1
+    cuts = np.searchsorted(day, np.arange(N_SESSIONS + 1))
+    frames = []
+    for i in range(N_SESSIONS):
+        lo, hi = cuts[i], cuts[i + 1]
+        cols = {k: v[lo:hi] for k, v in tdata.items() if k != "ts"}
+        cols["ts"] = tdata["ts"][lo:hi].astype("datetime64[us]")
+        cols["day"] = np.full(hi - lo, i, dtype=np.int32)
+        frames.append(pl.DataFrame(cols, device="cuda"))
+    return frames, cuts
+
+
+def symbol_table(pl, seed: int):
+    """1000 symbols with a sector (String, one of SECTORS) and a lot size
+    (Int32, 1, 10 or 100), drawn from seed + 13."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 13)
+    sector = np.array([f"S{i:02d}" for i in range(SECTORS)])[
+        rng.integers(0, SECTORS, N_SYMBOLS)]
+    lot = np.array([1, 10, 100], dtype=np.int32)[rng.integers(0, 3,
+                                                               N_SYMBOLS)]
+    data = {"symbol": np.arange(N_SYMBOLS, dtype=np.uint32),
+            "sector": sector, "lot": lot}
+    return pl.DataFrame(data, device="cuda"), data
+
+
+def _std_bound(n, s2, ddof=1):
+    """|var - var'| for the decomposed variance (S2 - S^2/n)/(n - ddof)
+    from f64 sums: each of S and S2 summed with atomics over the rows of
+    one batch and once over the batches' partials (error at most
+    (n + N_SESSIONS) 2^-53 S2, S^2/n <= S2 for positive values), the
+    subtraction, and the two-pass variance it is held to (n 2^-53 S2)."""
+    import numpy as np
+    eps = 2.0 ** -53
+    return (4 * (n + N_SESSIONS) + 8) * eps * s2 / np.maximum(n - ddof, 1)
+
+
+def stream_queries(pl, u, sym):
+    """(name, lazy frame over the union of day frames) of phase 16."""
+    c = pl.col
+    px = c("price").cast(pl.Float64)
+    return {
+        "ST1_vwap": u.group_by("symbol").agg(
+            c("volume").sum().alias("vol"), pl.len().alias("n"),
+            ((px * c("volume")).sum() / c("volume").sum()).alias("vwap"),
+            c("price").min().alias("lo"), c("price").max().alias("hi"),
+            px.mean().alias("mean"), px.std().alias("sd")),
+        "ST2_head": u.filter(c("volume") > 1000).with_columns(
+            (c("price") * c("volume")).alias("notional")).select(
+                "ts", "symbol", "notional").head(STREAM_HEAD),
+        "ST3_inner": u.join(sym.lazy(), on="symbol").group_by("sector").agg(
+            c("volume").sum().alias("vol"),
+            (c("lot") * c("volume")).sum().alias("shares"),
+            pl.len().alias("n")),
+        "ST3_left": u.join(sym.lazy(), on="symbol", how="left").group_by(
+            "sector").agg(c("volume").sum().alias("vol"),
+                          pl.len().alias("n")),
+        "ST4_top_k": u.top_k(STREAM_TOP_K, by=c("price") * c("volume")),
+        "ST4_unique": u.select("symbol", "day").unique(maintain_order=True),
+        "ST4_row_index": u.with_row_index("i").select("i", "ts", "symbol"),
+        "ST5_windows": u.with_columns(
+            c("volume").cast(pl.Int64).cum_sum().alias("cv"),
+            c("price").rolling_mean(ROLL_W).alias("rm"),
+            c("price").shift(1).alias("prev")),
+        "ST6_sort": u.sort(["price", "ts"], descending=[True, False]),
+        "ST6_grace": u.with_row_index("rid").join(sym.lazy(), on="symbol",
+                                                  how="left"),
+    }
+
+
+def stream_oracle(name, got, d, symd, cuts):
+    """`got` (a collected frame) against numpy over the trades `d`."""
+    import numpy as np
+    g = {k: v for k, (v, _) in host_columns(got).items()}
+    sym = d["symbol"].astype(np.int64)
+    vol = d["volume"].astype(np.int64)
+    price = d["price"]
+    p64 = price.astype(np.float64)
+    n = len(sym)
+    if name == "ST1_vwap":
+        cnt = np.bincount(sym, minlength=N_SYMBOLS)
+        keys = np.nonzero(cnt)[0]
+        assert np.array_equal(g["symbol"].astype(np.int64), keys)
+        assert np.array_equal(g["n"], cnt[keys])
+        assert np.array_equal(g["vol"], np.bincount(
+            sym, weights=vol, minlength=N_SYMBOLS)[keys].astype(np.int64))
+        s1 = np.bincount(sym, weights=p64, minlength=N_SYMBOLS)[keys]
+        s2 = np.bincount(sym, weights=p64 * p64, minlength=N_SYMBOLS)[keys]
+        pv = np.bincount(sym, weights=p64 * vol, minlength=N_SYMBOLS)[keys]
+        vv = np.bincount(sym, weights=vol, minlength=N_SYMBOLS)[keys]
+        lo = np.full(N_SYMBOLS, np.inf, np.float32)
+        hi = np.full(N_SYMBOLS, -np.inf, np.float32)
+        np.minimum.at(lo, sym, price)
+        np.maximum.at(hi, sym, price)
+        assert np.array_equal(g["lo"], lo[keys]) and \
+            np.array_equal(g["hi"], hi[keys])
+        c = cnt[keys]
+        mean = s1 / c
+        assert np.all(np.abs(g["mean"] - mean) <= 1e-12 * mean)
+        assert np.all(np.abs(g["vwap"] - pv / vv) <= 1e-12 * pv / vv)
+        order = np.argsort(sym, kind="stable")
+        starts = np.searchsorted(sym[order], keys)
+        dev = p64[order] - np.repeat(mean, c)
+        var = np.add.reduceat(dev * dev, starts) / (c - 1)
+        sd_bound = _std_bound(c, s2) / (2 * np.sqrt(var)) + \
+            2.0 ** -52 * np.sqrt(var)
+        assert np.all(np.abs(g["sd"] - np.sqrt(var)) <= sd_bound), \
+            "ST1 std beyond its bound"
+        return len(keys)
+    if name == "ST2_head":
+        live = np.nonzero(vol > 1000)[0][:STREAM_HEAD]
+        assert np.array_equal(g["symbol"], d["symbol"][live])
+        assert np.array_equal(g["ts"], d["ts"][live])
+        assert np.array_equal(g["notional"], p64[live] * vol[live])
+        return len(live)
+    if name in ("ST3_inner", "ST3_left"):
+        sec = symd["sector"][sym]
+        names, inv = np.unique(sec, return_inverse=True)
+        got = got.sort("sector")
+        g = {k: v for k, (v, _) in host_columns(got).items()}
+        sectors = got.get_column("sector").to_list()
+        assert sectors == list(names), f"{name}: sectors {sectors}"
+        assert np.array_equal(g["vol"], np.bincount(
+            inv, weights=vol).astype(np.int64))
+        assert np.array_equal(g["n"], np.bincount(inv))
+        if "shares" in g:
+            lots = symd["lot"][sym].astype(np.int64)
+            assert np.array_equal(g["shares"], np.bincount(
+                inv, weights=lots * vol).astype(np.int64))
+        return len(names)
+    if name == "ST4_top_k":
+        key = p64 * vol
+        want = np.sort(key)[::-1][:STREAM_TOP_K]
+        got_key = g["price"].astype(np.float64) * g["volume"]
+        assert np.array_equal(got_key, want), "ST4 top-k keys differ"
+        return STREAM_TOP_K
+    if name == "ST4_unique":
+        day = np.repeat(np.arange(N_SESSIONS), np.diff(cuts))
+        pairs = sym * N_SESSIONS + day
+        _, first = np.unique(pairs, return_index=True)
+        first = np.sort(first)
+        assert np.array_equal(g["symbol"], d["symbol"][first])
+        assert np.array_equal(g["day"], day[first].astype(np.int32))
+        return len(first)
+    if name == "ST4_row_index":
+        assert np.array_equal(g["i"], np.arange(n, dtype=g["i"].dtype))
+        assert np.array_equal(g["ts"], d["ts"])
+        return n
+    if name == "ST5_windows":
+        assert np.array_equal(g["cv"], np.cumsum(vol))
+        prev, pv = host_columns(got)["prev"]
+        assert pv is not None and not pv[0] and pv[1:].all() and \
+            np.array_equal(prev[1:], price[:-1]), "ST5 shift differs"
+        cs = np.concatenate([[0.0], np.cumsum(p64)])
+        rm = (cs[ROLL_W:] - cs[:-ROLL_W]) / ROLL_W
+        got_rm = g["rm"][ROLL_W - 1:].astype(np.float64)
+        bound = 2 * np.spacing(np.abs(rm).astype(g["rm"].dtype)) \
+            .astype(np.float64) + ROLL_W * 2.0 ** -52 * np.abs(rm)
+        assert np.all(np.abs(got_rm - rm) <= bound), "ST5 rolling mean"
+        return n
+    if name == "ST6_sort":
+        order = np.lexsort((d["ts"], -p64))
+        assert np.array_equal(g["price"], price[order])
+        assert np.array_equal(g["ts"], d["ts"][order])
+        return n
+    if name == "ST6_grace":
+        rid = g["rid"].astype(np.int64)
+        order = np.argsort(rid)
+        assert np.array_equal(rid[order], np.arange(n))
+        assert np.array_equal(g["lot"][order], symd["lot"][sym])
+        return n
+    raise KeyError(name)
+
+
+def run_stream_phase(args, torch, pl, TK, TP, TE, TH, TM, tdata, df, qdf,
+                     jframes):
+    """Phase 16: G, the fused route against the eager chain, then the
+    streaming queries ST1-ST7 over the trades as a union of day frames.
+    Returns (the wrappers' launches of each query's first collect, the
+    kernels on the card in ST1's second collect, from its trace)."""
+    import numpy as np
+    from polaroid_tpu_torch.exec import compiled as CM
+    from polaroid_tpu_torch.exec import streaming as ST
+    t_phase = time.perf_counter()
+    tdf = trades_frame(pl, tdata)
+    run_fused_vs_eager(args, torch, pl, fused_vs_eager_queries(
+        pl, df, qdf, tdf, jframes))
+    runs, on_card = [], []
+    del tdf
+    print(json.dumps({"phase": "stream_G_seconds",
+                      "seconds": time.perf_counter() - t_phase}))
+    t0 = time.perf_counter()
+    days, cuts = day_frames(pl, torch, tdata)
+    print(json.dumps({"phase": "stream_data", "frames": len(days),
+                      "rows": [int(x) for x in np.diff(cuts)],
+                      "seconds": time.perf_counter() - t0}))
+    sym, symd = symbol_table(pl, args.seed)
+    u = pl.concat([d.lazy() for d in days])
+    queries = stream_queries(pl, u, sym)
+    # ST2 stops after two sessions; the joins also stream the symbol
+    # table, one batch
+    must_batches = {"ST2_head": 2, "ST3_inner": N_SESSIONS + 1,
+                    "ST3_left": N_SESSIONS + 1, "ST6_grace": N_SESSIONS + 1}
+    for name, lf in queries.items():
+        opts = {}
+        if name == "ST6_sort":
+            # the sort keeps 4 batch_rows (half the trades) in memory,
+            # then spills, and sorts buckets of about batch_rows
+            opts = {"batch_rows": max(args.rows // 8, 1)}
+        elif name == "ST6_grace":
+            opts = {"join_build_budget_rows": N_SYMBOLS // 2}
+        with pl.Config(**opts):
+            ST.reset_counts()
+            CM.reset_counts()
+            reset_launches(TK, TP, TE, TH, TM)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if name == "ST1_vwap":
+                # under the profiler, which sees the kernels the graphs'
+                # replays run as well as those the wrappers launch
+                box = {}
+                first_trace = trace_call(lambda: box.setdefault(
+                    "out", lf.collect(engine="streaming")), attempts=1)
+                out = box.pop("out")
+            else:
+                out = lf.collect(engine="streaming")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            counts, joins = dict(ST.COUNTS), [dict(j) for j in ST.JOINS]
+            fused = fused_counts()
+            launches = read_launches(TK, TP, TE, TH, TM)
+            if name == "ST1_vwap":
+                _, again_host, again_fused, again_trace = traced_collect(
+                    lf, TK, TP, TE, TH, TM, engine="streaming")
+            times = time_calls(lambda: lf.collect(engine="streaming"),
+                               1 if name.startswith("ST6") else
+                               max(1, args.reps - 2))
+        want_batches = must_batches.get(name, N_SESSIONS)
+        assert counts["batches"] == want_batches, \
+            f"{name}: {counts['batches']} batches, not {want_batches}"
+        measured = {}
+        if name == "ST1_vwap":
+            measured = first_trace["launches"]
+            # A runs on the card for every batch's partials, and its
+            # launches are those of the first collect in the next one,
+            # where every chain replays
+            assert measured["seg_sum"] >= N_SESSIONS, \
+                f"ST1 ran seg_sum {measured['seg_sum']} times on the card"
+            assert again_trace["launches"] == measured, \
+                f"ST1 ran {again_trace['launches']} on the card, its " \
+                f"first collect {measured}"
+            assert all(measured[k] >= v for k, v in
+                       kernel_counts(launches).items()), \
+                f"ST1's wrappers launched {launches}, the card ran {measured}"
+            assert counts["partials"] == N_SESSIONS and \
+                counts["merges"] == 1
+            # the partial chain replays from the second batch on (the
+            # merge is one chain more), and every chain in the next
+            # collect; the merge's input is made anew by each collect,
+            # so its first hit captures once more, over buffers of its
+            # own
+            assert fused["replays"] >= N_SESSIONS - 1, \
+                f"ST1 replayed {fused['replays']} times"
+            assert again_fused["replays"] == N_SESSIONS + 1 and \
+                again_fused["captures"] <= 1, \
+                f"ST1's second collect: {again_fused}"
+            measured = {"first": measured, "next": again_trace["launches"],
+                        "next_host": again_host}
+        if name.startswith("ST3"):
+            assert joins and joins[0]["build"] == "right" and \
+                not joins[0]["swapped"] and not joins[0]["grace"], \
+                f"{name}: the build side was {joins}"
+        if name == "ST6_sort":
+            assert counts["spills"] > 0, "ST6 sort did not spill"
+        if name == "ST6_grace":
+            assert joins and joins[0]["grace"] and counts["spills"] > 0, \
+                f"ST6 grace join did not spill: {joins}"
+        mem = lf.collect()
+        mem_times = time_collects(lf, max(1, args.reps - 2))
+        bounds = {}
+        if name == "ST1_vwap":
+            mv = host_columns(mem)
+            c = mv["n"][0].astype(np.float64)
+            s2 = mv["mean"][0] ** 2 * c + mv["sd"][0] ** 2 * (c - 1)
+            var = mv["sd"][0] ** 2
+            vb = _std_bound(c, s2)
+            sd = mv["sd"][0]
+            lim = vb / np.maximum(2 * sd, 1e-300) + 2.0 ** -52 * sd
+            bounds = {"sd": lambda b, lim=lim: lim, "vwap": 1e-12,
+                      "mean": 1e-12}
+            del var
+        sort_by = ["rid"] if name == "ST6_grace" else \
+            ["sector"] if name.startswith("ST3") else None
+        worst = same_frames(name, out, mem, bounds or 1e-12, 1, sort_by)
+        got_sorted = out.sort("rid") if name == "ST6_grace" else out
+        nout = stream_oracle(name, got_sorted, tdata, symd, cuts)
+        del mem, got_sorted
+        runs.append(launches)
+        if measured:
+            on_card.append(measured["next"])
+        print(json.dumps({
+            "phase": "stream", "query": name, "out_rows": nout,
+            "batches": counts["batches"], "partials": counts["partials"],
+            "merges": counts["merges"], "spills": counts["spills"],
+            "spilled_bytes": counts["spilled_bytes"], "joins": joins,
+            "fused": fused, "launches": launches,
+            "launches_on_card": measured,
+            "largest_error_vs_in_memory": worst, "first_ms": ms,
+            "median_ms": statistics.median(times), "ms": times,
+            "in_memory_median_ms": statistics.median(mem_times)}))
+        del out
+    # ST7: the surface (batches of 2^20 rows at 2^23)
+    t1 = time.perf_counter()
+    bs = max(args.rows // 8, 1)
+    whole = u.collect()
+    parts = list(u.collect_batches(batch_size=bs))
+    assert len(parts) == -(-whole.height // bs)
+    same_frames("ST7 collect_batches", pl.concat(parts), whole, 0.0)
+    calls = []
+    u.sink_batches(lambda b: calls.append(b.height) or len(calls) == 3,
+                   batch_size=bs)
+    assert calls == [bs] * 3, f"sink_batches called {calls}"
+    q = queries["ST1_vwap"]
+    fut = q.collect_async()
+    same_frames("ST7 collect_async", fut.result(timeout=300), q.collect(),
+                {"mean": 1e-12, "vwap": 1e-12, "sd": 1e-12})
+    res, prof = q1_frame(pl, df).profile()
+    nodes = prof.get_column("node").to_list()
+    # the executor ran two nodes: the frame, and the fused chain under
+    # the group-by
+    assert len(nodes) == 2 and nodes[0].startswith("DF_SCAN") and \
+        nodes[1].startswith("GROUP_BY"), nodes
+    print(json.dumps({"phase": "stream", "query": "ST7_surface",
+                      "batches": len(parts), "sink_calls": calls,
+                      "profile": dict(zip(nodes, prof.get_column("ms")
+                                          .to_list())),
+                      "seconds": time.perf_counter() - t1}))
+    del whole, parts, days, u
+    print(json.dumps({"phase": "stream_seconds",
+                      "seconds": time.perf_counter() - t_phase,
+                      "cache": CM.cache_info(), "nofuse": dict(CM.NOFUSE)}))
+    return runs, on_card
+
+
+def run_stream_only(args, torch, pl, TK, TP, TE, TH, TM):
+    """--only-stream: phase 2's checks on phase 16's launches, then phase
+    16 alone; no result line."""
+    t0 = time.perf_counter()
+    data = make_q1_data(args.rows, args.seed)
+    df = pl.DataFrame(data, device="cuda")
+    qdf, _ = with_null_price(pl, df, data, args.seed)
+    tdata = make_trades_data(args.rows, args.seed)
+    jtables, jdicts = make_join_data(H2O_ROWS, args.seed)
+    jframes = {k: v for k, v in join_frames(pl, jtables, jdicts,
+                                            "cuda").items()
+               if k in ("orders", "users")}
+    del jtables
+    print(json.dumps({"phase": "stream_only_data",
+                      "seconds": time.perf_counter() - t0}))
+    tdf = trades_frame(pl, tdata)
+    check_recorded_kernels(args, torch, TK, TE, TM, TP, [
+        (n, lf) for n, lf, *_ in fused_vs_eager_queries(
+            pl, df, qdf, tdf, jframes)])
+    del tdf
+    run_stream_phase(args, torch, pl, TK, TP, TE, TH, TM, tdata, df, qdf,
+                     jframes)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3583,6 +4362,9 @@ def main() -> int:
     ap.add_argument("--only-surface", action="store_true",
                     help="build, then phase 2 on phase 15's launches and "
                     "phase 15 alone; prints no result line")
+    ap.add_argument("--only-stream", action="store_true",
+                    help="build, then phase 2 on phase 16's launches and "
+                    "phase 16 alone; prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -3619,11 +4401,16 @@ def main() -> int:
                       "sources": [f"polaroid_tpu_torch/csrc/{s}.cu"
                                   for s in B.SOURCES]}))
 
+    phase_seconds("1")
     if args.only_taq:
         run_taq_only(args, torch, pl, TK, TP, TE, TH, TM)
         return 0
     if args.only_surface:
         run_surface_only(args, torch, pl, TK, TP, TE, TH, TM)
+        return 0
+    if args.only_stream:
+        run_stream_only(args, torch, pl, TK, TP, TE, TH, TM)
+        phase_seconds("16")
         return 0
 
     # phase 10's data, made before the first trace: on the H100 hosts this
@@ -3738,56 +4525,72 @@ def main() -> int:
     lookup = check_lookup_join(args, torch, TE)
     print(json.dumps({"phase": "kernel", "shape": "lookup_join_4m_x_1m",
                       **lookup}))
+    phase_seconds("2")
 
     # --- 3. q1 end to end ---------------------------------------------------
+    # the first collect of each chain runs it eagerly and captures it;
+    # every later collect replays the graph once, with the launches of
+    # the first
+    from polaroid_tpu_torch.exec import compiled as CM
     lf = q1_frame(pl, df)
-    reset_launches(TK, TP, TE, TH, TM)
-    out = lf.collect()
-    q1_launches = read_launches(TK, TP, TE, TH, TM)
+    out, q1_launches, q1_first = first_fused_collect(torch, lf, TK, TP, TE,
+                                                     TH, TM)
     assert q1_launches["seg_sum"] == 2, "q1 did not launch seg_sum twice"
     assert q1_launches["compact_words"] == 1, \
         "q1 did not launch compact_words once"
     ngroups = check_q1(out, data)
-    times = time_collects(lf, args.reps)
+    q1_replay, times = replayed_collects(
+        args, torch, lf, q1_launches, TK, TP, TE, TH, TM,
+        check=lambda o: check_q1(o, data))
     print(json.dumps({"phase": "q1", "rows": args.rows, "groups": ngroups,
-                      "launches": q1_launches,
+                      "launches": q1_launches, **q1_first, **q1_replay,
                       "median_ms": statistics.median(times),
                       "ms": times, "trace": trace_collect(lf)}))
+    phase_seconds("3")
 
     # --- 4. filter -> with_columns -> collect -------------------------------
     lf2 = (df.lazy().filter(pl.col("volume") > 1000)
            .with_columns((pl.col("price") * pl.col("volume"))
                          .alias("notional")))
-    reset_launches(TK, TP, TE, TH, TM)
     TP.LAST_ROWS = 0
-    out2 = lf2.collect()
-    filter_launches = read_launches(TK, TP, TE, TH, TM)
+    out2, filter_launches, f_first = first_fused_collect(torch, lf2, TK, TP,
+                                                         TE, TH, TM)
     assert filter_launches["compact_words"] > 0 and \
         TP.LAST_ROWS == df._table.capacity, \
         "the filter collect did not compact at full width"
     check_filter(out2, data)
-    times = time_collects(lf2, args.reps)
+    f_replay, times = replayed_collects(
+        args, torch, lf2, filter_launches, TK, TP, TE, TH, TM,
+        check=lambda o: check_filter(o, data))
     print(json.dumps({"phase": "filter_collect", "rows": args.rows,
                       "live": out2.height, "launches": filter_launches,
+                      **f_first, **f_replay,
                       "median_ms": statistics.median(times), "ms": times,
                       "trace": trace_collect(lf2)}))
+    phase_seconds("4")
 
     # --- 5. the per-symbol OHLC bar ----------------------------------------
     lf5 = ohlc_frame(pl, df)
-    reset_launches(TK, TP, TE, TH, TM)
-    out5 = lf5.collect()
-    ohlc_launches = read_launches(TK, TP, TE, TH, TM)
+    out5, ohlc_launches, o_first = first_fused_collect(torch, lf5, TK, TP,
+                                                       TE, TH, TM)
     assert ohlc_launches["seg_minmax"] > 0, "ohlc did not launch seg_minmax"
     assert ohlc_launches["gather"] > 0, "ohlc did not launch gather"
     ngroups5 = check_ohlc(out5, data)
-    times = time_collects(lf5, args.reps)
+    o_replay, times = replayed_collects(
+        args, torch, lf5, ohlc_launches, TK, TP, TE, TH, TM,
+        check=lambda o: check_ohlc(o, data), may_stay_eager=True)
     print(json.dumps({"phase": "ohlc", "rows": args.rows, "groups": ngroups5,
-                      "launches": ohlc_launches,
+                      "launches": ohlc_launches, **o_first, **o_replay,
                       "median_ms": statistics.median(times), "ms": times,
                       "trace": trace_collect(lf5)}))
+    phase_seconds("5")
 
     # --- 6. the H2O group-by over large key domains ------------------------
     runs = [q1_launches, filter_launches, ohlc_launches]
+    # the kernels that the traced collects after the first ran on the
+    # card, where graphs replay them and no wrapper counts
+    on_card = [q1_replay["replay_launches"], f_replay["replay_launches"],
+               o_replay["replay_launches"]]
     for name, keys, lfq, order in h2o_queries(pl, hdf):
         reset_launches(TK, TP, TE, TH, TM)
         outq = lfq.collect()
@@ -3803,6 +4606,8 @@ def main() -> int:
                           "launches": ql,
                           "median_ms": statistics.median(times), "ms": times,
                           "trace": trace_collect(lfq)}))
+
+    phase_seconds("6")
 
     # --- 7. the carry-sort fallback ------------------------------------------
     lf7 = hdf.lazy().group_by("kf").agg(pl.col("v1").sum().alias("v1"),
@@ -3820,6 +4625,8 @@ def main() -> int:
                       "groups": ng7, "launches": fb_launches,
                       "median_ms": statistics.median(times), "ms": times,
                       "trace": trace_collect(lf7)}))
+
+    phase_seconds("7")
 
     # --- 8. device sorts at 10^7 rows ---------------------------------------
     sort_data = {**h2o, "id4n": h2o["id4"], "v3n": h2o["v3"]}
@@ -3850,6 +4657,8 @@ def main() -> int:
                           "median_ms": statistics.median(times), "ms": times,
                           "trace": trace_collect(lfs)}))
 
+    phase_seconds("8")
+
     # --- 9. the sorted tier and the ordered aggregates at 10^7 rows ------
     for name, lfs, must in sorted_tier_queries(pl, hdf, ndf):
         reset_launches(TK, TP, TE, TH, TM)
@@ -3867,6 +4676,8 @@ def main() -> int:
                           "median_ms": statistics.median(times), "ms": times,
                           "trace": trace_collect(lfs)}))
     del ndf
+
+    phase_seconds("9")
 
     # --- 10. joins: the H2O join suite and the orders x users pipeline --
     # every query's collects and trace first, the numpy oracles (seconds
@@ -3909,6 +4720,8 @@ def main() -> int:
             if tr["device_ops"] else None, "trace": tr}))
     del results
 
+    phase_seconds("10")
+
     # --- 11. windows and .over() at 10^7 and 2^23 rows ------------------------
     # every query's collects and trace first (its result copied to the
     # host), the numpy oracles after them
@@ -3938,20 +4751,28 @@ def main() -> int:
             if tr["device_ops"] else None, "trace": tr}))
     del results
 
+    phase_seconds("11")
+
     # --- 12. time at 2^23 rows --------------------------------------------------
     run_time_phase(args, torch, TK, TP, TE, TH, TM, tqueries, tdata,
                    time_first_ms, runs)
     del tqueries
+
+    phase_seconds("12")
 
     # --- 13. as-of and inequality joins and the select context -------------
     run_asof_phase(args, torch, TK, TP, TE, TH, TM, aqueries, tdata, qdata,
                    wdata, asof_first_ms, runs)
     del aqueries
 
+    phase_seconds("13")
+
     # --- 14. strings and nested columns on the TAQ trades ------------------
     run_taq_phase(args, torch, TK, TP, TE, TH, TM, taq["queries"],
                   taq["data"], taq["draws"], taq_first_ms, taq["build_ms"],
                   runs)
+
+    phase_seconds("14")
 
     # --- 15. SQL and the rest of the surface -----------------------------
     t0 = time.perf_counter()
@@ -3962,14 +4783,27 @@ def main() -> int:
     print(json.dumps({"phase": "surface_seconds",
                       "seconds": time.perf_counter() - t0}))
 
+    phase_seconds("15")
+
+    # --- 16. fused chains and the streaming engine -------------------------
+    stream_runs, stream_on_card = run_stream_phase(
+        args, torch, pl, TK, TP, TE, TH, TM, tdata, df, qdf, jframes)
+    runs += stream_runs
+    on_card += stream_on_card
+    phase_seconds("16")
+
     # --- result ---------------------------------------------------------------
     def launches(name):
         return sum(r[name] for r in runs)
+
+    def replay_launches(name):
+        return sum(r[name] for r in on_card)
 
     def entry(name, source, replaces, m):
         return {"name": name, "route": "cuda",
                 "source": f"polaroid_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches(name),
+                "replay_launches": replay_launches(name),
                 "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"]}

@@ -58,7 +58,8 @@ from .dtypes import Array, Binary, Categorical, Enum, Field, List, \
 from .api.functions import (  # noqa: E402
     align_frames, all, all_horizontal, any, any_horizontal, approx_n_unique,
     arange, arctan2, arctan2d, arg_sort_by, arg_where, build_info,
-    business_day_count, Categories, coalesce, collect_all, concat_arr, count,
+    business_day_count, Categories, coalesce, collect_all, collect_all_async,
+    concat_arr, count,
     cum_count, cum_fold, cum_reduce, cum_sum, cum_sum_horizontal,
     disable_string_cache, enable_string_cache, exclude, explain_all, first,
     fold, from_dicts, from_numpy, from_records, from_repr, from_torch,

@@ -845,6 +845,20 @@ def collect_all(lazy_frames, **kw):
     return [lf.collect(**kw) for lf in lazy_frames]
 
 
+def collect_all_async(lazy_frames, **kw):
+    """collect_all on a worker thread; returns a concurrent Future (on the
+    card, as `LazyFrame.collect_async` runs)."""
+    from .lazyframe import _submit
+    lfs = list(lazy_frames)
+    if not lfs:
+        from ..batch import resolve_device
+        import concurrent.futures as _fut
+        fut = _fut.Future()
+        fut.set_result([])
+        return fut
+    return _submit(lfs[0]._plan, lambda: [lf.collect(**kw) for lf in lfs])
+
+
 def explain_all(lazy_frames, **kw) -> str:
     return "\n".join(lf.explain() for lf in lazy_frames)
 

@@ -414,19 +414,20 @@ class LazyFrame:
             return out
         return self._map_frame(run, out_schema, "pivot")
 
-    def _map_frame(self, fn, schema_fn=None, label: str = "map"
-                   ) -> "LazyFrame":
-        """An opaque DataFrame -> DataFrame step of the plan."""
+    def _map_frame(self, fn, schema_fn=None, label: str = "map",
+                   streamable: bool = False) -> "LazyFrame":
+        """An opaque DataFrame -> DataFrame step of the plan; a streamable
+        one runs on each batch of a streaming collect."""
         def wrapped(t):
             from .frame import DataFrame
             return fn(DataFrame._from_table(t))._table
-        return LazyFrame._from_plan(L.MapFunction(self._plan, wrapped,
-                                                  schema_fn, False, label))
+        return LazyFrame._from_plan(L.MapFunction(
+            self._plan, wrapped, schema_fn, streamable, label))
 
     def map_batches(self, fn, schema=None, streamable: bool = False
                     ) -> "LazyFrame":
         return self._map_frame(fn, (lambda s: dict(schema)) if schema
-                               else None)
+                               else None, streamable=streamable)
 
     def match_to_schema(self, schema, **kw) -> "LazyFrame":
         sch = {n: (d() if isinstance(d, type) else d)
@@ -532,14 +533,18 @@ class LazyFrame:
         return self.head(n_rows).collect()
 
     def profile(self, **kw):
-        """(the result, a frame of the run's wall time on the host)."""
-        import time
+        """(the result, a frame with one row per node the executor ran —
+        a fused chain is one — and its wall ms, fenced on the card)."""
         from .frame import DataFrame
-        t0 = time.perf_counter()
-        out = self.collect()
-        ms = (time.perf_counter() - t0) * 1e3
-        return out, DataFrame({"node": ["collect"], "ms": [ms]},
-                              device=out.device)
+        from ..exec.executor import ExecState, execute
+        from ..ops.compact import compact
+        self._plan.schema()
+        state = ExecState(track_metrics=True)
+        t = execute(optimize(self._plan), state)
+        prof = DataFrame({"node": [n for n, _ in state.timings],
+                          "ms": [dt * 1e3 for _, dt in state.timings]},
+                         device=t.device)
+        return DataFrame._from_table(compact(t)), prof
 
     def show(self, n: int = 10) -> None:
         print(self.head(n).collect())
@@ -550,16 +555,110 @@ class LazyFrame:
         return SQLContext({table_name: self}).execute(query)
 
     # --- execution ------------------------------------------------------
-    def collect(self, **kw):
+    def collect(self, engine: str = "auto", streaming: bool = False,
+                background: bool = False, **kw):
         """Run the plan; the result's live rows are compacted on the
         device and its row count stays there until the host reads it.
-        polars' engine options are accepted and change nothing: every
-        plan runs in memory on the frame's device."""
+        `engine="auto"` takes `CONFIG.engine_affinity`; "streaming" (or
+        `streaming=True`) runs the streaming executor over the plan
+        optimized for it; anything else runs in memory."""
         from .frame import DataFrame
-        from ..exec.executor import execute
+        from ..config import CONFIG
+        from ..exec.executor import ExecState, execute
         from ..ops.compact import compact
         self._plan.schema()  # validate names/dtypes before pushdowns
-        return DataFrame._from_table(compact(execute(optimize(self._plan))))
+        eng = engine if engine != "auto" else CONFIG.engine_affinity
+        if streaming:
+            eng = "streaming"
+        if eng == "distributed":
+            raise NotImplementedError(
+                "engine='distributed' is not ported yet: it comes with "
+                "Slice G (torch.distributed)")
+        plan = self._optimized(eng)
+        if CONFIG.visualize_ir:
+            print(plan.describe())
+        if eng == "streaming":
+            from ..exec.streaming import execute_streaming
+            t = execute_streaming(plan)
+        else:
+            state = ExecState()
+            t = execute(plan, state)
+            if CONFIG.log_metrics and state.timings:
+                for name, dt in state.timings:
+                    print(f"[metrics] {name}: {dt*1e3:.2f} ms")
+        return DataFrame._from_table(compact(t))
+
+    def _optimized(self, engine: str) -> L.Plan:
+        """The plan optimized for `engine`, kept on this frame: a lazy
+        frame's plan never changes, so its later collects reuse the
+        optimizer's work. (The JAX package keeps a process-wide cache by
+        plan fingerprint; here that would keep every collected frame's
+        device tensors alive.)"""
+        cache = self.__dict__.setdefault("_opt_plans", {})
+        plan = cache.get(engine)
+        if plan is None:
+            plan = cache[engine] = optimize(self._plan, engine)
+        return plan
+
+    def collect_async(self, **kw):
+        """Collect on a worker thread; returns a concurrent Future. On the
+        card the thread runs on the frame's device, on a stream of its
+        own that first waits for the caller's stream, and synchronizes
+        that stream before the Future resolves."""
+        return _submit(self._plan, lambda: self.collect(**kw))
+
+    def collect_batches(self, *, batch_size: int = 65536, engine="auto"):
+        """Iterator of DataFrame batches of `batch_size` rows of the
+        result."""
+        out = self.collect(engine=engine)
+        off = 0
+        while off < out.height:
+            yield out.slice(off, batch_size)
+            off += batch_size
+
+    def sink_batches(self, callback, *, batch_size: int = 65536,
+                     engine="auto") -> None:
+        """Call `callback` on each batch of the result; a truthy return
+        stops (polars' contract)."""
+        for b in self.collect_batches(batch_size=batch_size, engine=engine):
+            if callback(b):
+                break
+
+
+def _plan_device(plan: L.Plan):
+    """The device of the first in-memory table under `plan`, else the
+    configured one."""
+    stack = [plan]
+    while stack:
+        p = stack.pop()
+        if p.kind == "df_scan":
+            return p.table.device
+        stack.extend(p.inputs)
+    from ..batch import resolve_device
+    return resolve_device(None)
+
+
+def _submit(plan: L.Plan, fn):
+    """fn() on a worker thread, as `LazyFrame.collect_async` says."""
+    import concurrent.futures as _fut
+    import torch
+    dev = _plan_device(plan)
+
+    def run():
+        if dev.type != "cuda":
+            return fn()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(caller)
+            with torch.cuda.stream(stream):
+                out = fn()
+            stream.synchronize()
+        return out
+    caller = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    ex = _fut.ThreadPoolExecutor(max_workers=1)
+    fut = ex.submit(run)
+    ex.shutdown(wait=False)
+    return fut
 
 
 class LazyGroupBy:

@@ -12,6 +12,13 @@ The port reads these:
   group slots line up with it slot for slot.
 * `fmt_max_rows`, `fmt_max_cols`, `fmt_str_len` — how a frame prints
   (polars' `tbl_rows`, `tbl_cols`, `fmt_str_lengths`).
+* the engine settings, with the JAX package's env names and defaults:
+  `engine_affinity` ("auto" | "in-memory" | "streaming"), `batch_rows`
+  (rows per streamed batch), `join_sample_limit`,
+  `join_build_budget_rows` and `join_grace_partitions` (the streaming
+  joins' build-side choice and spill), `track_metrics`, `log_metrics`
+  (per-node timings, `metrics.py`) and `visualize_ir` (print the
+  optimized plan at collect).
 Float64 is always stored as float64: the card computes it natively.
 """
 
@@ -24,6 +31,13 @@ from typing import Any
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     return int(v) if v not in (None, "") else default
+
+
+def _env_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v in (None, ""):
+        return default
+    return v not in ("0", "false", "False", "no")
 
 
 class Config:
@@ -40,6 +54,28 @@ class Config:
         self.fmt_max_rows: int = _env_int("PT_FMT_MAX_ROWS", 10)
         self.fmt_max_cols: int = _env_int("PT_FMT_MAX_COLS", 12)
         self.fmt_str_len: int = _env_int("PT_FMT_STR_LEN", 30)
+        # engine selection default: "auto" | "in-memory" | "streaming"
+        # (POLARS_ENGINE_AFFINITY)
+        self.engine_affinity: str = os.environ.get("PT_ENGINE_AFFINITY",
+                                                   "auto")
+        # target rows per streamed batch (POLARS_IDEAL_MORSEL_SIZE)
+        self.batch_rows: int = _env_int("PT_BATCH_ROWS", 1 << 21)
+        # rows each side of a streaming join may buffer while the smaller
+        # side is chosen as the build side (POLARS_JOIN_SAMPLE_LIMIT)
+        self.join_sample_limit: int = _env_int("PT_JOIN_SAMPLE_LIMIT",
+                                               10_000_000)
+        # the streaming join's build-side row budget; past it the
+        # grace-hash join spills both sides to partitions
+        self.join_build_budget_rows: int = _env_int(
+            "PT_JOIN_BUILD_BUDGET_ROWS", 10_000_000)
+        self.join_grace_partitions: int = _env_int(
+            "PT_JOIN_GRACE_PARTITIONS", 8)
+        # per-node timings (POLARS_TRACK_METRICS), printed when
+        # log_metrics is set
+        self.track_metrics: bool = _env_bool("PT_TRACK_METRICS")
+        self.log_metrics: bool = _env_bool("PT_LOG_METRICS")
+        # print the optimized plan at collect (POLARS_VISUALIZE_IR)
+        self.visualize_ir: bool = _env_bool("PT_VISUALIZE_IR")
 
     # the polars option names of the formatting settings
     _PL_NAMES = {"tbl_rows": "fmt_max_rows", "tbl_cols": "fmt_max_cols",

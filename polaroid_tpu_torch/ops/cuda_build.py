@@ -121,6 +121,24 @@ def zeroed_scratch(kernel: str, words: int, dev: torch.device,
     key = (kernel, dev.index, stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < words:
+        if torch.cuda.is_current_stream_capturing():
+            # a buffer made inside a capture would be zeroed only when
+            # that graph replays; `prepare_scratch` makes them before
+            raise RuntimeError(
+                f"{kernel}: no scratch of {words} words for the capturing "
+                "stream (prepare_scratch was not called for it)")
         buf = _SCRATCH[key] = torch.zeros(words, dtype=torch.int64,
                                           device=dev)
     return buf
+
+
+def prepare_scratch(dev: torch.device, stream: int) -> None:
+    """Give `stream` on `dev` a zeroed scratch buffer, as large as the
+    largest on any stream, for every kernel that has one: a stream that
+    captures a CUDA graph then finds them made, outside the capture."""
+    need: Dict[str, int] = {}
+    for (kernel, index, _), buf in _SCRATCH.items():
+        if index == dev.index:
+            need[kernel] = max(need.get(kernel, 0), buf.numel())
+    for kernel, words in need.items():
+        zeroed_scratch(kernel, words, dev, stream)

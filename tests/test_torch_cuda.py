@@ -18,6 +18,10 @@ from polaroid_tpu_torch.ops import cuda_partition as TP
 from polaroid_tpu_torch.ops import exchange as TE
 from polaroid_tpu_torch.ops import hgroup as TH
 from polaroid_tpu_torch.ops import merge_sort as TM
+from polaroid_tpu_torch.exec import compiled as CM
+from polaroid_tpu_torch.exec.executor import execute_eager
+from polaroid_tpu_torch.ops.compact import compact
+from polaroid_tpu_torch.plan.optimizer import optimize
 
 pytestmark = pytest.mark.cuda
 
@@ -983,3 +987,169 @@ def test_implode_and_explode_launches_on_card(dev, name):
                            TK.seg_minmax_plain(xs, gid, G, is_max, ident))
     assert (len(extremes) > 0) == (name != "L2")
     CS.taq_oracle(name, CS._taq_cols(out), d, x)
+
+
+# --- fused chains: CUDA graphs (exec/compiled.py) ---------------------------
+
+def _cuda_frame(seed, n=5000):
+    rng = np.random.default_rng(seed)
+    return frame_from_numpy({
+        "symbol": rng.integers(0, 300, n).astype(np.uint32),
+        "price": rng.uniform(1, 200, n).astype(np.float32),
+        "volume": rng.integers(0, 5000, n).astype(np.int32)},
+        device="cuda")
+
+
+def _q1(df):
+    c = pt.col
+    return df.lazy().filter(c("volume") > 1000).with_columns(
+        (c("price") * c("volume")).alias("notional")).group_by("symbol").agg(
+            pt.len().alias("n"), c("notional").sum().alias("total"),
+            c("price").mean().alias("avg"))
+
+
+def test_replay_over_new_inputs_of_one_key(dev):
+    CM.clear_cache()
+    CM.reset_counts()
+    frames = [_cuda_frame(s) for s in (1, 2, 3)]
+    for df in frames:
+        got = _q1(df).collect().sort("symbol").to_dict()
+        want = pt.DataFrame._from_table(compact(execute_eager(optimize(
+            _q1(df)._plan)))).sort("symbol").to_dict()
+        assert got["symbol"] == want["symbol"] and got["n"] == want["n"]
+        np.testing.assert_allclose(got["total"], want["total"], rtol=1e-12)
+    # first sight, then a capture over buffers of its own, then a copy
+    assert CM.COUNTS["captures"] == 2 and CM.COUNTS["replays"] == 2
+    assert CM.COUNTS["static_copy_bytes"] > 0 and not CM.NOFUSE
+
+
+def test_outputs_survive_the_next_replay(dev):
+    CM.clear_cache()
+    a, b = _cuda_frame(4), _cuda_frame(5)
+    _q1(a).collect()
+    first = _q1(a).collect()
+    kept = first.to_dict()
+    _q1(b).collect()
+    _q1(b).collect()
+    assert first.to_dict() == kept
+
+
+def test_graph_counts_its_launches(dev):
+    """The wrappers count the first collect's launches and none of a
+    replay's (a capture runs nothing, a replay launches from the graph);
+    the card runs the first collect's kernels in every replay, as a
+    trace of it shows."""
+    import chip_smoke as CS
+    from polaroid_tpu_torch.ops import cuda_kernels as TK
+    from polaroid_tpu_torch.ops import cuda_partition as TP
+    CM.clear_cache()
+    df = _cuda_frame(6)
+    counts = []
+    for _ in range(3):
+        a, b = TK.LAUNCHES, TP.LAUNCHES
+        _q1(df).collect()
+        counts.append((TK.LAUNCHES - a, TP.LAUNCHES - b))
+    assert counts[0][0] > 0 and counts[0][1] > 0
+    assert counts[1] == counts[2] == (0, 0)
+    tr = CS.trace_call(lambda: _q1(df).collect())
+    assert (tr["launches"]["seg_sum"], tr["launches"]["compact_words"]) \
+        == counts[0]
+
+
+def test_a_graph_keeps_no_freed_frame_alive(dev):
+    """A graph captured over a frame's own tensors holds them weakly:
+    deleting the frame gives its memory back, and a new frame of the
+    same key is captured again over buffers of the graph's own."""
+    import gc
+    CM.clear_cache()
+    torch.cuda.synchronize()
+    df = _cuda_frame(10, n=1 << 20)
+    nbytes = sum(c.data.untyped_storage().nbytes()
+                 for c in df._table.cols.values())
+    _q1(df).collect()
+    _q1(df).collect()
+    assert CM.cache_info()["graphs"] == 1
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    del df
+    gc.collect()
+    torch.cuda.synchronize()
+    assert held - torch.cuda.memory_allocated() >= nbytes
+    CM.reset_counts()
+    other = _cuda_frame(11, n=1 << 20)
+    for _ in range(2):
+        got = _q1(other).collect().sort("symbol").to_dict()
+        want = pt.DataFrame._from_table(compact(execute_eager(optimize(
+            _q1(other)._plan)))).sort("symbol").to_dict()
+        assert got["symbol"] == want["symbol"] and got["n"] == want["n"]
+        np.testing.assert_allclose(got["total"], want["total"], rtol=1e-12)
+    assert CM.COUNTS["captures"] == 1 and CM.COUNTS["replays"] == 2
+
+
+def test_a_concurrent_sync_leaves_the_chain_captured(dev):
+    """Another thread's syncs while a chain is first seen are not the
+    chain's: it is captured, not marked no-fuse."""
+    import threading
+    CM.clear_cache()
+    CM.reset_counts()
+    df = _cuda_frame(12)
+    stop = threading.Event()
+    synced = []
+
+    def other():
+        x = torch.ones(1, device=dev)
+        while not stop.is_set():
+            synced.append(int(x.sum()))
+    th = threading.Thread(target=other)
+    th.start()
+    try:
+        while not synced:
+            pass
+        _q1(df).collect()
+    finally:
+        stop.set()
+        th.join()
+    assert CM.COUNTS["captures"] == 1 and not CM.NOFUSE
+
+
+def test_capture_of_a_c_and_d_alone(dev):
+    """Kernels A, C and D captured alone and replayed over new inputs
+    equal their plain versions."""
+    from polaroid_tpu_torch.ops import cuda_build as B
+    from polaroid_tpu_torch.ops import cuda_kernels as TK
+    n, G = 100_000, 1000
+    g = torch.Generator(device=dev).manual_seed(7)
+    vals = torch.rand((2, n), generator=g, device=dev, dtype=torch.float64)
+    gid = torch.randint(0, G, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    x = torch.rand(n, generator=g, device=dev)
+    table = torch.rand(G, generator=g, device=dev, dtype=torch.float64)
+    # warm up (libraries, scratch) on the side stream, then capture
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        TK.seg_sum(vals, gid, G)
+        TK.seg_minmax(x, gid, G, True, float("-inf"))
+        TK.gather(table, gid)
+    torch.cuda.current_stream().wait_stream(s)
+    B.prepare_scratch(gid.device, s.cuda_stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        a = TK.seg_sum(vals, gid, G)
+        c = TK.seg_minmax(x, gid, G, True, float("-inf"))
+        d = TK.gather(table, gid)
+    for seed in (8, 9):
+        g.manual_seed(seed)
+        vals.copy_(torch.rand((2, n), generator=g, device=dev,
+                              dtype=torch.float64))
+        x.copy_(torch.rand(n, generator=g, device=dev))
+        gid.copy_(torch.randint(0, G, (n,), generator=g, device=dev,
+                                dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = TK.seg_sum_plain(vals, gid, G)
+        assert torch.allclose(a, want, rtol=1e-12, atol=1e-9)
+        assert torch.equal(c, TK.seg_minmax_plain(x, gid, G, True,
+                                                  float("-inf")))
+        assert torch.equal(d, TK.gather_plain(table, gid))

@@ -28,6 +28,10 @@ def test_import_loads_no_jax_module():
         "before = set(sys.modules)\n"
         "import polaroid_tpu_torch\n"
         "import polaroid_tpu_torch.exec.executor\n"
+        "import polaroid_tpu_torch.exec.compiled\n"
+        "import polaroid_tpu_torch.exec.streaming\n"
+        "import polaroid_tpu_torch.metrics\n"
+        "import polaroid_tpu_torch.native\n"
         "import polaroid_tpu_torch.ops.cuda_build\n"
         "import polaroid_tpu_torch.ops.nested\n"
         "import polaroid_tpu_torch.expr.nested\n"

@@ -40,11 +40,14 @@ from polaroid_tpu_torch.testing import frame_from_numpy
 
 @pytest.fixture(autouse=True, scope="module")
 def _fresh_reference_cache():
-    """The JAX package keeps compiled programs in a process-wide cache
-    (`polaroid_tpu/exec/compiled.py`'s `_CACHE`) that an earlier test
-    file can leave stale for this one's plans; start each file clean."""
-    from polaroid_tpu.exec import compiled
-    compiled._CACHE.clear()
+    """The JAX package's process-wide caches (its compiled chains, and
+    its optimized plans keyed by the id of a table that may be freed)
+    can hand this file's plans another frame's results; start the file
+    with the first empty and keep the second from storing anything
+    while it runs (`tests/test_torch_reference_caches.py`)."""
+    from test_torch_reference_caches import fresh_reference_caches
+    with fresh_reference_caches():
+        yield
 
 
 N = 500

@@ -15,6 +15,18 @@ import polaroid_tpu_torch.selectors as pcs
 from polaroid_tpu_torch.testing import assert_frame_equal
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_reference_cache():
+    """The JAX package's process-wide caches (its compiled chains, and
+    its optimized plans keyed by the id of a table that may be freed)
+    can hand this file's plans another frame's results; start the file
+    with the first empty and keep the second from storing anything
+    while it runs (`tests/test_torch_reference_caches.py`)."""
+    from test_torch_reference_caches import fresh_reference_caches
+    with fresh_reference_caches():
+        yield
+
+
 def _data():
     return {"abc": [1, 2, 3], "xyz": [1.5, 2.5, None],
             "flag": [True, False, True], "name": ["a", "b", "a"],

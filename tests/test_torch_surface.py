@@ -7,8 +7,8 @@ test fails if the port loses a name it has, and if a name recorded here
 turns up in the port while still listed: each slice that ports a name
 takes it off its list, so the lists shrink on purpose, and "the port
 has all that the JAX package has" is these lists being empty. What is
-left needs files, serialization, pyarrow or pandas, streaming or async,
-and comes with the slice ROADMAP.md names. `NEVER` holds the names the
+left needs files, serialization, pyarrow or pandas, and comes with the
+slice ROADMAP.md names. `NEVER` holds the names the
 port never takes: `to_jax` (on `DataFrame` and `Series`) hands the data
 to JAX, and the port imports no JAX. (`Expr` has every name.)
 """
@@ -21,14 +21,13 @@ import polaroid_tpu as ref
 import polaroid_tpu_torch as pt
 
 # what is left needs files, serialization, pyarrow or pandas (Slice H:
-# host IO and services), or the streaming engine or async collection
-# (Slice F); ROADMAP.md names the slice of each
+# host IO and services); ROADMAP.md names the slice of each
 TOP = """
 BasePartitionContext Catalog CompatLevel CredentialProvider
 CredentialProviderAWS CredentialProviderAzure CredentialProviderFunction
 CredentialProviderFunctionReturn CredentialProviderGCP KeyedPartition
 KeyedPartitionContext PartitionByKey PartitionMaxSize PartitionParted
-ScanCastOptions collect_all_async defer from_arrow from_dataframe
+ScanCastOptions defer from_arrow from_dataframe
 from_pandas read_avro read_clipboard read_csv read_csv_batched
 read_database read_database_uri read_delta read_excel read_ipc
 read_ipc_schema read_ipc_stream read_json read_ndjson read_ods
@@ -44,8 +43,8 @@ write_ipc write_ipc_stream write_json write_ndjson write_parquet
 """.split()
 
 LAZYFRAME = """
-collect_async collect_batches deserialize remote serialize
-sink_batches sink_csv sink_ipc sink_ndjson sink_parquet
+deserialize remote serialize sink_csv sink_ipc sink_ndjson
+sink_parquet
 """.split()
 
 SERIES = """
