@@ -2,7 +2,7 @@
 """Run polaroid_tpu_torch on one CUDA card and check it end to end.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--reps 5] [--only-taq]
-                          [--only-surface] [--only-stream]
+                          [--only-surface] [--only-stream] [--only-dist]
 
 Phases:
 1. the card (name and power limit from nvidia-smi) and a fresh build of
@@ -170,6 +170,24 @@ Phases:
    ST7 collect_batches, sink_batches, collect_async and profile.
    `--only-stream` runs the build, phase 2's checks on G's first
    collects and phase 16 alone, and prints no result line.
+17. the distributed engine (`collect(engine="distributed")`) on a mesh
+   of 4 shard slots, slot s on card s % cards (all four on one card of
+   a one-card machine), with its 2 x 2 twin: D0 dryrun_multichip(4)
+   and one shard's 2^22 rows of the H2O frame grouped by a u32 key over
+   each route of the adaptive local group-by (id1: dense through A and
+   C at G 1024; id3 % 5000: at G 8192; id3: the hash exchange, E; kf:
+   the carry sort, F and B), against numpy; D1 H2O q2, q3, q5, q7, q10
+   (sharded) and q6 (exact) at 10^7 rows against phase 6's checker and
+   the in-memory collect; D2 the sorts S1 and S2 (sample sort) bit for
+   bit against the in-memory sort; D3 U1 (distinct) against phase 9's
+   checker and the in-memory collect; D4 the joins q2, q3 (left), q5
+   and J1 against phase 10's checkers. Each prints its route, the
+   exchanges, bytes between slots, per-destination capacity and drops
+   (0, asserted), the launches of A, B, C, E and F, the median of --reps
+   collects beside the in-memory median, and busy ms, device ops and
+   idle share from a trace. Phase 2's checks run first on every launch
+   of one run of each. `--only-dist` runs the build and phase 17 alone,
+   and prints no result line.
 Each phase prints its seconds.
 
 The line before the last lists every ported kernel with its numbers;
@@ -1686,9 +1704,28 @@ def host_ordered(got, keys):
             for k, (d, v) in got.items()}
 
 
-def check_join(name, out, tables, dicts):
+def by_v1(want, valid, got):
+    """An m:1 join's rows (one per x row) and the oracle's, both ordered
+    by x's v1: one plain argsort each where v1 has no ties (then every
+    sort gives the same order), stable sorts by (v1, id3) where it
+    has."""
+    import numpy as np
+    ow = np.argsort(want["v1"])
+    sv = want["v1"][ow]
+    if np.all(sv[1:] != sv[:-1]):
+        og = np.argsort(got["v1"][0])
+        return ({k: v[ow] for k, v in want.items()},
+                {k: v[ow] for k, v in valid.items()},
+                {k: (d[og], None if v is None else v[og])
+                 for k, (d, v) in got.items()})
+    want, valid = canonical(want, valid, [want["v1"], want["id3"]])
+    return want, valid, host_ordered(got, [got["v1"][0], got["id3"][0]])
+
+
+def check_join(name, out, tables, dicts, any_order=False):
     """A phase-10 result against numpy, every column bit for bit and its
-    nulls exact; the join order is unspecified for q5 and q5_full, so
+    nulls exact; the join order is unspecified for q5 and q5_full (and
+    for q1-q4 with `any_order`: each x row's own v1 orders those), so
     both sides are ordered by (key, v1, v2) first; the string columns
     keep their source's dictionary. J1: counts exact, the Float32 sums
     within one f32 ulp of numpy's f64 sums rounded to Float32. Returns
@@ -1726,8 +1763,10 @@ def check_join(name, out, tables, dicts):
     elif name == "q5":
         want, valid = m1_oracle(x, tables["big"], x["id3"],
                                 tables["big"]["id3"], "id3", "inner")
-        want, valid = canonical(want, valid, [want["id3"], want["v1"]])
-        got = host_ordered(got, [got["id3"][0], got["v1"][0]])
+        if not any_order:
+            want, valid = canonical(want, valid, [want["id3"],
+                                                  want["v1"]])
+            got = host_ordered(got, [got["id3"][0], got["v1"][0]])
     else:
         want, valid = full_oracle(x, tables["big"], "id3")
 
@@ -1739,6 +1778,8 @@ def check_join(name, out, tables, dicts):
         want, valid = canonical(want, valid, keys(want.get, valid.get))
         got = host_ordered(got, keys(lambda k: got[k][0],
                                      lambda k: got[k][1]))
+    if any_order and name in ("q1", "q2", "q3", "q4", "q5"):
+        want, valid, got = by_v1(want, valid, got)
     assert list(out.columns) == list(want), f"{name}: {out.columns}"
     check_rows(name, got, want, valid)
     right = {"q1": "small", "q5": "big", "q5_full": "big"}.get(name,
@@ -4351,6 +4392,291 @@ def run_stream_only(args, torch, pl, TK, TP, TE, TH, TM):
                      jframes)
 
 
+# --- phase 17: the distributed engine ---------------------------------------
+
+DIST_SLOTS = 4              # the mesh's shard slots (2 x 2 for the 2-D mesh)
+D0_ROWS = 1 << 22           # one shard's rows of the H2O frame
+D0_AGGS = ["sum", "count", "min", "max"]
+
+
+class DistQuery:
+    """A lazy frame collected by the distributed engine on `mesh`, where
+    the script calls .collect()."""
+
+    def __init__(self, lf, mesh):
+        self.lf, self.mesh = lf, mesh
+
+    def collect(self):
+        return self.lf.collect(engine="distributed", mesh=self.mesh)
+
+
+class LocalGroupBy:
+    """One slot's adaptive group-by over u32 keys (parallel/shuffle.py
+    local_groupby), as a .collect()-able call."""
+
+    def __init__(self, key, vals, valid):
+        self.key, self.vals, self.valid = key, vals, valid
+
+    def collect(self):
+        from polaroid_tpu_torch.dtypes import UInt32
+        from polaroid_tpu_torch.parallel import shuffle as SH
+        return SH.local_groupby(self.key, self.vals, self.valid, D0_AGGS,
+                                UInt32)
+
+
+def dist_meshes(torch):
+    """The 4-slot mesh (slot s on card s % cards) and its 2 x 2 twin."""
+    from polaroid_tpu_torch.parallel.mesh import make_mesh, make_mesh2
+    cards = torch.cuda.device_count()
+    devs = [torch.device("cuda", s % cards) for s in range(DIST_SLOTS)]
+    return (make_mesh(devices=devs),
+            make_mesh2(2, DIST_SLOTS // 2, devices=devs))
+
+
+def d0_calls(torch, h2o):
+    """(name, adaptive route, host keys, host values, call) of D0: one
+    shard's 2^22 rows of the H2O frame grouped by a u32 key over each
+    route of the adaptive group-by."""
+    import numpy as np
+    n = D0_ROWS
+    v = h2o["v3"][:n].astype(np.float32)
+    tv = torch.from_numpy(v).cuda()
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    out = []
+    for name, route, key in (
+            ("D0_id1", "dense_1024", h2o["id1"][:n]),
+            ("D0_id3_mod_5000", "dense_8192", h2o["id3"][:n] % 5000),
+            ("D0_id3", "hash", h2o["id3"][:n]),
+            ("D0_kf", "carry", h2o["kf"][:n])):
+        key = key.astype(np.int64)
+        out.append((name, route, key, v, LocalGroupBy(
+            torch.from_numpy(key).cuda(), [tv] * 4, valid)))
+    return out
+
+
+D0_KERNELS = {"dense_1024": ("seg_sum", "seg_minmax"),
+              "dense_8192": ("seg_sum", "seg_minmax"),
+              "hash": ("bucket_exchange",),
+              "carry": ("merge_sort", "compact_words")}
+
+
+def check_local_groupby(name, out, key, v):
+    """A D0 result against numpy: the group keys and counts exact, min
+    and max bit for bit, the Float32 sums within one ulp of numpy's f64
+    sums rounded to Float32."""
+    import numpy as np
+    gk, outs, gv = out
+    gv = gv.cpu().numpy()
+    keys = gk.cpu().numpy()[gv]
+    order = np.argsort(keys, kind="stable")
+    uk, inv = np.unique(key, return_inverse=True)
+    assert np.array_equal(keys[order], uk), f"{name}: group keys"
+    got = [o.cpu().numpy()[gv][order] for o in outs]
+    s = np.bincount(inv, weights=v.astype(np.float64)).astype(np.float32)
+    ulps = np.abs(got[0].astype(np.float64) - s) / np.spacing(np.abs(s))
+    assert ulps.max() <= 1, f"{name}: sums {ulps.max()} ulp off"
+    assert np.array_equal(got[1], np.bincount(inv)), f"{name}: counts"
+    lo = np.full(len(uk), np.inf, np.float32)
+    hi = np.full(len(uk), -np.inf, np.float32)
+    np.minimum.at(lo, inv, v)
+    np.maximum.at(hi, inv, v)
+    assert np.array_equal(got[2], lo), f"{name}: min"
+    assert np.array_equal(got[3], hi), f"{name}: max"
+    return len(uk)
+
+
+def dist_queries(pl, hdf, jframes):
+    """(name, lazy frame, ROUTES it must take, kernels it must launch,
+    oracle) of phase 17's D1-D4: the H2O group-bys, the sorts S1 and S2,
+    U1 and the joins q2, q3, q5 and J1, as phases 6, 8, 9 and 10 write
+    them."""
+    h2o = {n: (keys, lf, order) for n, keys, lf, order in
+           h2o_queries(pl, hdf)}
+    carry = ("merge_sort", "compact_words")
+    out = []
+    for name in ("q2", "q3", "q5", "q7", "q10", "q6"):
+        keys, lf, order = h2o[name]
+        out.append((f"D1_{name}", lf,
+                    {"exact" if name == "q6" else "sharded": 1}, carry,
+                    ("h2o", name, keys, order)))
+    out += [
+        ("D2_S1", hdf.lazy().sort(["id1", "id2", "id3"],
+                                  maintain_order=True),
+         {"sample_sort": 1}, ("merge_sort",), ("sort", "S1")),
+        ("D2_S2", hdf.lazy().sort("v3", descending=True,
+                                  maintain_order=True),
+         {"sample_sort": 1}, ("merge_sort",), ("sort", "S2")),
+        ("D3_U1", hdf.lazy().unique(subset=["id1", "id2", "id4"],
+                                    keep="first", maintain_order=True),
+         {"distinct": 1}, ("merge_sort",), ("sorted_tier", "U1")),
+    ]
+    joins = {n: lf for n, lf, *_ in join_queries(pl, jframes)}
+    for name in ("q2", "q3", "q5", "J1"):
+        route = {"sharded_join": 1, "sharded": 1} if name == "J1" \
+            else {"sharded_join": 1}
+        out.append((f"D4_{name}", joins[name], route, carry,
+                    ("join", name)))
+    return out
+
+
+def dist_reset(TK, TP, TE, TH, TM, D) -> None:
+    reset_launches(TK, TP, TE, TH, TM)
+    TH.ADAPTIVE_ROUTES.clear()
+    D.reset_counts()
+
+
+def prepare_dist(args, torch, pl, TK, TP, TE, TM, h2o, hdf, jframes):
+    """Phase 17's meshes, D0 calls and D1-D4 queries, and phase 2's
+    checks on every launch of one run of each (in the full script these
+    run with phase 2's, while the profiler records: a trace taken after
+    phase 16's untraced spills records nothing). Returns a dict."""
+    mesh, mesh2 = dist_meshes(torch)
+    calls = d0_calls(torch, h2o)
+    queries = dist_queries(pl, hdf, jframes)
+    t0 = time.perf_counter()
+    recorded, first_ms = check_recorded_kernels(
+        args, torch, TK, TE, TM, TP,
+        [(n, call) for n, _, _, _, call in calls] +
+        [(n, DistQuery(lf, mesh)) for n, lf, *_ in queries])
+    return {"mesh": mesh, "mesh2": mesh2, "calls": calls,
+            "queries": queries, "recorded": recorded, "first_ms": first_ms,
+            "kernel_checks": time.perf_counter() - t0}
+
+
+def run_dist_phase(args, torch, pl, TK, TP, TE, TH, TM, h2o, jtables, jdicts,
+                   prep):
+    """Phase 17: the distributed engine on a 4-slot mesh, after phase 2's
+    checks (`prepare_dist`): dryrun_multichip(4), then each D0 call's and
+    D1-D4 query's counted run, timed runs and a trace (and the in-memory
+    collect's times beside a query's), then the oracles. Returns the
+    counted runs' launches."""
+    from polaroid_tpu_torch.entry import dryrun_multichip
+    from polaroid_tpu_torch.exec import distributed as D
+    mesh, mesh2 = prep["mesh"], prep["mesh2"]
+    calls, queries, first_ms = prep["calls"], prep["queries"], \
+        prep["first_ms"]
+    cards = torch.cuda.device_count()
+    print(json.dumps({"phase": "dist_mesh", "slots": mesh.size,
+                      "devices": [str(d) for d in mesh.devices],
+                      "mesh2": mesh2.shape, "cards": cards,
+                      "peer_copies": cards > 1}))
+    # D0: the reference's own certificate, on the 4-slot mesh and (its
+    # last leg) the 2 x 2 one
+    dist_reset(TK, TP, TE, TH, TM, D)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dryrun_multichip(DIST_SLOTS)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "dist", "query": "D0_dryrun_multichip",
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "routes": dict(D.ROUTES), "counts": dict(D.COUNTS),
+                      "launches": read_launches(TK, TP, TE, TH, TM)}))
+    assert D.COUNTS["dropped"] == 0
+    seconds = {"kernel_checks": prep["kernel_checks"]}
+    t0 = time.perf_counter()
+    runs, done = [], []
+    for name, route, key, v, call in calls:
+        dist_reset(TK, TP, TE, TH, TM, D)
+        out = call.collect()
+        launches = read_launches(TK, TP, TE, TH, TM)
+        assert dict(TH.ADAPTIVE_ROUTES) == {route: 1}, \
+            f"{name} took {dict(TH.ADAPTIVE_ROUTES)}, not {route}"
+        for kernel in D0_KERNELS[route]:
+            assert launches[kernel] >= 1, f"{name} did not launch {kernel}"
+        runs.append(launches)
+        tr = trace_collect(call, top_n=6)
+        times = time_collects(call, args.reps)
+        done.append((name, ("local", route, key, v), out, launches,
+                     {"adaptive": route}, {}, times, None, tr))
+    for name, lf, routes, must, oracle in queries:
+        dq = DistQuery(lf, mesh)
+        dist_reset(TK, TP, TE, TH, TM, D)
+        out = dq.collect()
+        launches = read_launches(TK, TP, TE, TH, TM)
+        counts = dict(D.COUNTS)
+        assert dict(D.ROUTES) == routes, \
+            f"{name} took {dict(D.ROUTES)}, not {routes}"
+        assert counts.get("dropped", 0) == 0, f"{name} dropped records"
+        for kernel in must:
+            assert launches[kernel] >= 1, f"{name} did not launch {kernel}"
+        runs.append(launches)
+        tr = trace_collect(dq, top_n=8)
+        times = time_collects(dq, args.reps)
+        mem_times = time_collects(lf, args.reps)
+        done.append((name, oracle, out, launches, routes, counts, times,
+                     (lf, mem_times), tr))
+    seconds["collects"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the oracles, and the in-memory collect of each query, after every
+    # trace
+    for name, oracle, out, launches, routes, counts, times, mem, tr in done:
+        med = statistics.median(times)
+        rec = {"phase": "dist", "query": name, "slots": mesh.size,
+               "routes": routes, "exchanges": counts.get("exchanges", 0),
+               "bytes_between_slots": counts.get("bytes", 0),
+               "per_dest_cap": counts.get("per_dest_cap", 0),
+               "dropped": counts.get("dropped", 0), "launches": launches,
+               "first_collect_ms": first_ms[name], "median_ms": med,
+               "ms": times,
+               # the busy ms of several cards' events overlap in time
+               "idle_share": 1 - tr["device_busy_ms"] / med
+               if tr["device_ops"] and cards == 1 else None, "trace": tr}
+        kind = oracle[0]
+        t1 = time.perf_counter()
+        if kind == "local":
+            rec["groups"] = check_local_groupby(name, out, oracle[2],
+                                                oracle[3])
+        else:
+            lf, mem_times = mem
+            rec["in_memory_median_ms"] = statistics.median(mem_times)
+            rec["in_memory_ms"] = mem_times
+            if kind == "h2o":
+                _, q, keys, order = oracle
+                rec["groups"] = check_h2o(q, out, h2o, keys, order)
+                rec["vs_in_memory"] = same_frames(
+                    name, out, lf.collect(), 1e-12,
+                    sort_by=None if order else list(keys))
+            elif kind == "sort":
+                # bit for bit the in-memory sort (phase 8 holds that one
+                # to numpy)
+                rec["rows"] = out.height
+                rec["vs_in_memory"] = same_frames(name, out, lf.collect(),
+                                                  0.0, f32_ulps=0)
+            elif kind == "sorted_tier":
+                rec["rows"], _ = check_sorted_tier(oracle[1], out, h2o, {})
+                rec["vs_in_memory"] = same_frames(name, out, lf.collect(),
+                                                  0.0, f32_ulps=0)
+            else:
+                rec["rows"] = check_join(oracle[1], out, jtables, jdicts,
+                                         any_order=True)
+                keys = ["country"] if oracle[1] == "J1" else None
+                if keys:
+                    rec["vs_in_memory"] = same_frames(
+                        name, out, lf.collect(), 1e-12, f32_ulps=1,
+                        sort_by=keys)
+        rec["check_seconds"] = time.perf_counter() - t1
+        print(json.dumps(rec))
+    del done
+    seconds["oracles"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "dist_seconds", **seconds}))
+    return runs
+
+
+def run_dist_only(args, torch, pl, TK, TP, TE, TH, TM):
+    """--only-dist: phase 17 alone (with its phase-2 checks); no result
+    line."""
+    t0 = time.perf_counter()
+    h2o = make_h2o_data(H2O_ROWS, args.seed)
+    hdf = pl.DataFrame(h2o, device="cuda")
+    jtables, jdicts = make_join_data(H2O_ROWS, args.seed)
+    jframes = join_frames(pl, jtables, jdicts, "cuda")
+    print(json.dumps({"phase": "dist_only_data",
+                      "seconds": time.perf_counter() - t0}))
+    prep = prepare_dist(args, torch, pl, TK, TP, TE, TM, h2o, hdf, jframes)
+    run_dist_phase(args, torch, pl, TK, TP, TE, TH, TM, h2o, jtables, jdicts,
+                   prep)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4365,6 +4691,10 @@ def main() -> int:
     ap.add_argument("--only-stream", action="store_true",
                     help="build, then phase 2 on phase 16's launches and "
                     "phase 16 alone; prints no result line")
+    ap.add_argument("--only-dist", action="store_true",
+                    help="build, then phase 17 (the distributed engine, "
+                    "with phase 2's checks on its launches) alone; prints "
+                    "no result line")
     args = ap.parse_args()
 
     import torch
@@ -4411,6 +4741,10 @@ def main() -> int:
     if args.only_stream:
         run_stream_only(args, torch, pl, TK, TP, TE, TH, TM)
         phase_seconds("16")
+        return 0
+    if args.only_dist:
+        run_dist_only(args, torch, pl, TK, TP, TE, TH, TM)
+        phase_seconds("17")
         return 0
 
     # phase 10's data, made before the first trace: on the H100 hosts this
@@ -4525,6 +4859,12 @@ def main() -> int:
     lookup = check_lookup_join(args, torch, TE)
     print(json.dumps({"phase": "kernel", "shape": "lookup_join_4m_x_1m",
                       **lookup}))
+    # kernels A, B, C, E and F at every shape that phase 17's D0 calls and
+    # distributed queries give them
+    dist_prep = prepare_dist(args, torch, pl, TK, TP, TE, TM, h2o, hdf,
+                             jframes)
+    for kernel, by_shape in dist_prep["recorded"].items():
+        recorded[kernel].update(by_shape)
     phase_seconds("2")
 
     # --- 3. q1 end to end ---------------------------------------------------
@@ -4791,6 +5131,11 @@ def main() -> int:
     runs += stream_runs
     on_card += stream_on_card
     phase_seconds("16")
+
+    # --- 17. the distributed engine on a 4-slot mesh -----------------------
+    runs += run_dist_phase(args, torch, pl, TK, TP, TE, TH, TM, h2o,
+                           jtables, jdicts, dist_prep)
+    phase_seconds("17")
 
     # --- result ---------------------------------------------------------------
     def launches(name):

@@ -561,7 +561,9 @@ class LazyFrame:
         device and its row count stays there until the host reads it.
         `engine="auto"` takes `CONFIG.engine_affinity`; "streaming" (or
         `streaming=True`) runs the streaming executor over the plan
-        optimized for it; anything else runs in memory."""
+        optimized for it; "distributed" shards it over `mesh` (default
+        `make_mesh()`: a slot on each card), which must have its home
+        slot on the frame's device; anything else runs in memory."""
         from .frame import DataFrame
         from ..config import CONFIG
         from ..exec.executor import ExecState, execute
@@ -570,16 +572,15 @@ class LazyFrame:
         eng = engine if engine != "auto" else CONFIG.engine_affinity
         if streaming:
             eng = "streaming"
-        if eng == "distributed":
-            raise NotImplementedError(
-                "engine='distributed' is not ported yet: it comes with "
-                "Slice G (torch.distributed)")
         plan = self._optimized(eng)
         if CONFIG.visualize_ir:
             print(plan.describe())
         if eng == "streaming":
             from ..exec.streaming import execute_streaming
             t = execute_streaming(plan)
+        elif eng == "distributed":
+            from ..exec.distributed import collect_distributed
+            t = collect_distributed(plan, kw.get("mesh"))
         else:
             state = ExecState()
             t = execute(plan, state)

@@ -13,8 +13,9 @@ The port reads these:
 * `fmt_max_rows`, `fmt_max_cols`, `fmt_str_len` — how a frame prints
   (polars' `tbl_rows`, `tbl_cols`, `fmt_str_lengths`).
 * the engine settings, with the JAX package's env names and defaults:
-  `engine_affinity` ("auto" | "in-memory" | "streaming"), `batch_rows`
-  (rows per streamed batch), `join_sample_limit`,
+  `engine_affinity` ("auto" | "in-memory" | "streaming" |
+  "distributed"), `batch_rows` (rows per streamed batch),
+  `join_sample_limit`,
   `join_build_budget_rows` and `join_grace_partitions` (the streaming
   joins' build-side choice and spill), `track_metrics`, `log_metrics`
   (per-node timings, `metrics.py`) and `visualize_ir` (print the

@@ -28,7 +28,7 @@
 //   NaN, so a group whose NaNs share one pattern (the usual case) gets
 //   exactly that pattern back, sign and payload.
 // One launch on the caller's stream. Each block keeps G partial keys (and
-// NaN patterns) in shared memory (at most 64 KB), loads 4 ids (16 bytes)
+// NaN patterns) in shared memory (at most 128 KB), loads 4 ids (16 bytes)
 // and 16 or 32 bytes of values at a time, folds each row in with a
 // shared-memory atomic (skipped when the row cannot improve the partial,
 // which after the first rows is nearly always), and merges each touched
@@ -43,7 +43,7 @@
 
 #define PT_THREADS 512
 #define PT_UNROLL 2  // vectors of 4 rows in flight a thread
-#define PT_MAX_GROUPS 4096  // MAX_GROUPS of ops/cuda_kernels.py
+#define PT_MAX_GROUPS 8192  // MAX_GROUPS of ops/cuda_kernels.py
 
 namespace {
 

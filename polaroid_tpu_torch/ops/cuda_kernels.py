@@ -33,9 +33,13 @@ __all__ = ["seg_sum", "seg_sum_plain", "seg_minmax", "seg_minmax_plain",
            "gather", "gather_plain", "MAX_GROUPS", "LAUNCHES",
            "MINMAX_LAUNCHES", "GATHER_LAUNCHES", "RECORD", "MINMAX_RECORD"]
 
-# the dense group-by's key-domain limit (the JAX package's
-# _MXU_GROUP_LIMIT): one block's C x G f64 partials must fit shared memory
-MAX_GROUPS = 4096
+# the most groups kernels A and C take: the JAX package's largest dense
+# key range (`_DENSE_G` of its adaptive local group-by). One block's
+# C x G f64 partials of A must fit shared memory (3 rows at 8192, so
+# `seg_sum` splits C), and C keeps 2 x G keys in it (128 KB at 8192).
+# The group-by's dense tier keeps its own, smaller bound
+# (`ops/groupby.py` DENSE_GROUPS).
+MAX_GROUPS = 8192
 # dynamic shared memory one block may use on sm_90 (227 KB)
 _SMEM_BYTES = 232448
 # kernel launches made by `seg_sum`, `seg_minmax` and `gather` (reset by

@@ -65,7 +65,7 @@ from ..expr.eval import Val, _eval_binary, _eval_fma, _eval_unary, \
 from ..expr.expr import Expr
 from . import hgroup
 from .compact import _unword, _word, compact_device, gather_table
-from .cuda_kernels import MAX_GROUPS, gather, seg_minmax, seg_sum
+from .cuda_kernels import gather, seg_minmax, seg_sum
 from .cuda_partition import compact_words
 from .fused_sort import fused_argsort_dead_key, fused_sort_kv
 from .keycode import U32, code_bits, decode_orderable, encode_key_words, \
@@ -79,6 +79,10 @@ __all__ = ["GroupContext", "HashGroupContext", "SortedGroupContext",
            "group_by_agg", "unique_table", "quantile_of_groups"]
 
 _I64_SIGN = -(1 << 63)
+# the dense tier's key-domain limit (the JAX package's _MXU_GROUP_LIMIT):
+# kernels A and C take more groups (cuda_kernels.MAX_GROUPS), the tier's
+# routing stays at this bound
+DENSE_GROUPS = 4096
 # the largest key domain of the hash tier: its key codes are u32 words
 _HASH_DOMAIN = 1 << 32
 # bits of a column counted in one batched sum by bitwise_xor
@@ -348,7 +352,7 @@ def _span_product(spans) -> int:
 def build_groups_dense(key_vals: Sequence[Val], mask: torch.Tensor,
                        spans) -> GroupContext:
     """O(n) group layout: gid = mixed-radix dense key code; no sort. The
-    span product must be at most MAX_GROUPS."""
+    span product must be at most DENSE_GROUPS."""
     cap = mask.shape[0]
     out_cap = capacity_for(_span_product(spans))
     gid = torch.zeros(cap, dtype=torch.int32, device=mask.device)
@@ -1099,7 +1103,7 @@ def group_by_agg(table: Table, key_exprs: Sequence[Expr],
     if domain is None or domain > _HASH_DOMAIN:
         spans = None
         gctx = build_groups(key_vals, mask)
-    elif domain <= MAX_GROUPS:
+    elif domain <= DENSE_GROUPS:
         gctx = build_groups_dense(key_vals, mask, spans)
     else:
         gctx = build_groups_hash(key_vals, mask, spans)

@@ -29,10 +29,15 @@ through every sort instead (`polaroid_tpu/ops/groupby.py:2052`).
 Words are held as int64 in [0, 2^32) everywhere except in the exchange,
 which takes 4-byte int32 bit patterns: sorts and compares of h use the
 int64 view, so the fill 0xFFFFFFFF sorts after every live h.
+
+`adaptive_local_groupby` (the distributed engine's per-slot group-by of
+u32 keys, `parallel/shuffle.py`) picks among the dense route (kernels A
+and C over at most 8192 groups), this exchange, and the carry sort.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import List, NamedTuple, Sequence
 
 import torch
@@ -46,7 +51,9 @@ from .segment import SPILL, spill_slots
 __all__ = ["FILL", "FALLBACKS", "fmix32_inv", "precheck", "out_capacity",
            "hash_prep", "cell_extents", "exchange_words", "hash_layout", "group_ids",
            "hash_group_ids", "carry_sort", "carry_group_ids",
-           "hash_groupby_u32", "local_groupby_carry"]
+           "hash_groupby_u32", "local_groupby_carry",
+           "adaptive_local_groupby", "ADAPTIVE_ROUTES", "DENSE_G",
+           "DENSE_G_SMALL"]
 
 FILL = 0xFFFFFFFF
 _C1_INV = pow(0x85EBCA6B, -1, 1 << 32)
@@ -305,7 +312,8 @@ def _reduce(vals, aggs, gid, G: int, scan_dtypes) -> List[torch.Tensor]:
 
 
 def hash_groupby_u32(key: torch.Tensor, vals: Sequence[torch.Tensor],
-                     valid: torch.Tensor, aggs: Sequence, scan_dtypes=None):
+                     valid: torch.Tensor, aggs: Sequence, scan_dtypes=None,
+                     prep: HashPrep = None):
     """The fast path's array contract, as the JAX package's: returns
     (gkey (M,) int64, outs, gvalid (M,) bool, ok) with M = out_capacity(n);
     each group's results sit at its run's end slot, where gvalid is set.
@@ -316,14 +324,15 @@ def hash_groupby_u32(key: torch.Tensor, vals: Sequence[torch.Tensor],
     (a Float32 result, computed in f64 over the group's sorted values);
     scan_dtypes[i] (optional) is the accumulator and output dtype of a
     sum/sumsq/sumprod. Every value is reduced from the rows' own columns,
-    so no Dekker two-product or two-float accumulator is needed."""
+    so no Dekker two-product or two-float accumulator is needed. `prep`
+    is `hash_prep(key, valid)` where the caller has it already."""
     for a in aggs:
         if a not in ("sum", "count", "min", "max", "sumsq", "sumprod") \
                 and not _is_quantile(a):
             raise ValueError(f"hash group-by aggregate {a!r} is not part "
                              "of the contract")
     n = key.shape[0]
-    prep = hash_prep(key, valid)
+    prep = hash_prep(key, valid) if prep is None else prep
     lay = hash_layout(prep)
     rank, gid = _run_ids(lay, n)
     at_end = torch.where(lay.end, rank, torch.full_like(rank, n))
@@ -346,3 +355,97 @@ def local_groupby_carry(key: torch.Tensor, vals: Sequence[torch.Tensor],
     outs = _reduce(vals, aggs, gid, n, None)
     return torch.where(gvalid, codes, torch.zeros_like(codes)), outs, gvalid
 
+
+
+# ---------------------------------------------------------------------------
+# the adaptive local group-by: dense (range < 8192) / hash exchange / carry
+# ---------------------------------------------------------------------------
+
+DENSE_G = 8192
+DENSE_G_SMALL = 1024
+# route name -> adaptive group-bys that took it ("dense_1024",
+# "dense_8192", "hash", "carry"); reset by callers that count them
+ADAPTIVE_ROUTES: collections.Counter = collections.Counter()
+
+
+def _pad(x: torch.Tensor, M: int, fill=0) -> torch.Tensor:
+    return torch.cat([x, x.new_full((M - x.shape[0],), fill)])
+
+
+def _dense_branch(key, vals, valid, aggs, kmin: int, M: int, G: int):
+    """The range-guaranteed dense group-by: gid = key - kmin < G. Counts
+    and sums in one pass of kernel A (`seg_sum`), each min or max by
+    kernel C (`seg_minmax`); group g's results at slot g, padded to M."""
+    from ..parallel.shuffle import _ident
+    from .cuda_kernels import seg_minmax, seg_sum
+    gid = torch.where(valid, (key.to(torch.int64) & U32_MASK) - kmin,
+                      torch.full_like(key, -1, dtype=torch.int64)
+                      ).to(torch.int32)
+    one = valid.to(torch.float32)
+    stacked = [one] + [torch.where(valid, v.to(torch.float32),
+                                   torch.zeros_like(one))
+                       for v, a in zip(vals, aggs) if a == "sum"]
+    res = seg_sum(torch.stack(stacked), gid, G)
+    cnt = res[0]
+    gv = cnt > 0
+    outs = []
+    si = 1
+    for v, a in zip(vals, aggs):
+        if a == "count":
+            outs.append(cnt.to(torch.int32))
+        elif a == "sum":
+            outs.append(torch.where(gv, res[si], 0.).to(v.dtype))
+            si += 1
+        else:
+            ident = float("inf") if a == "min" else float("-inf")
+            x = torch.where(valid, v.to(torch.float32),
+                            torch.full_like(one, ident))
+            r = seg_minmax(x, gid, G, a == "max", ident)
+            outs.append(torch.where(gv, r.to(v.dtype), torch.full_like(
+                r, _ident(v.dtype, a), dtype=v.dtype)))
+    gkey = (kmin + torch.arange(G, dtype=torch.int64, device=key.device)) \
+        & U32_MASK
+    return (_pad(gkey, M), tuple(_pad(o, M) for o in outs),
+            _pad(gv, M, False))
+
+
+def adaptive_local_groupby(key, vals, valid, aggs, slow_fn):
+    """The runtime-adaptive group-by over u32 keys (int64 tensors below
+    2^32) and 4-byte values (the JAX package's): the dense route when the
+    live key range is under DENSE_G_SMALL or DENSE_G and every aggregate
+    is a count or over floats (the f32 one-hot sums are exact for ints
+    only below 2^24), else the hash exchange (kernels E and B) when
+    `precheck` allows it, else `slow_fn` (the carry sort). The JAX
+    package picks with `lax.cond` on the device; here kmin, kmax, any
+    live row and the precheck come back in one readback.
+
+    slow_fn() -> (gkey (n,), outs, gvalid (n,)). Returns the same triple
+    at capacity `out_capacity(n)`."""
+    n = key.shape[0]
+    M = out_capacity(n)
+    k32 = key.to(torch.int64) & U32_MASK
+    prep = hash_prep(k32, valid)
+    kmin = torch.where(valid, k32, torch.full_like(k32, U32_MASK)).min()
+    kmax = torch.where(valid, k32, torch.zeros_like(k32)).max()
+    kmin, kmax, any_live, ok = torch.stack(
+        [kmin, kmax, valid.any().to(torch.int64),
+         prep.ok.to(torch.int64)]).tolist()
+    dense_static = n < (1 << 24) and all(
+        a == "count" or v.dtype.is_floating_point
+        for v, a in zip(vals, aggs))
+    rng = kmax - kmin
+    if dense_static and any_live and rng < DENSE_G_SMALL:
+        ADAPTIVE_ROUTES["dense_1024"] += 1
+        return _dense_branch(k32, vals, valid, aggs, kmin, M, DENSE_G_SMALL)
+    if dense_static and any_live and rng < DENSE_G:
+        ADAPTIVE_ROUTES["dense_8192"] += 1
+        return _dense_branch(k32, vals, valid, aggs, kmin, M, DENSE_G)
+    if ok:
+        ADAPTIVE_ROUTES["hash"] += 1
+        gkey, outs, gv, _ = hash_groupby_u32(k32, vals, valid, aggs,
+                                             prep=prep)
+        return gkey, tuple(outs), gv
+    ADAPTIVE_ROUTES["carry"] += 1
+    gkey, outs, gv = slow_fn()
+    return (_pad(gkey.to(torch.int64) & U32_MASK, M),
+            tuple(_pad(o, M) for o in outs), _pad(gv, M, False))

@@ -26,8 +26,11 @@ unsigned); a UInt32 is one word, not two. Float64 is f64 on every
 device: the port takes the JAX package's CPU branch (the full 64-bit
 encoding), never its TPU branch, which orders f64 by f32.
 
-The bit-budget packing of the JAX module comes with its one user, the
-distributed group-by (Slice G).
+The bit-budget packing (`column_bit_width`, `pack_keys_single_word`)
+packs several key columns into one u64 word, held as the int64 with its
+bits: every `>>` of a packed word is masked after it (torch's shift of
+an int64 is arithmetic), and packed words are ordered as unsigned
+(`orderable` flips their top bit, or `sort_ops` is told UInt64).
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ from ..dtypes import DataType
 
 __all__ = ["encode_orderable", "encode_key_words", "decode_orderable",
            "col_to_u32_words", "col_from_u32_words", "lex_sort_indices",
-           "U32", "code_bits", "orderable_i64"]
+           "U32", "code_bits", "orderable_i64", "column_bit_width",
+           "pack_keys_single_word", "unpack_keys_single_word",
+           "u64_to_signed"]
 
 U32 = 0xFFFFFFFF
 _SIGN64 = -(1 << 63)        # the int64 whose bits are 1 << 63
@@ -215,3 +220,99 @@ def lex_sort_indices(key_words: Sequence[torch.Tensor],
     out = merge_sort_words(list(key_words) + list(tail_operands), nk,
                            stable=True)
     return list(out[:nk]), list(out[nk + 1:]), out[nk]
+
+
+# ---------------------------------------------------------------------------
+# bit-budget packing: several key columns in one u64 word (the distributed
+# engine's group, join, distinct and sort keys)
+# ---------------------------------------------------------------------------
+
+_U64 = (1 << 64) - 1
+
+
+def u64_to_signed(x: int) -> int:
+    """A u64 value (a Python int in [0, 2^64)) as the int64 with its
+    bits."""
+    x &= _U64
+    return x - (1 << 64) if x >> 63 else x
+
+
+def column_bit_width(x: torch.Tensor, dtype: DataType,
+                     validity: Optional[torch.Tensor]) -> Tuple[int, int]:
+    """(bits, min) of a column's orderable codes over its valid rows, in
+    one readback: `min` is the smallest code (a u64 as a Python int;
+    2^64 - 1 where no row is valid) and `bits` the width of (code - min)
+    plus one reserved slot for null, at least 1.
+
+    The JAX package takes ceil(log2(span + 2)) in f64, which rounds a
+    span within half an f64 ulp below 2^k - 1 (k >= 53) down to k - 1
+    bits, too few for the code span + 1; here the width is
+    (span + 1).bit_length() on the host, exact for every span."""
+    u = encode_orderable(x, dtype) ^ _SIGN64 if code_bits(dtype) == 64 \
+        else encode_orderable(x, dtype)
+    # 64-bit codes ordered as signed int64 with the top bit flipped
+    if validity is not None:
+        hi = torch.iinfo(torch.int64).max if code_bits(dtype) == 64 \
+            else U32
+        lo = torch.iinfo(torch.int64).min if code_bits(dtype) == 64 else 0
+        mn = torch.where(validity, u, torch.full_like(u, hi)).min()
+        mx = torch.where(validity, u, torch.full_like(u, lo)).max()
+    else:
+        mn, mx = u.min(), u.max()
+    mn, mx = torch.stack([mn, mx]).tolist()
+    if code_bits(dtype) == 64:
+        mn, mx = (mn ^ _SIGN64) & _U64, (mx ^ _SIGN64) & _U64
+    elif validity is not None and mn == U32 and mx == 0:
+        mn = _U64                   # no valid row: the u64 fill
+    span = mx - min(mn, mx)
+    return max((span + 1).bit_length(), 1), mn
+
+
+def pack_keys_single_word(columns: Sequence[torch.Tensor],
+                          dtypes: Sequence[DataType],
+                          validities: Sequence[Optional[torch.Tensor]],
+                          bits: Sequence[int], mins: Sequence[int],
+                          nulls_last: Optional[Sequence[bool]] = None
+                          ) -> torch.Tensor:
+    """Pack key columns into ONE u64 word (an int64 tensor with its bits)
+    given host-known bit budgets and minimum codes: order-preserving
+    within each column and lexicographic across them, the first column
+    most significant.
+
+    Null placement per column: nulls first encode null as 0 and a value
+    as code - min + 1; nulls last encode a value as code - min and null
+    as 2^b - 1 (the budget leaves room for it)."""
+    total = sum(bits)
+    if total > 64:
+        raise ValueError(f"bit budget {total} exceeds 64")
+    if nulls_last is None:
+        nulls_last = [False] * len(bits)
+    acc = None
+    for x, dt, valid, b, mn, nl in zip(columns, dtypes, validities, bits,
+                                       mins, nulls_last):
+        u = encode_orderable(x, dt)
+        mn = u64_to_signed(mn)
+        if nl:
+            v = u - mn
+            if valid is not None:
+                v = torch.where(valid, v, torch.full_like(
+                    v, u64_to_signed((1 << b) - 1)))
+        else:
+            v = u - mn + 1
+            if valid is not None:
+                v = torch.where(valid, v, torch.zeros_like(v))
+        acc = v if acc is None else ((acc << b) | v)
+    return acc
+
+
+def unpack_keys_single_word(packed: torch.Tensor, bits: Sequence[int]
+                            ) -> List[torch.Tensor]:
+    """Inverse of the packing: each column's offset code, as int64 (the
+    u64's bits where a budget is 64)."""
+    out = []
+    shift = 0
+    for b in reversed(list(bits)):
+        mask = u64_to_signed((1 << b) - 1)
+        out.append((packed >> shift) & mask)
+        shift += b
+    return list(reversed(out))

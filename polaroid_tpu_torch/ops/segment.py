@@ -6,7 +6,7 @@ slots that the one-hot kernels hold in shared memory. These reductions
 stand in for the JAX package's XLA segmented scans there
 (`_seg_scan_doubling_multi`, `jax.ops.segment_*`), which no Pallas
 kernel computes. The kernels' plain versions in `cuda_kernels` are the
-same functions at G <= 4096, so they call these.
+same functions at G <= 8192, so they call these.
 
 Group ids outside [0, G) (dead rows, rows that take no part) are
 spread over SPILL extra slots and dropped. Routed to one slot, their

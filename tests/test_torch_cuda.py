@@ -1153,3 +1153,124 @@ def test_capture_of_a_c_and_d_alone(dev):
         assert torch.equal(c, TK.seg_minmax_plain(x, gid, G, True,
                                                   float("-inf")))
         assert torch.equal(d, TK.gather_plain(table, gid))
+
+
+# --- kernels A and C at the adaptive group-by's 8192 groups ---------------
+
+@pytest.mark.parametrize("C", [1, 3, 4, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_seg_sum_kernel_at_8192_groups(dev, C, dtype):
+    """G = MAX_GROUPS = 8192: 3 rows of partials fit a block's shared
+    memory, so C = 4 and 7 split into several launches."""
+    G, n = TK.MAX_GROUPS, (1 << 20) + 3
+    assert G == 8192
+    g = torch.Generator().manual_seed(C)
+    gid = torch.randint(-2, G + 2, (n,), generator=g, dtype=torch.int32)
+    vals = torch.randn(C, n, generator=g, dtype=torch.float64).to(dtype)
+    before = TK.LAUNCHES
+    got = TK.seg_sum(vals.to(dev), gid.to(dev), G)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES - before == -(-C // 3)
+    want = TK.seg_sum_plain(vals, gid, G)
+    mag = TK.seg_sum_plain(vals.abs(), gid, G)
+    assert torch.all((got.cpu() - want).abs() <= 1e-12 * mag + 1e-300)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32, torch.int64])
+def test_seg_minmax_kernel_at_8192_groups(dev, dtype):
+    """Bit for bit at G = 8192 (2 x 8192 keys and NaN patterns in shared
+    memory: 128 KB for 8-byte types)."""
+    G, n = TK.MAX_GROUPS, (1 << 20) + 5
+    g = torch.Generator().manual_seed(8192)
+    x, gid, lo, hi = _minmax_input(n, G, dtype, g)
+    kt = {torch.float32: torch.int32, torch.float64: torch.int64}.get(
+        dtype, dtype)
+    for is_max in (False, True):
+        ident = lo if is_max else hi
+        got = TK.seg_minmax(x.to(dev), gid.to(dev), G, is_max, ident)
+        want = TK.seg_minmax_plain(x, gid, G, is_max, ident)
+        assert torch.equal(got.cpu().view(kt), want.view(kt)), is_max
+
+
+# --- Slice G: the adaptive local group-by and the distributed engine --------
+
+@pytest.mark.parametrize("route", ["dense_1024", "dense_8192", "hash",
+                                   "carry"])
+def test_adaptive_local_groupby_on_card_matches_cpu(dev, route):
+    """Each route of `local_groupby` over u32 keys on the card (kernels
+    A and C, E and B, or F and B) against the same call on the CPU."""
+    from polaroid_tpu_torch.dtypes import UInt32
+    from polaroid_tpu_torch.parallel import shuffle as SH
+    n = 1 << 16
+    g = np.random.default_rng(3)
+    key = {"dense_1024": g.integers(10, 1000, n),
+           "dense_8192": g.integers(10, 8000, n),
+           "hash": g.integers(0, 1 << 32, n),
+           "carry": g.choice([7, 123456789], n)}[route]
+    valid = torch.from_numpy(g.uniform(size=n) > 0.1)
+    v = torch.from_numpy(g.normal(0, 10, n).astype(np.float32))
+    aggs = ["sum", "count", "min", "max"]
+    k = torch.from_numpy(key.astype(np.int64))
+    TH.ADAPTIVE_ROUTES.clear()
+    got = SH.local_groupby(k.to(dev), [v.to(dev)] * 4, valid.to(dev), aggs,
+                           UInt32)
+    assert dict(TH.ADAPTIVE_ROUTES) == {route: 1}
+    want = SH._local_groupby_carry(k, [v] * 4, valid, aggs, UInt32)
+    gv, wv = got[2].cpu(), want[2]
+    gk = got[0].cpu()[gv]
+    order = torch.argsort(gk)
+    assert torch.equal(gk[order], want[0][wv])
+    for i, (a, b) in enumerate(zip(got[1], want[1])):
+        a = a.cpu()[gv][order]
+        if i == 0:
+            assert torch.allclose(a, b[wv], rtol=1e-5, atol=1e-3)
+        else:
+            assert torch.equal(a, b[wv])
+
+
+@pytest.mark.parametrize("cards", ["one", "every"])
+def test_distributed_collect_on_a_4_slot_card_mesh(dev, cards):
+    """The engine on 4 slots of one card (or slot s on card s % cards,
+    where the exchange copies blocks between cards) against 4 slots on
+    the CPU: the sharded and exact group-bys, the sample sort, a join
+    and a distinct."""
+    from polaroid_tpu_torch.exec import distributed as D
+    from polaroid_tpu_torch.parallel.mesh import make_mesh
+    n_cards = torch.cuda.device_count()
+    if cards == "every" and n_cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    g = np.random.default_rng(4)
+    n = 1 << 14
+    data = {"k": g.integers(0, 500, n), "s": g.integers(0, 7, n),
+            "v": g.normal(0, 10, n)}
+    dim = {"k": np.arange(0, 1000, 3), "w": np.arange(334)}
+    card = make_mesh(devices=[torch.device("cuda", 0)] * 4) \
+        if cards == "one" else make_mesh(4)
+    cpu = make_mesh(4, device="cpu")
+    c = pt.col
+    queries = [
+        (lambda d, e: d.group_by("k").agg(c("v").sum(), pt.len()), "k"),
+        (lambda d, e: d.group_by("k", "s").agg(c("v").median()),
+         ["k", "s"]),
+        (lambda d, e: d.sort(["s", "k"], maintain_order=True), None),
+        (lambda d, e: d.join(e, on="k", how="left"), ["k", "v"]),
+        (lambda d, e: d.unique(subset=["k", "s"], keep="first",
+                               maintain_order=True), None),
+    ]
+    for build, keys in queries:
+        out = {}
+        for mesh, device in ((card, "cuda"), (cpu, "cpu")):
+            q = build(pt.LazyFrame(data, device=device),
+                      pt.LazyFrame(dim, device=device))
+            D.reset_counts()
+            r = q.collect(engine="distributed", mesh=mesh)
+            assert D.COUNTS["dropped"] == 0 and "local" not in D.ROUTES
+            out[device] = (r.sort(keys) if keys else r).to_dict()
+        for col in out["cpu"]:
+            a, b = out["cuda"][col], out["cpu"][col]
+            if col == "v":
+                np.testing.assert_allclose(
+                    np.array(a, float), np.array(b, float), rtol=1e-12)
+            else:
+                assert a == b, col

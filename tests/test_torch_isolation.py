@@ -45,6 +45,10 @@ def test_import_loads_no_jax_module():
         "import polaroid_tpu_torch.monads\n"
         "import polaroid_tpu_torch.plugins\n"
         "import polaroid_tpu_torch.api.fmt\n"
+        "import polaroid_tpu_torch.parallel.mesh\n"
+        "import polaroid_tpu_torch.parallel.shuffle\n"
+        "import polaroid_tpu_torch.exec.distributed\n"
+        "import polaroid_tpu_torch.entry\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')"
         " or m == 'polaroid_tpu' or m.startswith('polaroid_tpu.'))\n"

@@ -340,8 +340,6 @@ def test_file_scans_and_sinks_raise():
     lf = _union(pt, _parts(24))
     with pytest.raises(NotImplementedError, match="Slice H"):
         list(ST._stream(L.Sink(lf._plan, "parquet", "out.parquet", {})))
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        lf.collect(engine="distributed")
 
 
 def test_engine_affinity_streams(monkeypatch):
