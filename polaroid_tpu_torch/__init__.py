@@ -23,9 +23,15 @@ columns, `implode`, `explode` and `unnest`, and the rest of the
 expression and frame surface: SQL (`SQLContext`, `pl.sql`,
 `DataFrame.sql`), `pl.selectors`, the top-level expression functions,
 the distinct flags, `cut`/`qcut`/`hist`, sampling, the host UDFs,
-`pivot`/`unpivot` and the frame and series helpers. File IO,
-serialization, streaming and the distributed engine come with later
-slices (see ROADMAP.md).
+`pivot`/`unpivot` and the frame and series helpers; fused chains, the
+streaming engine and the distributed engine; and host IO: Arrow and
+pandas interop, Parquet scans with projection and predicate pushdown,
+CSV, IPC, JSON, NDJSON and Avro readers and writers, streaming file
+scans and sinks, expression and plan serialization and `remote()`
+without a context. Parquet, CSV, IPC, NDJSON and Arrow need pyarrow,
+imported when they run; Avro, JSON and expression serialization do not.
+The services (server, client, lakehouse) come with a later slice (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -77,6 +83,20 @@ from .datatype_expr import DataTypeExpr, dtype_of, self_dtype, \
     struct_with_fields  # noqa: E402
 from . import datatype_expr, exceptions, monads, plugins, selectors, \
     testing, timeseries  # noqa: E402
+from .api.io import (  # noqa: E402
+    BasePartitionContext, Catalog, CompatLevel, CredentialProvider,
+    CredentialProviderAWS, CredentialProviderAzure,
+    CredentialProviderFunction, CredentialProviderFunctionReturn,
+    CredentialProviderGCP, KeyedPartition, KeyedPartitionContext,
+    PartitionByKey, PartitionMaxSize, PartitionParted, ScanCastOptions,
+    defer, from_arrow, from_dataframe, from_pandas, read_avro,
+    read_clipboard, read_csv, read_csv_batched, read_database,
+    read_database_uri, read_excel, read_ipc, read_ipc_schema,
+    read_ipc_stream, read_json, read_ndjson, read_ods, read_parquet,
+    read_parquet_metadata, read_parquet_schema, register_io_source,
+    scan_csv, scan_iceberg, scan_ipc, scan_ndjson, scan_parquet,
+    scan_pyarrow_dataset,
+)
 from .sql.context import SQLContext  # noqa: E402
 # bound after the sql subpackage is imported, so that the function wins
 # over the module attribute (polars exposes `pl.sql` as a function)
@@ -102,6 +122,9 @@ __all__ = [
     "Int8", "Int16", "Int32", "Int64", "UInt8", "UInt16", "UInt32", "UInt64",
     "Float32", "Float64", "Boolean", "String", "Utf8", "Date", "Datetime",
     "Duration", "Null", "DataType",
+    "scan_parquet", "scan_csv", "scan_ipc", "scan_ndjson",
+    "read_parquet", "read_csv", "read_ipc", "read_json", "read_ndjson",
+    "read_avro", "from_arrow", "from_pandas",
     "PolaroidError", "ColumnNotFoundError", "ComputeError", "SchemaError",
     "ShapeError", "InvalidOperationError", "DuplicateError",
 ]

@@ -149,6 +149,15 @@ def _table_of_series(series) -> Table:
     return Table(names, cols, cap, n, None)
 
 
+def _pandas_values(series) -> np.ndarray:
+    """A pandas column's values; in an object column NaN and NA are
+    nulls (None), in a float column NaN stays NaN."""
+    vals = np.array(series.to_numpy())  # owned: pandas may lend a view
+    if vals.dtype == object:
+        vals[series.isna().to_numpy()] = None
+    return vals
+
+
 class DataFrame:
     def __init__(self, data=None, schema=None, device=None):
         if isinstance(data, Table):
@@ -159,6 +168,13 @@ class DataFrame:
             return
         if data is None:
             data = {}
+        mod = type(data).__module__ or ""
+        if mod.startswith("pyarrow"):
+            from ..io.arrow_interop import table_from_arrow
+            self._table = table_from_arrow(data, device=device)
+            return
+        if mod.startswith("pandas"):
+            data = {c: _pandas_values(data[c]) for c in data.columns}
         if isinstance(data, Series):
             data = [data]
         if isinstance(data, (list, tuple)) and data and \
@@ -752,6 +768,88 @@ class DataFrame:
         d = self._table.to_numpy_dict()
         return np.column_stack([np.asarray(v) for v in d.values()]) \
             if d else np.zeros((0, 0))
+
+    def to_pandas(self):
+        import pandas as pd
+        return pd.DataFrame(self._table.to_numpy_dict())
+
+    def to_arrow(self):
+        """The live rows as a pyarrow Table (compacted on the device
+        first)."""
+        from ..io.arrow_interop import table_to_arrow
+        return table_to_arrow(self._table)
+
+    # --- io ------------------------------------------------------------
+    def write_parquet(self, file, compression: str = "zstd", **kw) -> None:
+        from ..io.parquet import write_parquet
+        write_parquet(self, file, compression=compression, **kw)
+
+    def write_csv(self, file=None, **kw):
+        from ..io.csv import write_csv
+        return write_csv(self, file, **kw)
+
+    def write_ipc(self, file, **kw) -> None:
+        from ..io.ipc import write_ipc
+        write_ipc(self, file, **kw)
+
+    def write_ipc_stream(self, file, **kw) -> None:
+        from ..io.ipc import write_ipc_stream
+        write_ipc_stream(self, file)
+
+    def write_ndjson(self, file=None, **kw):
+        from ..io.json_io import write_ndjson
+        return write_ndjson(self, file)
+
+    def write_json(self, file=None):
+        from ..io.json_io import write_json
+        return write_json(self, file)
+
+    def write_avro(self, file, compression: str = "uncompressed",
+                   **kw) -> None:
+        """An Avro object container file (null or deflate codec; the
+        port's own encoder, `io/avro.py`)."""
+        from ..io.avro import write_avro
+        write_avro(self, file, compression=compression)
+
+    def write_excel(self, workbook=None, **kw) -> None:
+        raise ModuleNotFoundError(
+            "write_excel requires xlsxwriter, which is not bundled")
+
+    def write_database(self, table_name: str, connection, **kw) -> None:
+        raise ModuleNotFoundError(
+            "write_database requires sqlalchemy, which is not bundled")
+
+    def write_iceberg(self, target, **kw) -> None:
+        raise ModuleNotFoundError(
+            "write_iceberg requires pyiceberg, which is not bundled")
+
+    def write_clipboard(self, **kw) -> None:
+        raise OSError("no clipboard available in a headless environment")
+
+    def serialize(self, file=None, *, format: str = "binary"):
+        """The frame as Arrow IPC bytes (the format the JAX package
+        writes, so either package reads the other's)."""
+        import io as _io
+        buf = _io.BytesIO()
+        self.write_ipc(buf)
+        data = buf.getvalue()
+        if file is None:
+            return data
+        if hasattr(file, "write"):
+            file.write(data)
+        else:
+            with open(file, "wb") as f:
+                f.write(data)
+        return None
+
+    @classmethod
+    def deserialize(cls, source, *, format: str = "binary",
+                    device=None) -> "DataFrame":
+        import io as _io
+        from ..io.ipc import read_ipc_table
+        if isinstance(source, (bytes, bytearray)):
+            source = _io.BytesIO(source)
+        return cls._from_table(read_ipc_table(source, device=device))
 
     # --- the rest of the frame surface ------------------------------------
     def with_row_index(self, name: str = "index", offset: int = 0

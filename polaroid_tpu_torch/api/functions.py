@@ -1,11 +1,9 @@
 """Top-level frame constructors and functions (parity target:
 `py-polars/src/polars/functions/`, as the JAX package's
 `api/functions.py`). `col`, `lit` and `len` live in `expr/expr.py`, as in
-the JAX package. The readers and scans (`read_*`, `scan_*`, `from_arrow`,
-`from_pandas`, `from_dataframe`), the sink partitioning and credential
-classes and `collect_all_async` come with the host IO and streaming
-slices (ROADMAP.md). Constructors put their frame on the package default
-device unless given `device=`."""
+the JAX package. The readers, scans and Arrow interop are in
+`api/io.py`. Constructors put their frame on the package default device
+unless given `device=`."""
 
 from __future__ import annotations
 

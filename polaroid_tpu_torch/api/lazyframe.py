@@ -625,17 +625,92 @@ class LazyFrame:
             if callback(b):
                 break
 
+    # --- sinks (the streaming engine writes batch by batch) ---------------
+    def _sink(self, fmt: str, path, kw) -> None:
+        from ..exec.streaming import execute_streaming
+        execute_streaming(optimize(L.Sink(self._plan, fmt, path, kw),
+                                   "streaming"))
+
+    def sink_parquet(self, path, **kw) -> None:
+        """The result written to Parquet batch by batch; a
+        `PartitionByKey` path writes a hive directory per key, a
+        `PartitionMaxSize` files of at most its size."""
+        from .io import PartitionByKey, PartitionMaxSize
+        if isinstance(path, PartitionByKey):
+            self.collect().write_parquet(path.base_path,
+                                         partition_by=path.by, **kw)
+            return
+        if isinstance(path, PartitionMaxSize):
+            import os
+            os.makedirs(path.base_path, exist_ok=True)
+            for i, b in enumerate(self.collect_batches(
+                    batch_size=path.max_size)):
+                b.write_parquet(os.path.join(path.base_path,
+                                             f"{i:08d}.parquet"), **kw)
+            return
+        self._sink("parquet", path, kw)
+
+    def sink_csv(self, path, **kw) -> None:
+        self._sink("csv", path, kw)
+
+    def sink_ipc(self, path, **kw) -> None:
+        self._sink("ipc", path, kw)
+
+    def sink_ndjson(self, path, **kw) -> None:
+        self._sink("ndjson", path, kw)
+
+    # --- serialization and remote execution ---------------------------------
+    def serialize(self) -> str:
+        """The plan as JSON text in the JAX package's format (an
+        in-memory frame's rows as Arrow IPC, which needs pyarrow)."""
+        import json
+        from ..plan.serde import plan_to_dict
+        return json.dumps(plan_to_dict(self._plan))
+
+    @staticmethod
+    def deserialize(source, device=None) -> "LazyFrame":
+        import json
+        from ..plan.serde import plan_from_dict
+        data = json.loads(source) if isinstance(source, str) else source
+        return LazyFrame._from_plan(plan_from_dict(data, device))
+
+    def remote(self, context=None, **_kw) -> "LazyFrameRemote":
+        """Run this query elsewhere: without a context, `collect()` runs
+        the distributed engine on the default mesh (a shard slot on each
+        card); a server context comes with Slice H2."""
+        return LazyFrameRemote(self, context)
+
+
+class LazyFrameRemote:
+    """A lazy frame to run remotely (polars cloud's `LazyFrameRemote`).
+    Without a context it runs on the in-process distributed engine."""
+
+    def __init__(self, lf: LazyFrame, context=None):
+        if context is not None:
+            raise NotImplementedError(
+                "remote(context): running against a server comes with "
+                "Slice H2 of the port (client.py, server/)")
+        self._lf = lf
+
+    def collect(self, **kw):
+        return self._lf.collect(engine="distributed", **kw)
+
+    def show(self, n: int = 10):
+        return self._lf.head(n).collect()
+
 
 def _plan_device(plan: L.Plan):
-    """The device of the first in-memory table under `plan`, else the
-    configured one."""
+    """The device of the first in-memory table or file scan that names
+    one under `plan`, else the configured one."""
+    from ..batch import resolve_device
     stack = [plan]
     while stack:
         p = stack.pop()
         if p.kind == "df_scan":
             return p.table.device
+        if p.kind in ("scan", "fast_count") and p.device is not None:
+            return resolve_device(p.device)
         stack.extend(p.inputs)
-    from ..batch import resolve_device
     return resolve_device(None)
 
 

@@ -190,6 +190,14 @@ class Series:
     def dot(self, other: "Series"):
         return self._with(other, lambda c, o: (c * o).sum()).item()
 
+    def to_pandas(self):
+        import pandas as pd
+        return pd.Series(self.to_list(), name=self.name or "")
+
+    def to_arrow(self):
+        import pyarrow as pa
+        return pa.array(self.to_list())
+
     def to_numpy(self) -> np.ndarray:
         return np.asarray(self._col.to_numpy(len(self)))
 

@@ -634,11 +634,14 @@ class DistributedExecutor:
         return out
 
     def _local_sort(self, plan: L.Sort, t: Table, key_vals=None) -> Table:
+        """The whole table sorted on the home device. The keys are
+        evaluated over `t` itself, whose live rows need not be a prefix,
+        so `t` (not its compaction) is sorted: `sort_table` reads its row
+        mask and puts the dead rows last."""
         from ..ops.sort import sort_table
         ROUTES["local"] += 1
         key_vals = key_vals or [eval_expr(b, t, "select") for b in plan.by]
-        out = sort_table(C.compact(t), key_vals, plan.descending,
-                         plan.nulls_last)
+        out = sort_table(t, key_vals, plan.descending, plan.nulls_last)
         if plan.slice_ is not None and plan.slice_[0] == 0:
             out = C.slice_rows(out, 0, plan.slice_[1])
         return out

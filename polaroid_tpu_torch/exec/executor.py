@@ -133,9 +133,80 @@ def _exec(plan: L.Plan, state: ExecState) -> Table:
             .with_row_index(plan.name, plan.offset)._table
     if k == "unpivot":
         return _unpivot(execute(plan.input, state), plan)
-    raise NotImplementedError(
-        f"plan node {k!r} is not ported yet: file scans and sinks come "
-        "with Slice H (host IO)")
+    if k == "scan":
+        return _exec_scan(plan)
+    if k == "fast_count":
+        from ..api.frame import DataFrame
+        from ..dtypes import UInt32
+        from ..io.parquet import parquet_num_rows
+        n = parquet_num_rows(plan.source)
+        if plan.n_rows is not None:
+            n = min(n, plan.n_rows)
+        return DataFrame({plan.name: [n]}, schema={plan.name: UInt32},
+                         device=plan.device)._table
+    if k == "sink":
+        t = execute(plan.input, state)
+        run_sink(t, plan)
+        return t
+    raise NotImplementedError(f"plan node {k!r} has no executor")
+
+
+def _exec_scan(plan: L.Scan) -> Table:
+    """A file scan: a predicate pushed into it becomes a pyarrow filter
+    in the Parquet decoder where it converts (`scan_predicate.py`); what
+    stays (every predicate, for the other formats) filters on the
+    device after the read."""
+    from ..batch import resolve_device
+    device = resolve_device(plan.device)
+    residual = plan.predicate
+    n_rows = plan.n_rows if residual is None else None
+    if plan.fmt == "parquet":
+        from ..io.parquet import read_parquet_table
+        from .scan_predicate import to_arrow_filter
+        filters = None
+        if plan.predicate is not None:
+            filters, residual = to_arrow_filter(plan.predicate)
+        t = read_parquet_table(plan.source, columns=plan.columns,
+                               filters=filters,
+                               n_rows=plan.n_rows if residual is None
+                               else None, device=device)
+    elif plan.fmt == "csv":
+        from ..io.csv import read_csv_table
+        t = read_csv_table(plan.source, columns=plan.columns, n_rows=n_rows,
+                           device=device,
+                           **{kk: v for kk, v in plan.options.items()
+                              if kk in ("has_header", "separator",
+                                        "null_values")})
+    elif plan.fmt == "ipc":
+        from ..io.ipc import read_ipc_table
+        t = read_ipc_table(plan.source, columns=plan.columns, n_rows=n_rows,
+                           device=device)
+    elif plan.fmt == "ndjson":
+        from ..io.json_io import read_ndjson_table
+        t = read_ndjson_table(plan.source, n_rows=n_rows, device=device)
+        if plan.columns is not None:
+            t = t.select_columns([c for c in plan.columns if c in t.cols])
+    else:
+        from ..errors import ComputeError
+        raise ComputeError(f"unknown scan format {plan.fmt!r}")
+    if residual is not None:
+        from ..api.frame import DataFrame
+        t = DataFrame._from_table(t).filter(residual)._table
+        if plan.n_rows is not None:
+            t = C.slice_rows(t, 0, plan.n_rows)
+    return t
+
+
+def run_sink(t: Table, plan: L.Sink) -> None:
+    """A sink's whole input written at once (the in-memory engine)."""
+    from ..api.frame import DataFrame
+    df = DataFrame._from_table(t)
+    write = {"parquet": df.write_parquet, "csv": df.write_csv,
+             "ipc": df.write_ipc, "ndjson": df.write_ndjson}.get(plan.fmt)
+    if write is None:
+        from ..errors import ComputeError
+        raise ComputeError(f"unknown sink format {plan.fmt!r}")
+    write(plan.target, **plan.options)
 
 
 def _unpivot(t: Table, plan: L.Unpivot) -> Table:

@@ -19,8 +19,12 @@ batch), and breaker operators keep partial states:
   * stateful window exprs stream exactly (bounded-lookback tail replay,
     cum_* through carried device scalars); head() stops early.
 
-Anything else materializes its child and runs in memory. File scans and
-sinks come with Slice H (host IO): a plan that reaches one raises.
+Anything else materializes its child and runs in memory. Parquet and
+CSV scans stream their batches from pyarrow, decoded and copied to the
+device on a worker thread one batch ahead (`_pipeline_prefetch`; a
+worker's error re-raises in the consumer); the other formats read whole.
+Sinks write each batch as it comes (Parquet, IPC and CSV through
+pyarrow's writers, NDJSON as text).
 
 Spill files are the port's own: each batch's live rows as host tensors
 (`torch.save`), with each String column's dictionary; partition ids are
@@ -38,10 +42,13 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from ..batch import Table
+from ..batch import Table, resolve_device
 from ..config import CONFIG
 from ..expr import meta
 from ..expr.expr import Expr, col as _col
+# the reference's `_pipeline_prefetch` (`polars-stream/src/execute.rs:301`
+# pipelines): a source decoded on a worker thread one batch ahead
+from ..io.parquet import prefetched as _pipeline_prefetch
 from ..ops.concat import vstack_tables
 from ..plan import logical as L
 
@@ -121,10 +128,13 @@ def _stream(plan: L.Plan) -> Iterator[Table]:
     from ..metrics import current
     k = plan.kind
 
-    if k in ("scan", "sink"):
-        raise NotImplementedError(
-            f"streaming plan node {k!r} is not ported yet: file scans and "
-            "sinks come with Slice H (host IO)")
+    if k == "scan":
+        yield from _pipeline_prefetch(_stream_scan(plan))
+        return
+
+    if k == "sink":
+        yield _stream_sink(plan)
+        return
 
     if k == "df_scan":
         COUNTS["batches"] += 1
@@ -1100,3 +1110,134 @@ def _stream_group_by(plan: L.GroupBy) -> Optional[Table]:
     from ..api.frame import DataFrame
     return DataFrame._from_table(merged).select(
         [_col(n) for n in key_names] + finals)._table
+
+
+# ---------------------------------------------------------------------------
+# file scans and sinks
+# ---------------------------------------------------------------------------
+
+def _limit_rows(batches: Iterator[Table], n_rows: Optional[int]
+                ) -> Iterator[Table]:
+    """The batches cut to `n_rows` live rows in all, stopping early."""
+    from ..ops.compact import slice_rows
+    remaining = n_rows
+    for t in batches:
+        COUNTS["batches"] += 1
+        if remaining is not None:
+            n = t.count_rows()
+            if n >= remaining:
+                yield slice_rows(t, 0, remaining)
+                return
+            remaining -= n
+        yield t
+
+
+def _stream_scan(plan: L.Scan) -> Iterator[Table]:
+    if plan.fmt == "csv":
+        yield from _stream_scan_csv(plan)
+        return
+    if plan.fmt != "parquet":
+        COUNTS["batches"] += 1
+        yield _materialize(plan)
+        return
+    from ..api.frame import DataFrame
+    from ..dtypes import Categorical
+    from ..io.arrow_interop import table_from_arrow
+    from ..io.parquet import scan_row_groups
+    from .scan_predicate import to_arrow_filter
+    filters = residual = None
+    if plan.predicate is not None:
+        filters, residual = to_arrow_filter(plan.predicate)
+    device = resolve_device(plan.device)
+    # a plain string column that the reader decodes as a dictionary stays
+    # String, as the scan's schema says (the JAX package's streamed scan
+    # makes it Categorical)
+    plain = frozenset(k for k, dt in plan.file_schema().items()
+                      if not isinstance(dt, Categorical))
+
+    def batches():
+        # the reader prefetches the decode; this generator runs on the
+        # pipeline's worker, so the device copy overlaps too
+        for at in scan_row_groups(plan.source, columns=plan.columns,
+                                  filters=filters,
+                                  batch_rows=CONFIG.batch_rows):
+            t = table_from_arrow(at, string_cols=plain, device=device)
+            if residual is not None:
+                t = DataFrame._from_table(t).filter(residual)._table
+            yield t
+    yield from _limit_rows(batches(), plan.n_rows)
+
+
+def _stream_scan_csv(plan: L.Scan) -> Iterator[Table]:
+    """A CSV file through pyarrow's incremental reader, each batch
+    projected and filtered (the reference's streaming CSV source)."""
+    from ..api.frame import DataFrame
+    from ..io.arrow_interop import table_from_arrow
+    from ..io.csv import scan_csv_batches
+    opts = {k: v for k, v in plan.options.items()
+            if k in ("has_header", "separator", "null_values")}
+    device = resolve_device(plan.device)
+
+    def batches():
+        for at in scan_csv_batches(plan.source,
+                                   batch_rows=CONFIG.batch_rows, **opts):
+            if plan.columns is not None:
+                at = at.select([c for c in plan.columns
+                                if c in at.column_names])
+            t = table_from_arrow(at, device=device)
+            if plan.predicate is not None:
+                t = DataFrame._from_table(t).filter(plan.predicate)._table
+            yield t
+    yield from _limit_rows(batches(), plan.n_rows)
+
+
+def _stream_sink(plan: L.Sink) -> Table:
+    """Each batch of the input written as it comes, none kept (the
+    reference's streaming sinks). The last batch is returned; an input
+    of no batches writes its empty result whole."""
+    from ..api.frame import DataFrame
+    from ..errors import ComputeError
+    from ..ops.compact import compact
+    from .executor import execute, run_sink
+    path, fmt = str(plan.target), plan.fmt
+    kw = dict(plan.options or {})
+    if fmt not in ("parquet", "ipc", "csv", "ndjson"):
+        raise ComputeError(f"unknown sink format {fmt!r}")
+    writer = sink = None
+    last = None
+    if fmt != "ndjson":
+        import pyarrow as pa
+        from ..io.arrow_interop import table_to_arrow
+    try:
+        for t in _stream(plan.input):
+            last = t = compact(t)
+            if fmt == "ndjson":
+                with open(path, "w" if writer is None else "a") as f:
+                    f.write(DataFrame._from_table(t).write_ndjson())
+                writer = True
+                continue
+            at = table_to_arrow(t)
+            if writer is None:
+                if fmt == "parquet":
+                    import pyarrow.parquet as pq
+                    writer = pq.ParquetWriter(
+                        path, at.schema,
+                        compression=kw.pop("compression", "zstd"))
+                elif fmt == "ipc":
+                    import pyarrow.ipc as paipc
+                    sink = pa.OSFile(path, "wb")
+                    writer = paipc.new_file(sink, at.schema)
+                else:
+                    import pyarrow.csv as pacsv
+                    writer = pacsv.CSVWriter(path, at.schema)
+            writer.write_table(at)
+    finally:
+        if writer not in (None, True):
+            writer.close()
+        if sink is not None:
+            sink.close()
+    if last is None:
+        t = execute(plan.input)
+        run_sink(t, plan)
+        return t
+    return last

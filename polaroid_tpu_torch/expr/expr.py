@@ -783,13 +783,18 @@ class Expr:
         return Expr("cumulative_eval", (self, expr), min_samples=min_samples)
 
     def serialize(self, format: str = "json"):
-        raise NotImplementedError("expression serde comes with Slice H of "
-                                  "the port (expr/serde.py)")
+        """JSON text in the JAX package's format (`expr/serde.py`)."""
+        import json
+        from . import serde
+        return json.dumps(serde.expr_to_dict(self))
 
     @classmethod
     def deserialize(cls, source, format: str = "json") -> "Expr":
-        raise NotImplementedError("expression serde comes with Slice H of "
-                                  "the port (expr/serde.py)")
+        import json
+        from . import serde
+        if hasattr(source, "read"):
+            source = source.read()
+        return serde.expr_from_dict(json.loads(source))
 
     from_json = deserialize
 

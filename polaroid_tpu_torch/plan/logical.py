@@ -101,7 +101,7 @@ class Scan(Plan):
     def __init__(self, fmt: str, source, columns: Optional[List[str]] = None,
                  predicate: Optional[Expr] = None,
                  n_rows: Optional[int] = None, options: Optional[dict] = None,
-                 file_schema: Optional[Schema] = None):
+                 file_schema: Optional[Schema] = None, device=None):
         super().__init__()
         self.fmt = fmt
         self.source = source
@@ -110,6 +110,8 @@ class Scan(Plan):
         self.n_rows = n_rows
         self.options = options or {}
         self._file_schema = file_schema
+        # where the scan's rows go (None: Config.device when it runs)
+        self.device = device
 
     def file_schema(self) -> Schema:
         if self._file_schema is None:
@@ -130,7 +132,7 @@ class Scan(Plan):
                  kw.get("columns", self.columns),
                  kw.get("predicate", self.predicate),
                  kw.get("n_rows", self.n_rows),
-                 dict(self.options), self._file_schema)
+                 dict(self.options), self._file_schema, self.device)
         return s
 
     def __repr__(self):
@@ -147,12 +149,14 @@ class FastCount(Plan):
 
     kind = "fast_count"
 
-    def __init__(self, fmt: str, source, n_rows: Optional[int], name: str):
+    def __init__(self, fmt: str, source, n_rows: Optional[int], name: str,
+                 device=None):
         super().__init__()
         self.fmt = fmt
         self.source = source
         self.n_rows = n_rows
         self.name = name
+        self.device = device
 
     def _compute_schema(self) -> Schema:
         return {self.name: UInt32}
@@ -165,11 +169,25 @@ class FastCount(Plan):
 
 
 def _resolve_file_schema(scan: Scan) -> Schema:
-    # file scans (io/parquet.py, io/arrow_interop.py) come with Slice A3:
-    # the JAX package decodes through pyarrow, which the card's host lacks
-    raise NotImplementedError(
-        f"{scan.fmt} scans are not ported yet: they come with Slice H "
-        "(host IO; Slice A3's file scans moved there)")
+    if scan.fmt == "parquet":
+        from ..io.arrow_interop import dtype_from_arrow
+        from ..io.parquet import parquet_schema
+        return {f.name: dtype_from_arrow(f.type)
+                for f in parquet_schema(scan.source)}
+    if scan.fmt in ("csv", "ipc", "ndjson"):
+        # a small prefix, read on the CPU, gives the dtypes
+        from ..io import csv as _csv, ipc as _ipc, json_io as _js
+        if scan.fmt == "csv":
+            t = _csv.read_csv_table(
+                scan.source, n_rows=100, device="cpu",
+                **{k: v for k, v in scan.options.items()
+                   if k in ("has_header", "separator", "null_values")})
+        elif scan.fmt == "ipc":
+            t = _ipc.read_ipc_table(scan.source, n_rows=100, device="cpu")
+        else:
+            t = _js.read_ndjson_table(scan.source, n_rows=100, device="cpu")
+        return dict(t.schema)
+    raise ComputeError(f"unknown scan format {scan.fmt!r}")
 
 
 class _Unary(Plan):

@@ -197,7 +197,8 @@ def count_star_fast_path(plan: L.Plan) -> L.Plan:
             e = e.children[0]
         if e.kind == "table_len" and sc.predicate is None and \
                 sc.fmt == "parquet":
-            return L.FastCount(sc.fmt, sc.source, sc.n_rows, name)
+            return L.FastCount(sc.fmt, sc.source, sc.n_rows, name,
+                               sc.device)
     new_inputs = [count_star_fast_path(p) for p in plan.inputs]
     return plan.with_inputs(new_inputs) if plan.inputs else plan
 

@@ -515,9 +515,13 @@ def _rel_to_lf(rel, tables, ctes, scope: Scope):
         scope.add(rel.get("alias") or name, cols)
         return lf
     if rel["type"] == "table_fn":
-        raise NotImplementedError(
-            f"the SQL table function {rel['fn']}(...) reads a file: the "
-            "port's file readers come with Slice H (host IO and services)")
+        from ..api.io import scan_csv, scan_ipc, scan_ndjson, scan_parquet
+        fn = rel["fn"]
+        lf = {"read_parquet": scan_parquet, "read_csv": scan_csv,
+              "read_ipc": scan_ipc, "read_ndjson": scan_ndjson,
+              "read_json": scan_ndjson}[fn](rel["arg"])
+        scope.add(rel.get("alias") or fn, list(lf.schema.keys()))
+        return lf
     if rel["type"] == "subquery":
         lf = translate(rel["query"], tables, ctes)
         scope.add(rel.get("alias"), list(lf.schema.keys()))

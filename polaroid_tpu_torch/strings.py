@@ -144,6 +144,48 @@ class StringDict:
             uniq = np.array([], dtype=object)
         return codes, StringDict(np.asarray(uniq, dtype=object))
 
+    @staticmethod
+    def encode_arrow(arr) -> Tuple[np.ndarray, "StringDict"]:
+        """Encode a pyarrow string or binary array with no Python object
+        per row: Arrow's C++ `dictionary_encode` (a hash), a sort of the
+        distinct values only, and one remap of the codes. UTF-8 byte
+        order is code-point order, so the dictionary is the one `encode`
+        builds from the same strings."""
+        import pyarrow as pa
+        if isinstance(arr, pa.ChunkedArray):
+            arr = arr.combine_chunks()
+        d = arr.dictionary_encode()
+        return _codes_by_sorted_dictionary(d.dictionary, d.indices, len(arr))
+
+    @staticmethod
+    def encode_dictionary(arr) -> Tuple[np.ndarray, "StringDict"]:
+        """Encode a pyarrow DictionaryArray (a Parquet column read with
+        `read_dictionary`) without hashing its rows again: only the
+        O(unique) dictionary is deduplicated and sorted, and the codes
+        are remapped once."""
+        import pyarrow as pa
+        if isinstance(arr, pa.ChunkedArray):
+            # chunks of a column may carry different dictionaries; one
+            # combine unifies them
+            arr = arr.combine_chunks() if arr.num_chunks != 1 \
+                else arr.chunk(0)
+        dic = arr.dictionary
+        if dic.null_count:
+            # a null belongs in the indices' validity, not the dictionary
+            return StringDict.encode_arrow(arr.cast(dic.type))
+        dd = dic.dictionary_encode()
+        rank_codes, sdict = _codes_by_sorted_dictionary(
+            dd.dictionary, dd.indices, len(dic))
+        idx = arr.indices
+        valid = None if not idx.null_count else ~np.asarray(idx.is_null())
+        raw = idx.fill_null(0).to_numpy() if valid is not None \
+            else idx.to_numpy()
+        codes = rank_codes[raw.astype(np.int64)] if len(rank_codes) \
+            else np.full(len(arr), NULL_CODE, np.int32)
+        if valid is not None:
+            codes = np.where(valid, codes, NULL_CODE)
+        return codes.astype(np.int32, copy=False), sdict
+
     def decode(self, codes: np.ndarray) -> np.ndarray:
         out = np.empty(len(codes), dtype=object)
         valid = codes >= 0
@@ -204,6 +246,29 @@ class StringDict:
         hit = (StringDict(merged), remap_a, remap_b)
         self._last_merge = (other.version, hit)
         return hit
+
+
+def _codes_by_sorted_dictionary(dic, indices, n: int
+                                ) -> Tuple[np.ndarray, StringDict]:
+    """Codes into the sorted `dic` (distinct Arrow values) for Arrow
+    `indices` into it (null indices -> NULL_CODE)."""
+    import pyarrow.compute as pc
+    k = len(dic)
+    if k == 0:
+        return np.full(n, NULL_CODE, np.int32), \
+            StringDict(np.array([], dtype=object))
+    perm = pc.array_sort_indices(dic).to_numpy()
+    rank = np.empty(k, np.int32)
+    rank[perm] = np.arange(k, dtype=np.int32)
+    valid = None if not indices.null_count else ~np.asarray(indices.is_null())
+    raw = indices.fill_null(0).to_numpy() if valid is not None \
+        else indices.to_numpy()
+    codes = rank[raw.astype(np.int64)]
+    if valid is not None:
+        codes[~valid] = NULL_CODE
+    values = np.empty(k, dtype=object)
+    values[:] = dic.take(perm).to_pylist()
+    return codes.astype(np.int32, copy=False), StringDict(values)
 
 
 EMPTY_DICT = StringDict(np.array([], dtype=object))

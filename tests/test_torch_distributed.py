@@ -480,3 +480,77 @@ def test_engine_affinity_and_the_default_mesh(monkeypatch):
     with pytest.raises(ValueError, match="home slot"):
         lf.collect(engine="distributed",
                    mesh=make_mesh(2, devices=["meta", "meta"]))
+
+
+# ---------------------------------------------------------------------------
+# sorts whose key needs more than 64 bits run on the home device
+# ---------------------------------------------------------------------------
+
+def _wide_sort_data():
+    """A Float64 key of quarter units (any order of addition sums it
+    exactly) beside an integer key, a join key and a list column."""
+    rng = np.random.default_rng(21)
+    n = 3000
+    return {"f": (rng.integers(-400, 400, n) / 4.0),
+            "v": rng.integers(-50, 50, n),
+            "k": rng.integers(0, 300, n),
+            "l": [[int(x), int(x) + 1] for x in rng.integers(0, 9, n)]}
+
+
+WIDE = _wide_sort_data()
+WIDE_DIM = {"k": np.arange(0, 300, 3), "g": np.arange(100) % 7}
+
+
+def _wide_filter(d, e):
+    return d.drop("l").filter(pt.col("v") > 0).sort("f", "v")
+
+
+def _wide_join(d, e):
+    return d.drop("l").join(e, on="k").sort("f", "g", "v")
+
+
+def _wide_groupby(d, e):
+    return d.group_by("k").agg(pt.col("f").sum().alias("sf"),
+                               pt.col("v").sum().alias("sv")) \
+        .sort("sf", "k")
+
+
+def _wide_nested(d, e):
+    return d.filter(pt.col("v") > 0).sort("f", maintain_order=True)
+
+
+def _np_filter_sorted():
+    keep = WIDE["v"] > 0
+    f, v = WIDE["f"][keep], WIDE["v"][keep]
+    order = np.lexsort((v, f))
+    return {"f": f[order].tolist(), "v": v[order].tolist()}
+
+
+@pytest.mark.parametrize("case, build, route, keys", [
+    ("filter", _wide_filter, {"local": 1}, ["f", "v"]),
+    ("join", _wide_join, {"sharded_join": 1, "local": 1}, ["f", "g", "v"]),
+    ("groupby", _wide_groupby, {"sharded": 1, "local": 1}, ["sf", "k"]),
+    ("nested", _wide_nested, {"local": 1}, ["f"]),
+])
+def test_sort_past_64_bits_after_a_breaker(case, build, route, keys):
+    """A filter, a sharded join and a sharded group-by leave holes in the
+    live rows; the sort past 64 bits that follows (a Float64 key plus
+    one more), and the sort of a table with a List column, run on the
+    home device and come back in numpy's stable order, equal to the
+    port's in-memory collect."""
+    lf = build(pt.LazyFrame(WIDE, device="cpu"),
+               pt.LazyFrame(WIDE_DIM, device="cpu"))
+    got = _dist(lf)
+    assert dict(D.ROUTES) == route, dict(D.ROUTES)
+    got = got.to_dict()
+    assert got == lf.collect().to_dict()
+    order = np.lexsort(tuple(np.asarray(got[k]) for k in reversed(keys)))
+    assert np.array_equal(order, np.arange(len(order)))
+    if case == "filter":
+        assert {k: got[k] for k in ("f", "v")} == _np_filter_sorted()
+    if case == "nested":
+        keep = WIDE["v"] > 0
+        order = np.argsort(WIDE["f"][keep], kind="stable")
+        assert got["v"] == WIDE["v"][keep][order].tolist()
+        assert got["l"] == [WIDE["l"][i] for i in
+                            np.nonzero(keep)[0][order]]

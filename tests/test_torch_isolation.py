@@ -49,6 +49,19 @@ def test_import_loads_no_jax_module():
         "import polaroid_tpu_torch.parallel.shuffle\n"
         "import polaroid_tpu_torch.exec.distributed\n"
         "import polaroid_tpu_torch.entry\n"
+        "import polaroid_tpu_torch.api.io\n"
+        "import polaroid_tpu_torch.exec.scan_predicate\n"
+        "import polaroid_tpu_torch.expr.serde\n"
+        "import polaroid_tpu_torch.plan.serde\n"
+        "import polaroid_tpu_torch.io.arrow_interop\n"
+        "import polaroid_tpu_torch.io.avro\n"
+        "import polaroid_tpu_torch.io.credentials\n"
+        "import polaroid_tpu_torch.io.csv\n"
+        "import polaroid_tpu_torch.io.file_cache\n"
+        "import polaroid_tpu_torch.io.ipc\n"
+        "import polaroid_tpu_torch.io.json_io\n"
+        "import polaroid_tpu_torch.io.parquet\n"
+        "import polaroid_tpu_torch.io.remote\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')"
         " or m == 'polaroid_tpu' or m.startswith('polaroid_tpu.'))\n"
@@ -94,3 +107,50 @@ def test_default_device_without_cuda_raises(monkeypatch):
         assert pt.DataFrame(data).device.type == "cpu"
     with pytest.raises(RuntimeError):
         pt.DataFrame(data)
+
+
+def test_runs_without_pyarrow_pandas_or_fsspec(tmp_path):
+    """With pyarrow, pandas and fsspec unimportable (as on the card's
+    machine), the port imports, writes and reads Avro, serializes
+    expressions and runs `remote()`; a Parquet read raises
+    ModuleNotFoundError naming pyarrow."""
+    code = (
+        "import sys, importlib.abc\n"
+        "BLOCK = ('pyarrow', 'pandas', 'fsspec')\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in BLOCK:\n"
+        "            raise ModuleNotFoundError(f'No module named {name!r}',"
+        " name=name)\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np\n"
+        "import polaroid_tpu_torch as pl\n"
+        "from polaroid_tpu_torch.parallel.mesh import make_mesh\n"
+        "df = pl.DataFrame({'t': np.arange(5).astype('datetime64[us]'),\n"
+        "                   's': ['a', 'b', None, 'a', 'c'],\n"
+        "                   'p': [1.5, -0.0, float('nan'), None, 2.0],\n"
+        "                   'n': np.arange(5)}, device='cpu')\n"
+        f"path = {str(tmp_path / 'x.avro')!r}\n"
+        "df.write_avro(path, compression='deflate')\n"
+        "back = pl.read_avro(path, device='cpu')\n"
+        "assert repr(back.to_dict()) == repr(df.to_dict()), back\n"
+        "e = (pl.col('p') * 2).sum().over('s').alias('q')\n"
+        "assert pl.Expr.deserialize(e.serialize()).fingerprint() == "
+        "e.fingerprint()\n"
+        "lf = df.lazy().group_by('s').agg(pl.col('n').sum())\n"
+        "got = lf.remote().collect(mesh=make_mesh(2, device='cpu'))\n"
+        "assert got.sort('s').to_dict() == lf.collect().sort('s')"
+        ".to_dict()\n"
+        "try:\n"
+        "    pl.read_parquet('x.parquet', device='cpu')\n"
+        "except ModuleNotFoundError as exc:\n"
+        "    assert 'pyarrow' in str(exc), exc\n"
+        "else:\n"
+        "    raise AssertionError('read_parquet ran without pyarrow')\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in BLOCK]\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", \
+        r.stdout + r.stderr

@@ -181,10 +181,24 @@ def test_sql_entry_points(how):
     assert_frame_equal(got, want, check_exact=True)
 
 
-def test_table_function_names_its_slice():
-    ctx = pt.SQLContext(s=pt.DataFrame(SALES, device="cpu"))
-    with pytest.raises(NotImplementedError, match="Slice H"):
-        ctx.execute("SELECT SUM(a) AS s FROM read_parquet('f.parquet')")
+def test_table_function_names_its_slice(tmp_path):
+    """The file-reading table functions came with Slice H1 (host IO):
+    read_parquet(...) reads its file on the frame's device, as the JAX
+    package's does, and a missing file raises there as in the JAX
+    package."""
+    path = str(tmp_path / "s.parquet")
+    pt.DataFrame(SALES, device="cpu").write_parquet(path)
+    q = f"SELECT SUM(qty) AS s FROM read_parquet('{path}')"
+    with pt.Config(device="cpu"):
+        got = pt.SQLContext().execute(q, eager=True)
+        with pytest.raises(FileNotFoundError):
+            pt.SQLContext().execute(
+                "SELECT SUM(a) AS s FROM read_parquet('no_such.parquet')")
+    assert got.device.type == "cpu"
+    assert got.to_dict() == ref.SQLContext().execute(q, eager=True).to_dict()
+    with pytest.raises(FileNotFoundError):
+        ref.SQLContext().execute(
+            "SELECT SUM(a) AS s FROM read_parquet('no_such.parquet')")
 
 
 @pytest.mark.parametrize("query,error", [

@@ -8,7 +8,7 @@ agree exactly; Float64 within rtol 1e-12 (a decomposed mean or sum adds
 in another order), and a decomposed std or var within the bound of its
 sum-of-squares formula. `batch_rows`, `join_sample_limit` and
 `join_build_budget_rows` are set small where a test needs the spill
-paths. File scans and sinks come with Slice H and raise.
+paths. Streamed file scans and sinks are held in tests/test_torch_io.py.
 """
 
 import math
@@ -19,7 +19,6 @@ import pytest
 import polaroid_tpu as ref
 import polaroid_tpu_torch as pt
 from polaroid_tpu_torch.exec import streaming as ST
-from polaroid_tpu_torch.plan import logical as L
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -331,15 +330,6 @@ def test_external_sort_fits_in_memory_without_spilling():
     got, counts = _check(lambda pl, u: u.sort("v", maintain_order=True),
                          23)
     assert counts["spills"] == 0
-
-
-def test_file_scans_and_sinks_raise():
-    plan = L.Scan("parquet", "trades.parquet")
-    with pytest.raises(NotImplementedError, match="Slice H"):
-        list(ST._stream(plan))
-    lf = _union(pt, _parts(24))
-    with pytest.raises(NotImplementedError, match="Slice H"):
-        list(ST._stream(L.Sink(lf._plan, "parquet", "out.parquet", {})))
 
 
 def test_engine_affinity_streams(monkeypatch):

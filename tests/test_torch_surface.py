@@ -7,8 +7,8 @@ test fails if the port loses a name it has, and if a name recorded here
 turns up in the port while still listed: each slice that ports a name
 takes it off its list, so the lists shrink on purpose, and "the port
 has all that the JAX package has" is these lists being empty. What is
-left needs files, serialization, pyarrow or pandas, and comes with the
-slice ROADMAP.md names. `NEVER` holds the names the
+left is the lakehouse store's, and comes with the slice ROADMAP.md
+names. `NEVER` holds the names the
 port never takes: `to_jax` (on `DataFrame` and `Series`) hands the data
 to JAX, and the port imports no JAX. (`Expr` has every name.)
 """
@@ -20,36 +20,19 @@ import pytest
 import polaroid_tpu as ref
 import polaroid_tpu_torch as pt
 
-# what is left needs files, serialization, pyarrow or pandas (Slice H:
-# host IO and services); ROADMAP.md names the slice of each
+# what is left is Slice H2's (the lakehouse store behind the delta
+# names); ROADMAP.md names the slice
 TOP = """
-BasePartitionContext Catalog CompatLevel CredentialProvider
-CredentialProviderAWS CredentialProviderAzure CredentialProviderFunction
-CredentialProviderFunctionReturn CredentialProviderGCP KeyedPartition
-KeyedPartitionContext PartitionByKey PartitionMaxSize PartitionParted
-ScanCastOptions defer from_arrow from_dataframe
-from_pandas read_avro read_clipboard read_csv read_csv_batched
-read_database read_database_uri read_delta read_excel read_ipc
-read_ipc_schema read_ipc_stream read_json read_ndjson read_ods
-read_parquet read_parquet_metadata read_parquet_schema
-register_io_source scan_csv scan_delta scan_iceberg scan_ipc
-scan_ndjson scan_parquet scan_pyarrow_dataset
+read_delta scan_delta
 """.split()
 
 DATAFRAME = """
-deserialize serialize to_arrow to_pandas write_avro write_clipboard
-write_csv write_database write_delta write_excel write_iceberg
-write_ipc write_ipc_stream write_json write_ndjson write_parquet
+write_delta
 """.split()
 
-LAZYFRAME = """
-deserialize remote serialize sink_csv sink_ipc sink_ndjson
-sink_parquet
-""".split()
+LAZYFRAME: list = []
 
-SERIES = """
-to_arrow to_pandas
-""".split()
+SERIES: list = []
 
 # names the port never takes: `to_jax` hands the data to JAX, and the
 # port imports no JAX (tests/test_torch_isolation.py)
