@@ -72,7 +72,8 @@ from .api.functions import (  # noqa: E402
     get_index_type, GPUEngine, groups, head, int_range, json_normalize, last,
     linear_space, linear_spaces, map_batches, map_groups, max,
     max_horizontal, mean, mean_horizontal, median, min, min_horizontal,
-    n_unique, ones, quantile, QueryOptFlags, reduce, repeat, select,
+    n_unique, ones, quantile, QueryOptFlags, read_delta, reduce, repeat,
+    scan_delta, select,
     set_random_seed, show_versions, sql_expr, std, StringCache, sum,
     sum_horizontal, tail, thread_pool_size, threadpool_size, union,
     using_string_cache, var, zeros,

@@ -804,6 +804,26 @@ class DataFrame:
         from ..io.json_io import write_json
         return write_json(self, file)
 
+    def write_delta(self, target, *, mode: str = "error",
+                    table: str = "data") -> None:
+        """Write into the versioned lakehouse store under `target`
+        (`lakehouse.LakeStore`): "append", "overwrite", "error" (or
+        "ignore") where the table exists."""
+        from ..errors import InvalidOperationError
+        from ..lakehouse import LakeStore
+        store = LakeStore(str(target), device=self.device)
+        if mode == "append":
+            store.append(table, self)
+        elif mode in ("overwrite", "error", "ignore"):
+            if mode == "error" and table in store.tables():
+                raise InvalidOperationError(
+                    f"delta table {table!r} already exists")
+            if mode == "ignore" and table in store.tables():
+                return
+            store.overwrite(table, self)
+        else:
+            raise InvalidOperationError(f"unknown write_delta mode {mode!r}")
+
     def write_avro(self, file, compression: str = "uncompressed",
                    **kw) -> None:
         """An Avro object container file (null or deflate codec; the

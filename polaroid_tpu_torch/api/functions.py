@@ -821,6 +821,23 @@ def sql_expr(sql: str) -> Expr:
     return translate_expr(Parser(tokenize(sql)).parse_expr(), None, None)
 
 
+def read_delta(source, *, table: str = "data", version=None, device=None,
+               **kw):
+    """A table of the lakehouse store (`lakehouse.LakeStore`, the Delta
+    equivalent) under `source`, at `version` or the latest, on `device`."""
+    from ..lakehouse import LakeStore
+    store = LakeStore(str(source), device=device)
+    if version is not None:
+        return store.read_version(table, int(version))
+    return store.read(table)
+
+
+def scan_delta(source, *, table: str = "data", device=None, **kw):
+    """A lazy scan of the lakehouse table's current files."""
+    from ..lakehouse import LakeStore
+    return LakeStore(str(source), device=device).scan(table)
+
+
 def sql(query: str, *, eager: bool = False):
     """SQL over the frames bound to names in the caller's scope."""
     import inspect

@@ -677,23 +677,39 @@ class LazyFrame:
     def remote(self, context=None, **_kw) -> "LazyFrameRemote":
         """Run this query elsewhere: without a context, `collect()` runs
         the distributed engine on the default mesh (a shard slot on each
-        card); a server context comes with Slice H2."""
+        card); with a server's address or a `client.RemoteClient`, the
+        plan is shipped there and the result comes back."""
         return LazyFrameRemote(self, context)
 
 
 class LazyFrameRemote:
     """A lazy frame to run remotely (polars cloud's `LazyFrameRemote`).
-    Without a context it runs on the in-process distributed engine."""
+    Without a context it runs on the in-process distributed engine; with
+    a `RemoteClient`, or an address string (a client made for the call,
+    its result on this plan's device), through the server's ExecutePlan
+    and Collect. The handle the call made is released after."""
 
     def __init__(self, lf: LazyFrame, context=None):
-        if context is not None:
-            raise NotImplementedError(
-                "remote(context): running against a server comes with "
-                "Slice H2 of the port (client.py, server/)")
         self._lf = lf
+        self._context = context
 
     def collect(self, **kw):
-        return self._lf.collect(engine="distributed", **kw)
+        ctx = self._context
+        if ctx is None:
+            return self._lf.collect(engine="distributed", **kw)
+        owned = isinstance(ctx, str)
+        if owned:
+            from ..client import RemoteClient
+            ctx = RemoteClient(ctx, device=_plan_device(self._lf._plan))
+        try:
+            rf = ctx.execute_plan(self._lf)
+            try:
+                return rf.collect()
+            finally:
+                rf.release()
+        finally:
+            if owned:
+                ctx.close()
 
     def show(self, n: int = 10):
         return self._lf.head(n).collect()

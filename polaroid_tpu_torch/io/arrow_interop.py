@@ -285,6 +285,19 @@ def table_from_arrow(at, capacity: Optional[int] = None,
     return Table(names, dict(zip(names, cols)), cap, n, None, device=device)
 
 
+def _strings_by_take(sdict, codes: np.ndarray, valid, patype):
+    """A String (or Binary) column's live rows as an Arrow array: the
+    dictionary's values taken by the codes, null where the validity or a
+    negative code says so (one Arrow `take`, no Python string per row)."""
+    import pyarrow as pa
+    null = codes < 0 if valid is None else ~valid | (codes < 0)
+    values = pa.array(sdict.values if sdict is not None else [],
+                      type=patype)
+    idx = pa.array(np.where(null, 0, codes).astype(np.int32, copy=False),
+                   mask=null)
+    return values.take(idx)
+
+
 def table_to_arrow(t: Table):
     """The live rows as a pyarrow Table: compacted on the device first
     (kernel B on the card), then one host copy per buffer."""
@@ -305,10 +318,7 @@ def table_to_arrow(t: Table):
                 if c.validity is not None else None
             m = None if valid is None else ~valid
             if c.dtype.is_string:
-                codes = data if valid is None else \
-                    np.where(valid, data, NULL_CODE)
-                arr = pa.array(c.sdict.decode(codes) if c.sdict is not None
-                               else np.full(n, None, object), type=patype)
+                arr = _strings_by_take(c.sdict, data, valid, patype)
             elif repr(c.dtype) == "Date":
                 arr = pa.array(data.astype(np.int32), pa.int32(),
                                mask=m).cast(patype)

@@ -13,9 +13,13 @@ from ..errors import SQLInterfaceError
 
 class SQLContext:
     def __init__(self, frames: Optional[Dict[str, object]] = None,
-                 eager: bool = False, **named_frames):
+                 eager: bool = False, device=None, **named_frames):
+        """`device`: where frames the query itself makes go (a table
+        function's scan, a FROM-less select); without it, the first
+        registered frame's device, else `Config.device`."""
         self._tables: Dict[str, object] = {}
         self._eager = eager
+        self._device = device
         frames = dict(frames or {})
         frames.update(named_frames)
         for name, f in frames.items():
@@ -47,7 +51,7 @@ class SQLContext:
         from .parser import parse_sql
         from .translate import translate
         stmt = parse_sql(query)
-        lf = translate(stmt, self._tables)
+        lf = translate(stmt, self._tables, device=self._device)
         if eager if eager is not None else self._eager:
             return lf.collect()
         return lf

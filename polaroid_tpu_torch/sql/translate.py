@@ -462,9 +462,11 @@ def _has_agg_ast(e: Dict) -> bool:
     return False
 
 
-def _device(tables: Dict[str, object]):
-    """The device of the first registered frame's data (None, the
-    package default, without one)."""
+def _device(tables: Dict[str, object], device=None):
+    """`device` (the context's), else the device of the first registered
+    frame's data (None, the package default, without one)."""
+    if device is not None:
+        return device
     for lf in tables.values():
         stack = [lf._plan]
         while stack:
@@ -476,36 +478,39 @@ def _device(tables: Dict[str, object]):
 
 
 def translate(stmt: Dict, tables: Dict[str, object],
-              ctes: Optional[Dict[str, object]] = None):
+              ctes: Optional[Dict[str, object]] = None, device=None):
+    """The lazy frame of a parsed statement over `tables`; the frames the
+    query itself makes (a table function's scan, a FROM-less select) go
+    on `device`, else on the first registered frame's."""
     ctes = dict(ctes or {})
     t = stmt["type"]
     if t == "show_tables":
         from ..api.frame import DataFrame
         return DataFrame({"name": sorted(tables)},
-                         device=_device(tables)).lazy()
+                         device=_device(tables, device)).lazy()
     if t == "with":
         env = dict(ctes)
         for name, q in stmt["ctes"]:
-            env[name] = translate(q, tables, env)
-        return translate(stmt["body"], tables, env)
+            env[name] = translate(q, tables, env, device)
+        return translate(stmt["body"], tables, env, device)
     if t == "union":
         from ..api.functions import concat
-        l = translate(stmt["left"], tables, ctes)
-        r = translate(stmt["right"], tables, ctes)
+        l = translate(stmt["left"], tables, ctes, device)
+        r = translate(stmt["right"], tables, ctes, device)
         out = concat([l, r], how="vertical_relaxed")
         if not stmt["all"]:
             out = out.unique(maintain_order=True)
         return out
     if t == "ordered":
-        lf = translate(stmt["input"], tables, ctes)
+        lf = translate(stmt["input"], tables, ctes, device)
         return _apply_order_limit(lf, stmt["order_by"], stmt["limit"],
                                   stmt["offset"], None, None)
     if t == "select":
-        return _translate_select(stmt, tables, ctes)
+        return _translate_select(stmt, tables, ctes, device)
     raise SQLSyntaxError(f"unsupported statement {t!r}")
 
 
-def _rel_to_lf(rel, tables, ctes, scope: Scope):
+def _rel_to_lf(rel, tables, ctes, scope: Scope, device=None):
     if rel["type"] == "table":
         name = rel["name"]
         lf = ctes.get(name) or tables.get(name)
@@ -519,21 +524,23 @@ def _rel_to_lf(rel, tables, ctes, scope: Scope):
         fn = rel["fn"]
         lf = {"read_parquet": scan_parquet, "read_csv": scan_csv,
               "read_ipc": scan_ipc, "read_ndjson": scan_ndjson,
-              "read_json": scan_ndjson}[fn](rel["arg"])
+              "read_json": scan_ndjson}[fn](rel["arg"],
+                                            device=_device(tables, device))
         scope.add(rel.get("alias") or fn, list(lf.schema.keys()))
         return lf
     if rel["type"] == "subquery":
-        lf = translate(rel["query"], tables, ctes)
+        lf = translate(rel["query"], tables, ctes, device)
         scope.add(rel.get("alias"), list(lf.schema.keys()))
         return lf
     raise SQLSyntaxError(f"unknown relation {rel['type']!r}")
 
 
-def _translate_select(stmt, tables, ctes):
+def _translate_select(stmt, tables, ctes, device=None):
     scope = Scope()
     if stmt["from"] is None:
         from ..api.frame import DataFrame
-        lf = DataFrame({"__dummy": [0]}, device=_device(tables)).lazy()
+        lf = DataFrame({"__dummy": [0]},
+                       device=_device(tables, device)).lazy()
         items = []
         for it in stmt["items"]:
             e = translate_expr(it["expr"], None)
@@ -542,11 +549,11 @@ def _translate_select(stmt, tables, ctes):
             items.append(e)
         return lf.select(items)
 
-    lf = _rel_to_lf(stmt["from"], tables, ctes, scope)
+    lf = _rel_to_lf(stmt["from"], tables, ctes, scope, device)
 
     for j in stmt["joins"]:
         right_scope = Scope()
-        rlf = _rel_to_lf(j["rel"], tables, ctes, right_scope)
+        rlf = _rel_to_lf(j["rel"], tables, ctes, right_scope, device)
         how = j["how"]
         if how == "cross":
             lf = lf.join(rlf, how="cross")

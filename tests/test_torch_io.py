@@ -253,6 +253,49 @@ def test_table_to_arrow_exports_only_live_rows():
     _same_frames(kept, want)
 
 
+@pytest.mark.parametrize("case", ["nulls", "no_validity", "all_null",
+                                  "empty_dictionary", "binary", "filtered"])
+def test_string_columns_export_by_take(case):
+    """`to_arrow` builds a String or Binary column by one Arrow `take` of
+    the dictionary by the codes; the array equals the one of a Python
+    value per row, nulls (from the validity or a negative code) and an
+    empty dictionary included."""
+    from polaroid_tpu_torch.io.arrow_interop import dtype_to_arrow
+    rng = np.random.default_rng(11)
+    n = 1000
+    vals = np.array([f"sym{i:03d}" for i in range(37)], dtype=object)
+    s = vals[rng.integers(0, 37, n)]
+    if case == "binary":
+        s = np.array([x.encode() for x in s], dtype=object)
+    if case in ("nulls", "binary", "filtered"):
+        s[rng.random(n) < 0.2] = None
+    if case == "all_null":
+        s[:] = None
+    if case == "empty_dictionary":
+        s = s[:0]
+    df = pt.DataFrame({"s": list(s), "k": np.arange(len(s))}, device="cpu")
+    if case == "filtered":
+        df = df.filter(pt.col("k") % 3 != 0)
+    c = df._table.cols["s"]
+    if case == "no_validity":
+        # nulls carried by negative codes alone
+        c.data[5:9] = -1
+        assert c.validity is None
+    got = df.to_arrow().column("s").combine_chunks()
+    t = pt.ops.compact.compact(df._table)
+    m = t.count_rows()
+    col = t.cols["s"]
+    codes = col.data[:m].numpy()
+    if col.validity is not None:
+        codes = np.where(col.validity[:m].numpy(), codes, -1)
+    want = pa.array(col.sdict.decode(codes) if col.sdict is not None
+                    else np.full(m, None, object),
+                    type=dtype_to_arrow(col.dtype))
+    assert got.type == want.type
+    assert got.equals(want)
+    assert got.null_count == int((codes < 0).sum())
+
+
 # ---------------------------------------------------------------------------
 # each format, both ways
 # ---------------------------------------------------------------------------
@@ -864,8 +907,11 @@ def test_remote_without_a_context_is_the_distributed_collect():
     assert dict(D.ROUTES) == routes
     assert got.to_dict() == lf.collect().to_dict()
     assert lf.remote().show(3).height == 3
-    with pytest.raises(NotImplementedError, match="H2"):
-        lf.remote("localhost:50051")
+    # a context is a server (tests/test_torch_server.py): where none
+    # listens, the call fails rather than running on the engine here
+    import grpc
+    with pytest.raises(grpc.RpcError):
+        lf.remote("127.0.0.1:1").collect()
 
 
 def test_remote_files_through_fsspec_memory(tmp_path, monkeypatch):

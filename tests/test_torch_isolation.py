@@ -62,6 +62,16 @@ def test_import_loads_no_jax_module():
         "import polaroid_tpu_torch.io.json_io\n"
         "import polaroid_tpu_torch.io.parquet\n"
         "import polaroid_tpu_torch.io.remote\n"
+        "import polaroid_tpu_torch.server\n"
+        "import polaroid_tpu_torch.server.handles\n"
+        "import polaroid_tpu_torch.server.http_api\n"
+        "import polaroid_tpu_torch.server.polaroid_pb2\n"
+        "import polaroid_tpu_torch.server.service\n"
+        "import polaroid_tpu_torch.client\n"
+        "import polaroid_tpu_torch.aio_client\n"
+        "import polaroid_tpu_torch.storage\n"
+        "import polaroid_tpu_torch.lakehouse\n"
+        "import polaroid_tpu_torch.sources\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')"
         " or m == 'polaroid_tpu' or m.startswith('polaroid_tpu.'))\n"
@@ -149,6 +159,76 @@ def test_runs_without_pyarrow_pandas_or_fsspec(tmp_path):
         "else:\n"
         "    raise AssertionError('read_parquet ran without pyarrow')\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in BLOCK]\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", \
+        r.stdout + r.stderr
+
+
+def test_runs_without_grpc_protobuf_websockets_or_aiohttp():
+    """With grpc, protobuf, websockets and aiohttp unimportable, the port
+    imports, the handles and the HTTP /exec API serve a frame, the
+    lakehouse and the sources' modules import; the gRPC server, the
+    client and a WebSocket source raise ModuleNotFoundError naming the
+    package they need."""
+    code = (
+        "import sys, importlib.abc, json, urllib.request, urllib.parse\n"
+        "BLOCK = ('grpc', 'google.protobuf', 'websockets', 'aiohttp')\n"
+        "def blocked(name):\n"
+        "    return any(name == b or name.startswith(b + '.')"
+        " for b in BLOCK)\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if blocked(name):\n"
+        "            raise ModuleNotFoundError(f'No module named {name!r}',"
+        " name=name)\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import types, asyncio\n"
+        "import polaroid_tpu_torch as pl\n"
+        "import polaroid_tpu_torch.server\n"
+        "import polaroid_tpu_torch.lakehouse, polaroid_tpu_torch.sources\n"
+        "from polaroid_tpu_torch.server.handles import HandleManager\n"
+        "from polaroid_tpu_torch.server.http_api import start_http\n"
+        "hm = HandleManager()\n"
+        "h = hm.create(pl.DataFrame({'a': [1, 2, 2]}, device='cpu'))\n"
+        "svc = types.SimpleNamespace(handles=hm, device='cpu')\n"
+        "httpd = start_http('127.0.0.1', 0, svc)\n"
+        "q = urllib.parse.quote(f'SELECT a, COUNT(*) AS n FROM "
+        "h_{h.replace(\"-\", \"\")} GROUP BY a ORDER BY a')\n"
+        "port = httpd.server_address[1]\n"
+        "with urllib.request.urlopen(f'http://127.0.0.1:{port}/exec?"
+        "query={q}') as r:\n"
+        "    body = json.load(r)\n"
+        "httpd.shutdown()\n"
+        "assert body['dataset'] == [[1, 1], [2, 2]], body\n"
+        "for mod, need in (('polaroid_tpu_torch.server.service', 'grpc'),\n"
+        "                  ('polaroid_tpu_torch.server.polaroid_pb2',"
+        " 'google.protobuf')):\n"
+        "    try:\n"
+        "        __import__(mod)\n"
+        "    except ModuleNotFoundError as exc:\n"
+        "        assert need in str(exc), exc\n"
+        "    else:\n"
+        "        raise AssertionError(mod)\n"
+        "from polaroid_tpu_torch.client import RemoteClient\n"
+        "try:\n"
+        "    RemoteClient('127.0.0.1:1', device='cpu')\n"
+        "except ModuleNotFoundError as exc:\n"
+        "    assert 'grpc' in str(exc), exc\n"
+        "else:\n"
+        "    raise AssertionError('RemoteClient ran without grpc')\n"
+        "from polaroid_tpu_torch.sources import WebSocketSource, "
+        "collect_stream\n"
+        "src = WebSocketSource('ws://127.0.0.1:1', device='cpu')\n"
+        "try:\n"
+        "    asyncio.run(collect_stream(src, 1))\n"
+        "except ModuleNotFoundError as exc:\n"
+        "    assert 'websockets' in str(exc), exc\n"
+        "else:\n"
+        "    raise AssertionError('WebSocketSource ran without websockets')\n"
+        "assert not [m for m in sys.modules if blocked(m)]\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)

@@ -6,11 +6,12 @@ level and on `DataFrame`, `LazyFrame` and `Series` that
 test fails if the port loses a name it has, and if a name recorded here
 turns up in the port while still listed: each slice that ports a name
 takes it off its list, so the lists shrink on purpose, and "the port
-has all that the JAX package has" is these lists being empty. What is
-left is the lakehouse store's, and comes with the slice ROADMAP.md
-names. `NEVER` holds the names the
-port never takes: `to_jax` (on `DataFrame` and `Series`) hands the data
-to JAX, and the port imports no JAX. (`Expr` has every name.)
+has all that the JAX package has" is these lists being empty, as they
+are now. Every module file of the JAX package has its counterpart in the
+port too (`test_every_module_has_a_counterpart`). `NEVER` holds the
+names the port never takes: `to_jax` (on `DataFrame` and `Series`)
+hands the data to JAX, and the port imports no JAX. (`Expr` has every
+name.)
 """
 
 import types
@@ -20,15 +21,11 @@ import pytest
 import polaroid_tpu as ref
 import polaroid_tpu_torch as pt
 
-# what is left is Slice H2's (the lakehouse store behind the delta
-# names); ROADMAP.md names the slice
-TOP = """
-read_delta scan_delta
-""".split()
+# every name is ported: the lists stay, empty, so that a name the JAX
+# package gains shows up here
+TOP: list = []
 
-DATAFRAME = """
-write_delta
-""".split()
+DATAFRAME: list = []
 
 LAZYFRAME: list = []
 
@@ -79,3 +76,19 @@ def test_missing_names_are_still_missing(surface):
 def test_expr_has_every_name():
     assert not sorted(n for n in _public(ref.Expr)
                       if not hasattr(pt.Expr, n))
+
+
+# the JAX package's Pallas modules and the port's CUDA ones
+RENAMED = {"ops/pallas_kernels.py": "ops/cuda_kernels.py",
+           "ops/pallas_partition.py": "ops/cuda_partition.py"}
+
+
+def test_every_module_has_a_counterpart():
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    ref_files = sorted(str(p.relative_to(root / "polaroid_tpu"))
+                       for p in (root / "polaroid_tpu").rglob("*.py"))
+    assert "server/service.py" in ref_files and len(ref_files) > 80
+    missing = [f for f in ref_files if not
+               (root / "polaroid_tpu_torch" / RENAMED.get(f, f)).exists()]
+    assert not missing, f"no counterpart in the port: {missing}"
