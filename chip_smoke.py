@@ -599,8 +599,11 @@ def make_q1_data(rows: int, seed: int):
 
 
 def check_seg_sum(args, torch, TK, data):
-    """Kernel A at the q1 stash's shape: C = 4 f64 rows (len, count(price),
-    sum(notional), sum(price)) over n rows and G = 1024 group slots."""
+    """Kernel A at the q1 stash's shape: C = 2 f64 rows (sum(notional),
+    sum(price)) and the count row (len and count(price), which has no
+    nulls) over n rows and G = 1024 group slots; and the same sums with
+    the counts passed as two rows of ones among 4 f64 rows, as callers
+    did before the counting mode, its kernel time beside it."""
     n = args.rows
     dev = torch.device("cuda")
     G = 1024
@@ -611,56 +614,105 @@ def check_seg_sum(args, torch, TK, data):
     # dense code of the symbol (span base 0: slot = code + 1); dead rows
     # go to slot G, outside every group
     gid = torch.where(live, sym + 1, torch.full_like(sym, G)).to(torch.int32)
-    ones = torch.ones(n, dtype=torch.float64, device=dev)
-    vals = torch.stack([ones, ones, price * volume.double(), price])
-    # counts exact
-    assert torch.equal(TK.seg_sum(vals, gid, G)[:2],
-                       TK.seg_sum_plain(vals, gid, G)[:2]), \
-        "seg_sum counts differ"
-    return compare_seg_sum(args, torch, TK, vals, gid, G, trace=False)
+    vals = torch.stack([price * volume.double(), price])
+    out = compare_seg_sum(args, torch, TK, vals, gid, G, True, trace=False)
+    ones = torch.ones((2, n), dtype=torch.float64, device=dev)
+    with_ones = torch.cat([ones, vals])
+    assert torch.equal(TK.seg_sum(with_ones, gid, G)[:2],
+                       TK.seg_sum_plain(with_ones, gid, G)[:2]), \
+        "seg_sum counts over rows of ones differ"
+    old = compare_seg_sum(args, torch, TK, with_ones, gid, G, False,
+                          trace=False)
+    out["ones_contract"] = {k: old[k] for k in (
+        "C", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+        "max_abs_err")}
+    return out
 
 
-def compare_seg_sum(args, torch, TK, vals, gid, G, trace=True):
-    """Kernel A on (vals, gid, G) against its plain version: both add in
-    f64 in an order that varies, so each (row, group) agrees within
-    2 * n_g * 2^-53 * sum|v| of that group; times, the device-only time
-    of its kernels from a trace with `trace`, and the bound: vals and
-    gid read once, the (C, G) f64 sums written once."""
+# phase 2's adversarial shapes of kernel A: (name, rows, G, value rows,
+# dtype, count row, keys): all rows in one group; L2's six hot codes of
+# 128 (count only, and over a value row); the largest groups with four
+# f64 rows; J1's one f32 row
+SEG_SUM_SHAPES = (
+    ("one_group", 1 << 23, 1024, 1, "float64", True, "one"),
+    ("hot6_of_128_count", 1 << 25, 128, 0, "float32", True, "hot6"),
+    ("hot6_of_128_sum", 1 << 25, 128, 1, "float32", True, "hot6"),
+    ("G8192_C4_f64", 1 << 22, 8192, 4, "float64", False, "uniform"),
+    ("C1_f32_2pow21", 1 << 21, 2048, 1, "float32", False, "uniform"))
+
+
+def check_seg_sum_shapes(args, torch, TK):
+    """Kernel A at SEG_SUM_SHAPES, inputs made on the card from the
+    seed: each held to its plain version (compare_seg_sum) and timed."""
+    out = {}
+    dev = torch.device("cuda")
+    for name, n, G, C, dtype, count, keys in SEG_SUM_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(args.seed)
+        if keys == "one":
+            gid = torch.full((n,), G // 3, dtype=torch.int32, device=dev)
+        elif keys == "hot6":
+            codes = torch.randperm(G, generator=g, device=dev)[:6]
+            gid = codes[torch.randint(0, 6, (n,), generator=g, device=dev)]
+        else:
+            gid = torch.randint(0, G, (n,), generator=g, device=dev)
+        vals = (torch.rand((C, n), generator=g, device=dev,
+                           dtype=torch.float64) * 200 - 50).to(
+                               getattr(torch, dtype))
+        out[name] = compare_seg_sum(args, torch, TK, vals,
+                                    gid.to(torch.int32), G, count)
+        print(json.dumps({"phase": "kernel", "shape": name,
+                          "keys": keys, **out[name]}))
+        del gid, vals
+    return out
+
+
+def compare_seg_sum(args, torch, TK, vals, gid, G, count=False, trace=True):
+    """Kernel A on (vals, gid, G, count) against its plain version: the
+    count row exact, and both add in f64 in an order that varies, so each
+    (row, group) of the sums agrees within 2 * n_g * 2^-53 * sum|v| of
+    that group; times, the device-only time of its kernels from a trace
+    with `trace`, and the bound: vals and gid read once, the (C + count,
+    G) f64 result written once."""
     from polaroid_tpu_torch.ops.segment import SPILL, spill_slots
     C, n = vals.shape
     dev = vals.device
-    got = TK.seg_sum(vals, gid, G)
-    want = TK.seg_sum_plain(vals, gid, G)
-    mag = TK.seg_sum_plain(vals.abs(), gid, G)
+    got = TK.seg_sum(vals, gid, G, count)
+    want = TK.seg_sum_plain(vals, gid, G, count)
+    mag = TK.seg_sum_plain(vals.abs(), gid, G, count)
     ones = torch.ones((1, n), dtype=torch.float64, device=dev)
-    count = TK.seg_sum_plain(ones, gid, G)
+    n_g = TK.seg_sum_plain(ones, gid, G)
     torch.cuda.synchronize()
-    tol = 2 * count * 2.0 ** -53 * mag
+    if count:
+        assert torch.equal(got[0], want[0]), "seg_sum counts differ"
+    tol = 2 * n_g * 2.0 ** -53 * mag
     err = (got - want).abs()
     assert bool((err <= tol).all()), \
         f"seg_sum sums outside tolerance: {float((err - tol).max())}"
-    # the library yardstick: one index_add_ (of the values in f64, cast
-    # beforehand), the rows outside every group spread over spill slots
-    # past G as the port's own scatters do
+    # the library yardstick: one index_add_ (of the values in f64, a row
+    # of ones first for the count, made beforehand), the rows outside
+    # every group spread over spill slots past G as the port's own
+    # scatters do
     idx = torch.where((gid >= 0) & (gid < G), gid.long(),
                       spill_slots(n, G, dev))
-    buf = torch.zeros((C, G + SPILL), dtype=torch.float64, device=dev)
-    v64 = vals.double()
+    buf = torch.zeros((C + count, G + SPILL), dtype=torch.float64,
+                      device=dev)
+    v64 = torch.cat([ones, vals.double()]) if count else vals.double()
     out = {
-        "kernel": "seg_sum", "n": n, "C": C, "G": G,
+        "kernel": "seg_sum", "n": n, "C": C, "G": G, "count": bool(count),
         "dtype": str(vals.dtype).split(".")[1],
         "max_abs_err": float(err.max()),
-        "kernel_ms": cuda_ms(lambda: TK.seg_sum(vals, gid, G), args.reps),
-        "plain_ms": cuda_ms(lambda: TK.seg_sum_plain(vals, gid, G),
+        "kernel_ms": cuda_ms(lambda: TK.seg_sum(vals, gid, G, count),
+                             args.reps),
+        "plain_ms": cuda_ms(lambda: TK.seg_sum_plain(vals, gid, G, count),
                             args.reps),
         "library_ms": cuda_ms(lambda: buf.index_add_(1, idx, v64),
                               args.reps),
     }
     if trace:
-        out.update(device_ms_of(lambda: TK.seg_sum(vals, gid, G),
+        out.update(device_ms_of(lambda: TK.seg_sum(vals, gid, G, count),
                                 "seg_sum_kernel"))
-    nbytes = n * (4 + C * vals.element_size()) + C * G * 8
-    ops = C * n
+    nbytes = n * (4 + C * vals.element_size()) + (C + count) * G * 8
+    ops = (C + count) * n
     out["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                 ops / F32_OPS_PER_S)
     out["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= \
@@ -1203,7 +1255,7 @@ def compare_merge_sort(args, torch, TM, words, nk, stable=True,
 
 def record_kernel_inputs(torch, TK, TE, TM, TP, lf):
     """The inputs of every launch of kernels A, E, F, B and C in one
-    collect of `lf` (the wrappers' RECORD lists): [(vals, gid, G)],
+    collect of `lf` (the wrappers' RECORD lists): [(vals, gid, G, count)],
     [(starts, counts, words, fills)], [(words, num_keys, stable,
     perm_only)], [(mask, words)] and [(x, gid, G, is_max, identity)],
     and the host ms of that collect, fenced."""
@@ -6252,6 +6304,7 @@ def main() -> int:
     data = make_q1_data(args.rows, args.seed)
     seg = check_seg_sum(args, torch, TK, data)
     print(json.dumps({"phase": "kernel", **seg}))
+    seg_shapes = check_seg_sum_shapes(args, torch, TK)
     comp_full = check_compact(args, torch, TP, args.rows, 4, 0, 0.8,
                               args.seed)
     print(json.dumps({"phase": "kernel", **comp_full}))
@@ -6659,7 +6712,7 @@ def main() -> int:
                                      "trace_ms", "live", "digit_passes",
                                      "num_keys", "n", "slots", "mode",
                                      "perm_only_ms", "perm_only_bound_ms",
-                                     "C", "G")
+                                     "C", "G", "count")
                  if k in m}}
 
     compact_entry = entry("compact_words", "compact.cu",
@@ -6681,7 +6734,8 @@ def main() -> int:
         k: lookup[k] for k in ("ms", "exchange_device_ms")}
     seg_entry = entry("seg_sum", "seg_sum.cu",
                       "polaroid_tpu/ops/pallas_kernels.py:120", seg)
-    for shape, m in recorded["seg_sum"].items():
+    seg_entry["ones_contract"] = seg["ones_contract"]
+    for shape, m in (*seg_shapes.items(), *recorded["seg_sum"].items()):
         seg_entry[shape] = shape_entry(m)
     minmax_entry = entry("seg_minmax", "seg_minmax.cu",
                          "polaroid_tpu/ops/pallas_kernels.py:177", mm_max)

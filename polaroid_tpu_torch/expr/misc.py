@@ -504,8 +504,8 @@ def _eval_hist(e: Expr, table: Table, ctx: str) -> Val:
     inb = mask & (x >= edges[0]) & (x <= edges[nb])
     if nb <= HIST_KERNEL_BINS:
         gid = torch.where(inb, b, nb).to(torch.int32)
-        counts = seg_sum(torch.ones((1, cap), dtype=torch.float32,
-                                    device=dev), gid, nb)[0]
+        counts = seg_sum(torch.empty((0, cap), dtype=torch.float32,
+                                     device=dev), gid, nb, count=True)[0]
     else:
         counts = segment_sum(inb.to(torch.float64).view(1, cap),
                              torch.where(inb, b, nb).to(torch.int32),

@@ -4,9 +4,13 @@ PyTorch versions.
 The counterpart of the JAX package's `ops/pallas_kernels.py`:
 * kernel A, `seg_sum`, replaces `onehot_seg_sum` (`_seg_sum_kernel`):
   per-group sums of C value rows over dense group ids, in one pass over
-  the rows (source: csrc/seg_sum.cu). The TPU kernel's radix one-hot
-  matrix product was a formulation for the MXU; on the card each block
-  adds rows into f64 partial sums in shared memory.
+  the rows and one launch (source: csrc/seg_sum.cu). The TPU kernel's
+  radix one-hot matrix product was a formulation for the MXU; on the card
+  each warp adds the rows that share a group by shuffles, and the block
+  keeps f64 partial sums in shared memory (`seg_sum_plan` sizes them).
+  With `count=True` row 0 of the result counts the ids in [0, G), which
+  the kernel takes from `gid` alone: a caller that wants a group's row
+  count passes no row of ones, and `vals` may have no row at all.
 * kernel C, `seg_minmax`, replaces `onehot_seg_minmax`
   (`_seg_minmax_kernel`): per-group min or max of one row, typed
   (f32, f64, int32, int64) where the TPU kernel is f32 only, in one
@@ -22,6 +26,7 @@ for CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 
@@ -29,41 +34,117 @@ import torch
 
 from .segment import segment_minmax, segment_sum, segment_take
 
-__all__ = ["seg_sum", "seg_sum_plain", "seg_minmax", "seg_minmax_plain",
+__all__ = ["seg_sum", "seg_sum_plain", "seg_sum_plan", "SegSumPlan",
+           "seg_minmax", "seg_minmax_plain",
            "gather", "gather_plain", "MAX_GROUPS", "LAUNCHES",
            "MINMAX_LAUNCHES", "GATHER_LAUNCHES", "RECORD", "MINMAX_RECORD"]
 
 # the most groups kernels A and C take: the JAX package's largest dense
-# key range (`_DENSE_G` of its adaptive local group-by). One block's
-# C x G f64 partials of A must fit shared memory (3 rows at 8192, so
-# `seg_sum` splits C), and C keeps 2 x G keys in it (128 KB at 8192).
-# The group-by's dense tier keeps its own, smaller bound
-# (`ops/groupby.py` DENSE_GROUPS).
+# key range (`_DENSE_G` of its adaptive local group-by). A keeps a block's
+# f64 partials of up to 3 columns at 8192 in shared memory (`seg_sum_plan`
+# puts more columns in further blocks of the same launch), and C keeps
+# 2 x G keys in it (128 KB at 8192). The group-by's dense tier keeps its
+# own, smaller bound (`ops/groupby.py` DENSE_GROUPS).
 MAX_GROUPS = 8192
 # dynamic shared memory one block may use on sm_90 (227 KB)
 _SMEM_BYTES = 232448
+# kernel A: its block (csrc/seg_sum.cu kMaxThreads, whose
+# __launch_bounds__ holds a thread to 64 registers: one such block an SM),
+# the most columns one block takes, the rows each thread holds in flight by
+# that most (RowsInFlight), and the work that adding by peer sets must save
+# for a warp to add a chunk so: a sampled 32-row slot's rows in [0, G) less
+# their distinct groups, at least this over the columns a block takes (and
+# at least 2)
+_SEG_THREADS = 1024
+_SEG_CMAX = (0, 1, 2, 4, 8)
+_SEG_ROWS = {0: 8, 1: 8, 2: 8, 4: 4, 8: 2}
+_SEG_AGGREGATE_WORK = 12
 # kernel launches made by `seg_sum`, `seg_minmax` and `gather` (reset by
 # callers that count them)
 LAUNCHES = 0
 MINMAX_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 # None, or a list to which each `seg_sum` call on the card appends its
-# (vals, gid, G), so that a caller can hold the kernel against its plain
-# version on the inputs a query gave it
+# (vals, gid, G, count), so that a caller can hold the kernel against its
+# plain version on the inputs a query gave it
 RECORD = None
 # the same for kernel C: each launch on the card appends its (x, gid, G,
 # is_max, identity)
 MINMAX_RECORD = None
 
 
-def seg_sum_plain(vals: torch.Tensor, gid: torch.Tensor, G: int
-                  ) -> torch.Tensor:
+def seg_sum_plain(vals: torch.Tensor, gid: torch.Tensor, G: int,
+                  count: bool = False) -> torch.Tensor:
     """out[c, g] = sum_i vals[c, i] * [gid[i] == g], in f64: one
-    index_add_, ids outside [0, G) dropped (`segment.segment_sum`)."""
+    index_add_, ids outside [0, G) dropped (`segment.segment_sum`); with
+    `count`, over a row of ones put before the rows of `vals`."""
+    if count:
+        vals = torch.cat([torch.ones((1, vals.shape[1]), dtype=vals.dtype,
+                                     device=vals.device), vals])
     return segment_sum(vals, gid, G)
 
 
-def _check(vals: torch.Tensor, gid: torch.Tensor, G: int) -> None:
+SegSumPlan = collections.namedtuple("SegSumPlan", [
+    "launches", "cmax", "cols", "groups", "replicas", "private", "threads",
+    "blocks", "smem", "aggregate_at"])
+
+
+def seg_sum_plan(C: int, G: int, count: bool, sms: int, n: int
+                 ) -> SegSumPlan:
+    """Kernel A's launch for C value rows (and a count row with `count`)
+    over n rows and G groups on a card of `sms` SMs: one launch of
+    `blocks` blocks of `threads`, one an SM; `cols` columns a block (f64
+    partials of at most 8 columns, as many as fit a block's shared memory
+    beside a u32 count row), in `groups` column groups (the count in the
+    first; `blocks` is a multiple of `groups`, fewer than the SMs where n
+    gives a block fewer than one chunk of rows a thread); `cmax` the
+    kernel's most columns a block (a power of two, 0 for a count alone);
+    `replicas` copies of a block's partials: one a warp (`private`: the
+    adds of a warp's peer sets need no atomics) where they fit, else two
+    where they fit, else one; `smem` their bytes; `aggregate_at` the rows
+    of a sampled slot that adding by peer sets must save for a warp to add
+    its chunk so (0, never, for a count alone: native atomics take hot
+    counts best). The item size of the values does not change it."""
+    return _seg_plan(C, G, count, sms, n)
+
+
+def _seg_plan(C: int, G: int, count: bool, sms: int, n: int,
+              threads: int = _SEG_THREADS, replicas: int = None,
+              workers: int = None, aggregate_at: int = None) -> SegSumPlan:
+    """`seg_sum_plan`, with the threads a block, the replicas, the blocks
+    of each column group and the aggregation threshold given where they
+    are not None (`tools/torch_seg_sum_probe.py` times such variants)."""
+    cnt = 1 if count else 0
+    fit = (_SMEM_BYTES // G - 4 * cnt) // 8
+    groups = -(-C // min(_SEG_CMAX[-1], fit)) if C else 1
+    cols = -(-C // groups)
+    cmax = next(c for c in _SEG_CMAX if c >= cols)
+    copy = G * (8 * cols + 4 * cnt)
+    warps = threads // 32
+    if replicas is None:
+        replicas = next(r for r in (warps, 2, 1)
+                        if r == 1 or r * copy <= _SMEM_BYTES)
+    if workers is None:
+        rows = threads * _SEG_ROWS[cmax]
+        workers = max(1, min(sms // groups, -(-n // rows)))
+    if aggregate_at is None:
+        aggregate_at = max(2, _SEG_AGGREGATE_WORK // cols) if cols else 0
+    return SegSumPlan(1, cmax, cols, groups, replicas, replicas == warps,
+                      threads, workers * groups, replicas * copy,
+                      aggregate_at)
+
+
+def _seg_words(plan: SegSumPlan, f64: bool, C: int, G: int, count: bool):
+    """csrc/seg_sum.cu's plan words of a launch, as a ctypes int array."""
+    flags = (1 if count else 0) | (2 if plan.private else 0) | \
+        (plan.aggregate_at << 8)
+    return (ctypes.c_int * 11)(
+        int(f64), plan.cmax, C, G, plan.cols, plan.groups, plan.replicas,
+        flags, plan.threads, plan.blocks, plan.smem)
+
+
+def _check(vals: torch.Tensor, gid: torch.Tensor, G: int,
+           count: bool) -> None:
     if vals.dim() != 2 or vals.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"seg_sum: vals must be (C, n) float32/float64, got "
                         f"{tuple(vals.shape)} {vals.dtype}")
@@ -77,40 +158,94 @@ def _check(vals: torch.Tensor, gid: torch.Tensor, G: int) -> None:
         raise ValueError("seg_sum: vals and gid lie on different devices")
     if not 1 <= G <= MAX_GROUPS:
         raise ValueError(f"seg_sum: G={G} outside [1, {MAX_GROUPS}]")
+    if vals.shape[0] == 0 and not count:
+        raise ValueError("seg_sum: no row to sum and no count asked for")
 
 
-def seg_sum(vals: torch.Tensor, gid: torch.Tensor, G: int) -> torch.Tensor:
+_SEG_LIB = None
+# device index -> its SM count
+_SMS: dict = {}
+
+
+def _seg_lib():
+    """csrc/seg_sum.cu's library with its entry points typed."""
+    global _SEG_LIB
+    if _SEG_LIB is None:
+        from .cuda_build import library
+        lib = library("seg_sum")
+        c, p = ctypes.c_int, ctypes.c_void_p
+        lib.pt_seg_sum.argtypes = [p, p, ctypes.c_longlong,
+                                   ctypes.POINTER(c), p, p, p]
+        lib.pt_seg_sum.restype = c
+        lib.pt_seg_sum_occupancy.argtypes = [c, c, c, c,
+                                             ctypes.POINTER(c)]
+        lib.pt_seg_sum_occupancy.restype = c
+        _SEG_LIB = lib
+    return _SEG_LIB
+
+
+def _sm_count(dev: torch.device) -> int:
+    sms = _SMS.get(dev.index)
+    if sms is None:
+        sms = _SMS[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms
+
+
+def _seg_launch(vals: torch.Tensor, gid: torch.Tensor, words,
+                out: torch.Tensor) -> None:
+    """One launch of kernel A by its plan words (`_seg_words`) into `out`
+    ((C + count, G) f64, every element written), on the current stream of
+    the current device, which is vals' device. Its scratch (block 0's flag
+    that the result is zeroed, and the finished blocks' ticket) persists
+    per stream, zero between launches."""
+    from .cuda_build import zeroed_scratch
+    lib = _seg_lib()
+    dev = vals.device
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    scratch = zeroed_scratch("seg_sum", 1, dev, stream)
+    err = lib.pt_seg_sum(vals.data_ptr(), gid.data_ptr(), vals.shape[1],
+                         words, out.data_ptr(), scratch.data_ptr(), stream)
+    if err:
+        from .cuda_build import check
+        check(lib, err, "seg_sum launch")
+
+
+# (C, G, count, dtype, device index, n) -> (seg_sum_plan's plan, its words)
+_SEG_PLANS: dict = {}
+
+
+def seg_sum(vals: torch.Tensor, gid: torch.Tensor, G: int,
+            count: bool = False) -> torch.Tensor:
     """Per-group sums of the rows of `vals` ((C, n) f32 or f64) over group
     ids `gid` ((n,) int32); ids outside [0, G) contribute nothing.
-    Returns (C, G) float64. G <= MAX_GROUPS."""
+    Returns (C, G) float64, or with `count` (C + 1, G) whose row 0 counts
+    the ids in [0, G) (exactly the sums of a row of ones; C may be 0).
+    G <= MAX_GROUPS."""
     global LAUNCHES
-    _check(vals, gid, G)
-    if vals.device.type == "cpu":
-        return seg_sum_plain(vals, gid, G)
-    if vals.device.type != "cuda":
-        raise ValueError(f"seg_sum: unsupported device {vals.device}")
+    _check(vals, gid, G, count)
+    dev = vals.device
+    if dev.type == "cpu":
+        return seg_sum_plain(vals, gid, G, count)
+    if dev.type != "cuda":
+        raise ValueError(f"seg_sum: unsupported device {dev}")
+    count = bool(count)
     if RECORD is not None:
-        RECORD.append((vals, gid, G))
-    from .cuda_build import check, library
-    lib = library("seg_sum")
-    fn = lib.pt_seg_sum_f32 if vals.dtype == torch.float32 \
-        else lib.pt_seg_sum_f64
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+        RECORD.append((vals, gid, G, count))
     C, n = vals.shape
-    out = torch.zeros((C, G), dtype=torch.float64, device=vals.device)
-    # split C so that one block's C x G f64 partials fit shared memory
-    rows = max(1, _SMEM_BYTES // (G * 8))
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for c0 in range(0, C, rows):
-            c1 = min(C, c0 + rows)
-            err = fn(vals[c0:c1].data_ptr(), gid.data_ptr(), n, c1 - c0, G,
-                     out[c0:c1].data_ptr(), stream)
-            check(lib, err, "seg_sum launch")
-            LAUNCHES += 1
+    key = (C, G, count, vals.dtype, dev.index, n)
+    hit = _SEG_PLANS.get(key)
+    if hit is None:
+        if len(_SEG_PLANS) > 4096:
+            _SEG_PLANS.clear()
+        plan = seg_sum_plan(C, G, count, _sm_count(dev), n)
+        hit = _SEG_PLANS[key] = (plan, _seg_words(
+            plan, vals.dtype == torch.float64, C, G, count))
+    out = torch.empty((C + count, G), dtype=torch.float64, device=dev)
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
+        _seg_launch(vals, gid, hit[1], out)
+        LAUNCHES += hit[0].launches
     return out
 
 

@@ -140,18 +140,23 @@ class GroupContext:
         when the layout already emits it (the dense slots are key codes)."""
         return None
 
-    def sums(self, rows) -> List[torch.Tensor]:
+    def sums(self, rows, count: bool = False) -> List[torch.Tensor]:
         """Per-group f64 sums of several (n,) rows (a list, or the rows of
-        one (C, n) tensor) in ONE kernel pass. Rows travel as f32 when
-        they all are f32 (0/1 counts are exact there) and as f64
-        otherwise."""
+        one (C, n) tensor) in ONE kernel pass; with `count`, the live rows
+        of each group first (kernel A counts them from the group ids: no
+        row of ones). Rows travel as f32 when they all are f32 (0/1 counts
+        are exact there) and as f64 otherwise."""
         if isinstance(rows, torch.Tensor):
             vals = rows
-        else:
+        elif rows:
             dt = torch.float64 if any(r.dtype == torch.float64
                                       for r in rows) else torch.float32
             vals = torch.stack([r.to(dt) for r in rows])
-        return list(seg_sum(vals, self.gid, self.out_cap).unbind(0))
+        else:
+            vals = torch.empty((0, self.cap), dtype=torch.float32,
+                               device=self.gid.device)
+        return list(seg_sum(vals, self.gid, self.out_cap,
+                            count=count).unbind(0))
 
     def _extreme(self, x, gid, is_max, identity):
         return seg_minmax(x, gid, self.out_cap, is_max, identity)
@@ -199,9 +204,14 @@ class HashGroupContext(GroupContext):
     def key_order(self):
         return self.key_codes
 
-    def sums(self, rows) -> List[torch.Tensor]:
+    def sums(self, rows, count: bool = False) -> List[torch.Tensor]:
         vals = rows if isinstance(rows, torch.Tensor) else \
-            torch.stack([r.to(torch.float64) for r in rows])
+            torch.stack([r.to(torch.float64) for r in rows]) if rows else None
+        if count:
+            ones = torch.ones((1, self.cap), dtype=torch.float64,
+                              device=self.gid.device)
+            vals = ones if vals is None else torch.cat(
+                [ones, vals.to(torch.float64)])
         return list(segment_sum(vals, self.gid, self.out_cap).unbind(0))
 
     def _extreme(self, x, gid, is_max, identity):
@@ -360,8 +370,7 @@ def build_groups_dense(key_vals: Sequence[Val], mask: torch.Tensor,
         gid = gid * span + _dense_code(v, span, base or 0, cap)
     gid = torch.where(mask, gid, torch.full_like(gid, out_cap))
     ctx = GroupContext(gid, mask, cap, None, out_cap)
-    (cnt,) = ctx.sums([torch.ones(cap, dtype=torch.float32,
-                                  device=mask.device)])
+    (cnt,) = ctx.sums([], count=True)
     ctx.group_count = cnt.to(torch.int64)
     return ctx
 
@@ -1067,24 +1076,26 @@ def _collect_stash_requests(agg_exprs, table: Table, cap: int) -> dict:
 
 
 def _fill_stash(gctx: GroupContext, reqs: dict) -> None:
-    cap = gctx.cap
-    dev = gctx.gid.device
-    rows = []
+    # `len` and a count without validity are each group's live rows: the
+    # pass's count row (gid already routes dead rows outside every group)
+    counted = [rk for rk, colo in reqs.items() if rk[0] == "len" or (
+        rk[0] == "count" and colo.validity is None)]
+    keys, rows = [], []
     for rk, colo in reqs.items():
-        if rk[0] == "len":
-            rows.append(torch.ones(cap, dtype=torch.float32, device=dev))
-        elif rk[0] == "count":
-            rows.append(torch.ones(cap, dtype=torch.float32, device=dev)
-                        if colo.validity is None
-                        else colo.validity.to(torch.float32))
+        if rk in counted:
+            continue
+        if rk[0] == "count":
+            rows.append(colo.validity.to(torch.float32))
         else:  # sum
             x = colo.data if colo.dtype.is_float \
                 else _to_f64(colo.data, colo.dtype)
             if colo.validity is not None:
                 x = torch.where(colo.validity, x, torch.zeros_like(x))
             rows.append(x)
-    # gid already routes dead rows outside every group
-    gctx.stash = dict(zip(reqs.keys(), gctx.sums(rows)))
+        keys.append(rk)
+    res = gctx.sums(rows, count=bool(counted))
+    gctx.stash = dict.fromkeys(counted, res[0]) if counted else {}
+    gctx.stash.update(zip(keys, res[1:] if counted else res))
 
 
 def group_by_agg(table: Table, key_exprs: Sequence[Expr],

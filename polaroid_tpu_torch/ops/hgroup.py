@@ -381,11 +381,13 @@ def _dense_branch(key, vals, valid, aggs, kmin: int, M: int, G: int):
     gid = torch.where(valid, (key.to(torch.int64) & U32_MASK) - kmin,
                       torch.full_like(key, -1, dtype=torch.int64)
                       ).to(torch.int32)
-    one = valid.to(torch.float32)
-    stacked = [one] + [torch.where(valid, v.to(torch.float32),
-                                   torch.zeros_like(one))
-                       for v, a in zip(vals, aggs) if a == "sum"]
-    res = seg_sum(torch.stack(stacked), gid, G)
+    # the count row: kernel A counts the ids in [0, G), and invalid rows'
+    # ids are -1
+    stacked = [torch.where(valid, v.to(torch.float32), 0.)
+               for v, a in zip(vals, aggs) if a == "sum"]
+    res = seg_sum(torch.stack(stacked) if stacked else torch.empty(
+        (0, gid.shape[0]), dtype=torch.float32, device=gid.device), gid, G,
+        count=True)
     cnt = res[0]
     gv = cnt > 0
     outs = []
@@ -398,8 +400,7 @@ def _dense_branch(key, vals, valid, aggs, kmin: int, M: int, G: int):
             si += 1
         else:
             ident = float("inf") if a == "min" else float("-inf")
-            x = torch.where(valid, v.to(torch.float32),
-                            torch.full_like(one, ident))
+            x = torch.where(valid, v.to(torch.float32), ident)
             r = seg_minmax(x, gid, G, a == "max", ident)
             outs.append(torch.where(gv, r.to(v.dtype), torch.full_like(
                 r, _ident(v.dtype, a), dtype=v.dtype)))

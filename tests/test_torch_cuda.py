@@ -978,9 +978,9 @@ def test_implode_and_explode_launches_on_card(dev, name):
     for kernel in must:
         assert launched[kernel] >= 1, kernel
     assert launched["bucket_exchange"] == 0 and launched["merge_sort"] == 0
-    for vals, gid, G in sums:
-        got = TK.seg_sum(vals, gid, G)
-        want = TK.seg_sum_plain(vals, gid, G)
+    for vals, gid, G, count in sums:
+        got = TK.seg_sum(vals, gid, G, count)
+        want = TK.seg_sum_plain(vals, gid, G, count)
         assert torch.allclose(got, want, rtol=1e-12, atol=0)
     for xs, gid, G, is_max, ident in extremes:
         assert torch.equal(TK.seg_minmax(xs, gid, G, is_max, ident),
@@ -1161,19 +1161,115 @@ def test_capture_of_a_c_and_d_alone(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_seg_sum_kernel_at_8192_groups(dev, C, dtype):
     """G = MAX_GROUPS = 8192: 3 rows of partials fit a block's shared
-    memory, so C = 4 and 7 split into several launches."""
+    memory, so C = 4 and 7 take several column groups, in the launches
+    the plan gives (one)."""
     G, n = TK.MAX_GROUPS, (1 << 20) + 3
     assert G == 8192
     g = torch.Generator().manual_seed(C)
     gid = torch.randint(-2, G + 2, (n,), generator=g, dtype=torch.int32)
     vals = torch.randn(C, n, generator=g, dtype=torch.float64).to(dtype)
+    plan = TK.seg_sum_plan(C, G, False, TK._sm_count(dev), n)
+    assert plan.groups == -(-C // 3)
     before = TK.LAUNCHES
     got = TK.seg_sum(vals.to(dev), gid.to(dev), G)
     torch.cuda.synchronize()
-    assert TK.LAUNCHES - before == -(-C // 3)
+    assert TK.LAUNCHES - before == plan.launches
     want = TK.seg_sum_plain(vals, gid, G)
     mag = TK.seg_sum_plain(vals.abs(), gid, G)
     assert torch.all((got.cpu() - want).abs() <= 1e-12 * mag + 1e-300)
+
+
+def _seg_sum_vs_plain(dev, vals, gid, G, count):
+    """Kernel A on the card against its plain version on the CPU: one
+    launch a call, the count row exact, each sum within 2 * n_g * 2^-53 *
+    sum|v| of its group (the order of the additions varies)."""
+    before = TK.LAUNCHES
+    got = TK.seg_sum(vals.to(dev), gid.to(dev), G, count)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES - before == 1
+    C, n = vals.shape
+    assert tuple(got.shape) == (C + count, G)
+    want = TK.seg_sum_plain(vals, gid, G, count)
+    mag = TK.seg_sum_plain(vals.abs(), gid, G, count)
+    n_g = TK.seg_sum_plain(torch.ones((1, n), dtype=torch.float64), gid, G)
+    got = got.cpu()
+    if count:
+        assert torch.equal(got[0], want[0])
+    assert torch.all((got - want).abs() <= 2 * n_g * 2.0 ** -53 * mag)
+
+
+@pytest.mark.parametrize("keys,n,G,C,dtype,count", [
+    # every row in one group: every slot a butterfly
+    ("one", 1 << 20, 1024, 2, torch.float64, True),
+    ("one", 100_003, 7, 1, torch.float32, False),
+    # L2's six hot codes of 128, small
+    ("hot6", 1 << 20, 128, 0, torch.float32, True),
+    ("hot6", 1 << 20, 128, 1, torch.float32, True),
+    ("hot6", 1 << 20, 128, 3, torch.float64, False),
+    # one row; rows not a multiple of a block's chunk; runs of one group
+    ("uniform", 1, 8192, 2, torch.float32, True),
+    ("uniform", 1024 * 8 * 3 + 7, 300, 2, torch.float64, True),
+    ("runs", 1 << 18, 1000, 2, torch.float32, True),
+])
+def test_seg_sum_kernel_hot_keys(dev, keys, n, G, C, dtype, count):
+    g = torch.Generator().manual_seed(n + G + C)
+    if keys == "one":
+        gid = torch.full((n,), G // 2, dtype=torch.int32)
+    elif keys == "hot6":
+        codes = torch.randperm(G, generator=g)[:6]
+        gid = codes[torch.randint(0, 6, (n,), generator=g)].to(torch.int32)
+    elif keys == "runs":
+        gid = (torch.arange(n) // 300 % (G + 5) - 2).to(torch.int32)
+    else:
+        gid = torch.randint(-2, G + 2, (n,), generator=g, dtype=torch.int32)
+    vals = torch.randn(C, n, generator=g, dtype=torch.float64).to(dtype)
+    _seg_sum_vs_plain(dev, vals, gid, G, count)
+
+
+@pytest.mark.parametrize("C", range(1, 8))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_seg_sum_kernel_at_8192_groups_counting(dev, C, dtype):
+    """G = 8192 at C = 1..7 with the count row (in the first column
+    group), ids outside [0, G) among them."""
+    G, n = TK.MAX_GROUPS, (1 << 19) + 11
+    g = torch.Generator().manual_seed(100 + C)
+    gid = torch.randint(-2, G + 2, (n,), generator=g, dtype=torch.int32)
+    vals = torch.randn(C, n, generator=g, dtype=torch.float64).to(dtype)
+    _seg_sum_vs_plain(dev, vals, gid, G, True)
+
+
+@pytest.mark.parametrize("C", [0, 4])
+@pytest.mark.parametrize("G", [1, 1024, 8192])
+def test_seg_sum_kernel_counting_mode(dev, C, G):
+    """The counting mode with no value row and with four: row 0 counts the
+    ids in [0, G), exactly the old call over a row of ones."""
+    n = 300_001
+    g = torch.Generator().manual_seed(C + G)
+    gid = torch.randint(-3, G + 3, (n,), generator=g, dtype=torch.int32)
+    vals = torch.randn(C, n, generator=g, dtype=torch.float64)
+    _seg_sum_vs_plain(dev, vals, gid, G, True)
+    ones = torch.cat([torch.ones((1, n), dtype=torch.float64), vals]).to(dev)
+    assert torch.equal(TK.seg_sum(vals.to(dev), gid.to(dev), G, True)[0],
+                       TK.seg_sum(ones, gid.to(dev), G)[0])
+
+
+def test_seg_sum_plan_fits_the_card(dev):
+    """Every plan's block fits an SM of the card: the occupancy the card
+    reports for its threads and shared memory is at least one."""
+    import ctypes
+    lib = TK._seg_lib()
+    sms = TK._sm_count(dev)
+    for C in range(10):
+        for G in (1, 128, 1024, 2048, 4096, 8192):
+            for count in (False, True):
+                if not (C or count):
+                    continue
+                p = TK.seg_sum_plan(C, G, count, sms, 1 << 22)
+                for f64 in (0, 1):
+                    b = ctypes.c_int()
+                    assert lib.pt_seg_sum_occupancy(
+                        f64, p.cmax, p.threads, p.smem, ctypes.byref(b)) == 0
+                    assert b.value >= 1, (C, G, count, p)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
