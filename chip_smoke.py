@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--reps 5] [--only-taq]
                           [--only-surface] [--only-stream] [--only-dist]
-                          [--only-io] [--only-services]
+                          [--only-io] [--only-services] [--only-holes]
 
 Phases:
 1. the card (name and power limit from nvidia-smi) and a fresh build of
@@ -247,6 +247,22 @@ Phases:
    ticks batched onto the card and a REST endpoint polled through a
    token bucket, q1 over the stream against numpy. `--only-services`
    runs the build and phase 19 alone, and prints no result line.
+20. the select kinds that keep the input's rows and narrow them, after
+   breakers that leave rows outside the frame: expr.filter (v3 where
+   v1 > 3), shift(1).drop_nulls() and drop_nans() of v3 * (v1 - 3) /
+   (v1 - 3) (0/0, NaN, where v1 == 3), each in a select and the three
+   under sum in one select, after the H2O frame's filter(v1 > 2), its
+   q3 group-by (hash tier; id3 as the values, v1 % 10 as the key) and
+   its sort by v3 (10^7 rows of 2^24 slots), J1_1e7_NA_0_0's inner join
+   x ⋈ small on id1 (id1, cut 3), and phase 16's 10 day frames streamed
+   (price as Float64, volume, cut 2500). Rows bit for bit and counts against
+   numpy, sums within 1e-12 of the sum of |x|; each select must launch
+   kernel B, and every launch of one collect of each (B, and the E and F
+   launches of the group-by and the sort) is held to its plain version,
+   timed by CUDA events, untraced. Each query's collect
+   ms beside the card's name and power limit; the phase must finish in
+   30 s. `--only-holes` runs the build and phase 20 alone, and prints no
+   result line.
 Each phase prints its seconds. The oracles' host sorts of the same key
 columns are made once per run (`memo_sort`).
 
@@ -430,6 +446,8 @@ def check_oracle_sorts(device, n=1 << 17, seed=0,
 # True while phase 2 checks a launch whose shape it has timed already:
 # cuda_ms and the one-call traces then time nothing (the check stands)
 _NO_TIMING = [False]
+# True while phase 20 checks a launch: cuda_ms times it, no trace is taken
+_NO_TRACE = [False]
 
 
 def cuda_ms(fn, reps: int, window_ms: float = 20.0) -> float:
@@ -737,7 +755,7 @@ def one_kernel_call(fn, what):
     """The device-only ms and device events of one fn() call from a
     trace (trace_call); asserts that the call ran exactly one device
     kernel (no torch op, memset or copy beside it)."""
-    if _NO_TIMING[0]:
+    if _NO_TIMING[0] or _NO_TRACE[0]:
         return {}
     tr = trace_call(fn, each=True)
     assert tr["device_ops"] == 1, f"one {what} call ran {tr['events']}"
@@ -1320,29 +1338,34 @@ def check_recorded_kernels(args, torch, TK, TE, TM, TP, queries):
         seen = {}
         for kernel, inputs, check in checks:
             i = seen[kernel] = seen.get(kernel, -1) + 1
-            sig = (kernel, launch_signature(inputs))
-            prior = _TIMED.get(sig)
-            if prior is None:
-                m = check(inputs)
-                _TIMED[sig] = (f"{name}#{i}", m)
-            else:
-                # a shape timed already: held to the plain version again,
-                # the times are those of the launch it was timed at
-                _NO_TIMING[0] = True
-                try:
-                    m = check(inputs)
-                finally:
-                    _NO_TIMING[0] = False
-                m = {**prior[1], **{k: v for k, v in m.items()
-                                    if v is not None and k in (
-                                        "max_abs_err", "live",
-                                        "digit_passes")},
-                     "timed_at": prior[0]}
-            out[kernel][f"{name}#{i}"] = m
-            print(json.dumps({"phase": "kernel", "shape": f"{name}#{i}",
-                              **m}))
+            out[kernel][f"{name}#{i}"] = held_to_plain(
+                kernel, inputs, check, f"{name}#{i}")
         del sums, exchanges, sorts, compactions, extremes, checks
     return out, first_ms
+
+
+def held_to_plain(kernel, inputs, check, shape):
+    """check(inputs): one recorded launch against its plain version, timed
+    at the first launch of its shape (launch_signature); a shape timed
+    already is held to the plain version again, and keeps the times of
+    the launch it was timed at."""
+    sig = (kernel, launch_signature(inputs))
+    prior = _TIMED.get(sig)
+    if prior is None:
+        m = check(inputs)
+        _TIMED[sig] = (shape, m)
+    else:
+        _NO_TIMING[0] = True
+        try:
+            m = check(inputs)
+        finally:
+            _NO_TIMING[0] = False
+        m = {**prior[1], **{k: v for k, v in m.items()
+                            if v is not None and k in (
+                                "max_abs_err", "live", "digit_passes")},
+             "timed_at": prior[0]}
+    print(json.dumps({"phase": "kernel", "shape": shape, **m}))
+    return m
 
 
 # G1_1e7_1e2_0_0's own columns (make_h2o_data adds phase 7's kf)
@@ -4355,8 +4378,8 @@ def run_fused_vs_eager(args, torch, pl, queries):
     return rows
 
 
-def day_frames(pl, torch, tdata):
-    """The trades split by session into N_SESSIONS frames on the card,
+def day_frames(pl, torch, tdata, device="cuda"):
+    """The trades split by session into N_SESSIONS frames on `device`,
     with the session's index as `day` (Int32); returns (the frames, the
     row offsets of the sessions)."""
     import numpy as np
@@ -4369,7 +4392,7 @@ def day_frames(pl, torch, tdata):
         cols = {k: v[lo:hi] for k, v in tdata.items() if k != "ts"}
         cols["ts"] = tdata["ts"][lo:hi].astype("datetime64[us]")
         cols["day"] = np.full(hi - lo, i, dtype=np.int32)
-        frames.append(pl.DataFrame(cols, device="cuda"))
+        frames.append(pl.DataFrame(cols, device=device))
     return frames, cuts
 
 
@@ -6199,6 +6222,230 @@ def run_services_only(args, torch, pl, TK, TP, TE, TH, TM):
                        jtables, jdicts)
 
 
+# --- phase 20: the length-changing select kinds after breakers with holes ---
+
+HOLES_LIMIT_S = 30.0        # phase 20's seconds (data built before it)
+
+
+class EngineQuery:
+    """A lazy frame collected by `engine`, where the script calls
+    .collect()."""
+
+    def __init__(self, lf, engine):
+        self.lf, self.engine = lf, engine
+
+    def collect(self):
+        return self.lf.collect(engine=self.engine)
+
+
+def holes_sources(pl, hdf, jframes, days):
+    """(name, frame after the breaker, engine, value column, its key
+    column, the cut) of phase 20: the H2O frame (G1_1e7_1e2_0_0, 10^7
+    rows) after filter(v1 > 2), after the q3 group-by (hash tier; the
+    group key id3 as the values, whose bits do not vary with the order
+    of the float atomics as v3's mean does, and v1 % 10 as the key, so
+    that 0/0 occurs), and sorted by v3 (the capacity's pad left);
+    J1_1e7_NA_0_0's q1 inner join x ⋈ small on id1; phase 16's 10 day
+    frames, streamed."""
+    c = pl.col
+    h = hdf.lazy()
+    return [
+        ("h2o_filter", h.filter(c("v1") > 2), "in-memory", "v3", "v1", 3),
+        ("h2o_q3", h.group_by("id3").agg(c("v1").sum(), c("v3").mean())
+         .with_columns(c("id3").cast(pl.Float64).alias("k3"),
+                       c("v1") % 10), "in-memory", "k3", "v1", 3),
+        ("h2o_sort", h.sort("v3"), "in-memory", "v3", "v1", 3),
+        ("j1_inner", jframes["x"].lazy().join(jframes["small"].lazy(),
+                                              on="id1"),
+         "in-memory", "v1", "id1", 3),
+        ("days_streamed", pl.concat([d.lazy() for d in days]).with_columns(
+            c("price").cast(pl.Float64)), "streaming", "price", "volume",
+         2500),
+    ]
+
+
+def holes_queries(pl, lf, a, b, cut):
+    """(kind, lazy frame) of phase 20 over `lf`'s value column `a` and
+    key column `b`: selects of expr.filter, shift(1).drop_nulls() and
+    drop_nans() of a * (b - cut) / (b - cut) (0/0, NaN, where b == cut),
+    and one select of their three sums."""
+    c = pl.col
+    kinds = {
+        "filter": c(a).filter(c(b) > cut),
+        "drop_nulls": c(a).shift(1).drop_nulls(),
+        "drop_nans": (c(a) * (c(b) - cut) / (c(b) - cut)).drop_nans(),
+    }
+    return [(k, lf.select(e.alias(a))) for k, e in kinds.items()] + [
+        ("sums", lf.select([e.sum().alias(f"sum_{k}")
+                            for k, e in kinds.items()]))]
+
+
+def holes_oracle(x, k, cut):
+    """numpy's rows of each kind and their sums over the breaker's rows
+    (`x` Float64 values, `k` their keys), with the sums' bounds: 1e-12 of
+    the sum of |x| over the same rows."""
+    import numpy as np
+    with np.errstate(divide="ignore", invalid="ignore"):
+        q = x * (k - cut).astype(np.float64) / (k - cut).astype(np.float64)
+    rows = {"filter": x[k > cut], "drop_nulls": x[:-1],
+            "drop_nans": q[~np.isnan(q)]}
+    sums = {f"sum_{n}": (float(np.sum(v)), 1e-12 * float(np.sum(np.abs(v))))
+            for n, v in rows.items()}
+    return rows, sums
+
+
+def holes_base(name, lf, engine, a, b, h2o, jtables, tdata):
+    """The breaker's rows of `a` and `b` on the host, in frame order: from
+    numpy where the order is numpy's to give (the filter, the sort, the
+    streamed days), else from the frame's own collect, its row count held
+    to numpy (q3's groups, the join's matches)."""
+    import numpy as np
+    if name == "h2o_filter":
+        m = h2o["v1"] > 2
+        return h2o["v3"][m], h2o["v1"][m].astype(np.int64)
+    if name == "h2o_sort":
+        order = memo_sort("h2o_v3", [h2o["v3"]], lambda: argsort(h2o["v3"]))
+        return h2o["v3"][order], h2o["v1"][order].astype(np.int64)
+    if name == "days_streamed":
+        return (tdata["price"].astype(np.float64),
+                tdata["volume"].astype(np.int64))
+    out = EngineQuery(lf, engine).collect()
+    cols = host_columns(out)
+    x, xv = cols[a]
+    k, kv = cols[b]
+    assert xv is None or xv.all(), f"{name}: {a} holds nulls"
+    assert kv is None or kv.all(), f"{name}: {b} holds nulls"
+    if name == "h2o_q3":
+        want = len(np.unique(h2o["id3"]))
+    else:
+        want = int(np.isin(jtables["x"]["id1"],
+                           jtables["small"]["id1"]).sum())
+    assert len(x) == want, f"{name}: {len(x)} rows, numpy {want}"
+    return x.astype(np.float64), k.astype(np.int64)
+
+
+def check_holes(name, kind, out, rows, sums):
+    """A phase-20 result against numpy: the rows bit for bit and no
+    nulls; each sum within its bound."""
+    import numpy as np
+    cols = host_columns(out)
+    if kind == "sums":
+        errs = {}
+        for col, (want, bound) in sums.items():
+            (got,), valid = cols[col]
+            assert valid is None or valid.all(), f"{name}: {col} is null"
+            errs[col] = abs(float(got) - want)
+            assert errs[col] <= bound, \
+                f"{name}: {col} {float(got)} vs numpy {want} (bound {bound})"
+        return {"sums": {c: s for c, (s, _) in sums.items()},
+                "sum_errors": errs}
+    (got, valid), = cols.values()
+    want = rows[kind]
+    assert valid is None or valid.all(), f"{name} {kind}: nulls"
+    assert len(got) == len(want), \
+        f"{name} {kind}: {len(got)} rows, numpy {len(want)}"
+    assert np.array_equal(got.astype(np.float64).view(np.uint64),
+                          want.view(np.uint64)), \
+        f"{name} {kind}: rows differ from numpy's"
+    return {"out_rows": len(got)}
+
+
+def check_holes_launches(args, torch, TK, TE, TM, TP, name, rec):
+    """Every launch of kernels A, E, F, B and C that one collect of a
+    phase-20 query recorded (`rec`, from record_kernel_inputs) held
+    against its plain version (held_to_plain: a shape timed before is
+    held again and keeps its times); {kernel: {"query#i": numbers}}.
+    Timed with CUDA events and not traced: the profiler records nothing
+    once a trace comes seconds after the one before, as it would after
+    phase 19."""
+    checks = {"seg_sum": lambda a: compare_seg_sum(args, torch, TK, *a),
+              "bucket_exchange": lambda e: compare_exchange(
+                  args, torch, TE, *e, trace=False),
+              "merge_sort": lambda x: compare_merge_sort(args, torch, TM,
+                                                         *x),
+              "compact_words": lambda c: compare_compact(args, torch, TP,
+                                                         *c),
+              "seg_minmax": lambda m: compare_seg_minmax(args, torch, TK,
+                                                         *m)}
+    out = {}
+    _NO_TRACE[0] = True
+    try:
+        for kernel, inputs in zip(checks, rec[:5]):
+            for i, x in enumerate(inputs):
+                out.setdefault(kernel, {})[f"{name}#{i}"] = held_to_plain(
+                    kernel, x, checks[kernel], f"{name}#{i}")
+    finally:
+        _NO_TRACE[0] = False
+    return out
+
+
+def run_holes_phase(args, torch, pl, TK, TP, TE, TH, TM, h2o, hdf, jtables,
+                    jframes, tdata, smi):
+    """Phase 20: expr.filter, shift(1).drop_nulls() and drop_nans(), in a
+    select and under sum, after each of holes_sources, held to numpy;
+    every launch of kernels A, E, F, B and C in one collect of each
+    against its plain version. Returns (the launches of each query's
+    counted collect, {kernel: numbers by launch})."""
+    t0 = time.perf_counter()
+    days, _ = day_frames(pl, torch, tdata)
+    sources = holes_sources(pl, hdf, jframes, days)
+    print(json.dumps({"phase": "holes_data",
+                      "seconds": time.perf_counter() - t0}))
+    t_phase = time.perf_counter()
+    runs, recorded = [], {}
+    for src, lf0, engine, a, b, cut in sources:
+        x, k = holes_base(src, lf0, engine, a, b, h2o, jtables, tdata)
+        rows, sums = holes_oracle(x, k, cut)
+        del x, k
+        for kind, lf in holes_queries(pl, lf0, a, b, cut):
+            name = f"{src}:{kind}"
+            q = EngineQuery(lf, engine)
+            reset_launches(TK, TP, TE, TH, TM)
+            out = q.collect()
+            ql = read_launches(TK, TP, TE, TH, TM)
+            if kind != "sums":
+                assert ql["compact_words"] >= 1, \
+                    f"{name}: the select did not compact by kernel B"
+            runs.append(ql)
+            res = check_holes(name, kind, out, rows, sums)
+            del out
+            times = time_collects(q, args.reps)
+            rec = record_kernel_inputs(torch, TK, TE, TM, TP, q)
+            for kernel, m in check_holes_launches(
+                    args, torch, TK, TE, TM, TP, name, rec).items():
+                recorded.setdefault(kernel, {}).update(m)
+            del rec
+            print(json.dumps({"phase": "holes", "query": name,
+                              "engine": engine, "launches": ql, **res,
+                              "median_ms": statistics.median(times),
+                              "ms": times, "card": smi}))
+        del rows
+    total = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "holes_seconds", "seconds": total,
+                      "limit_s": HOLES_LIMIT_S,
+                      "within_limit": total <= HOLES_LIMIT_S, "card": smi}))
+    assert total <= HOLES_LIMIT_S, \
+        f"phase 20 took {total:.1f} s, over its {HOLES_LIMIT_S} s"
+    return runs, recorded
+
+
+def run_holes_only(args, torch, pl, TK, TP, TE, TH, TM, smi):
+    """--only-holes: phase 20 alone (with its kernels' checks); no result
+    line."""
+    t0 = time.perf_counter()
+    h2o = make_h2o_data(H2O_ROWS, args.seed)
+    hdf = pl.DataFrame(h2o, device="cuda")
+    jtables, jdicts = make_join_data(H2O_ROWS, args.seed)
+    jframes = {k: v for k, v in join_frames(pl, jtables, jdicts,
+                                            "cuda").items()
+               if k in ("x", "small")}
+    tdata = make_trades_data(args.rows, args.seed)
+    print(json.dumps({"phase": "holes_only_data",
+                      "seconds": time.perf_counter() - t0}))
+    run_holes_phase(args, torch, pl, TK, TP, TE, TH, TM, h2o, hdf, jtables,
+                    jframes, tdata, smi)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6225,6 +6472,11 @@ def main() -> int:
                     help="build, then phase 19 (the server, clients, "
                     "storage, lakehouse and sources) alone; prints no "
                     "result line")
+    ap.add_argument("--only-holes", action="store_true",
+                    help="build, then phase 20 (the length-changing select "
+                    "kinds after breakers that leave holes, with kernel "
+                    "B's checks on its launches) alone; prints no result "
+                    "line")
     args = ap.parse_args()
 
     import torch
@@ -6288,6 +6540,10 @@ def main() -> int:
     if args.only_services:
         run_services_only(args, torch, pl, TK, TP, TE, TH, TM)
         phase_seconds("19")
+        return 0
+    if args.only_holes:
+        run_holes_only(args, torch, pl, TK, TP, TE, TH, TM, smi)
+        phase_seconds("20")
         return 0
 
     # phase 10's data, made before the first trace: on the H100 hosts this
@@ -6689,6 +6945,15 @@ def main() -> int:
     runs += run_services_phase(args, torch, pl, TK, TP, TE, TH, TM, h2o,
                                hdf, jtables, jdicts)
     phase_seconds("19")
+
+    # --- 20. the length-changing select kinds after breakers with holes ----
+    holes_runs, holes_recorded = run_holes_phase(
+        args, torch, pl, TK, TP, TE, TH, TM, h2o, hdf, jtables, jframes,
+        tdata, smi)
+    runs += holes_runs
+    for kernel, m in holes_recorded.items():
+        recorded[kernel].update(m)
+    phase_seconds("20")
 
     # --- result ---------------------------------------------------------------
     def launches(name):

@@ -391,6 +391,10 @@ class DataFrame:
             col = v if isinstance(v, Column) else \
                 val_to_column(v, cap if scalar else own)
             if not scalar:
+                # `live` alone, not ANDed with the row mask: a kind that
+                # keeps the frame's rows has folded the mask in, and one
+                # that makes new rows (hist's bins, mode, ...) puts them
+                # in slots that the mask may hold dead
                 m = base if isinstance(v, Column) or v.live is None \
                     else v.live.expand(own)
                 one = Table([name], {name: col}, own, None, m,

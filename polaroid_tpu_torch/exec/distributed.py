@@ -458,8 +458,12 @@ class DistributedExecutor:
             out_dt = meta.output_dtype(p, ins)
             sdict, cnt_idx = None, None
             if kind == "len":
+                # `expr.len()` counts the rows its operand keeps
+                live = eval_expr(e.children[0], t, "agg").live \
+                    if e.kind == "agg" else None
                 val_arrays.append(torch.ones(cap, dtype=torch.int64,
-                                             device=dev))
+                                             device=dev) if live is None
+                                  else count_of(live))
                 agg_kinds.append("sum")
             elif kind in ("count", "null_count", "sum", "min", "max",
                           "any", "all"):

@@ -1000,6 +1000,9 @@ def _decompose_aggs(aggs: List[Expr]):
     def rec(e: Expr) -> Optional[Expr]:
         if e.kind == "agg":
             name = e.attrs["agg"]
+            if not all(meta.is_elementwise(c, meta.ROW_LOCAL_NARROWING)
+                       for c in e.children):
+                return None
             if name in _DECOMPOSABLE:
                 p, m = _DECOMPOSABLE[name]
                 nm = fresh(name)

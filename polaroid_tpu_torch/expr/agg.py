@@ -22,7 +22,7 @@ import torch
 
 from ..dtypes import Boolean, Date, Datetime, Duration, Float64, UInt32
 from ..errors import ComputeError, InvalidOperationError
-from .eval import Val, _float_dt, _sum_dtype, _type_bounds
+from .eval import Val, _float_dt, _live_of, _sum_dtype, _type_bounds
 from ..batch import storage_torch_dtype
 
 __all__ = ["eval_agg"]
@@ -34,10 +34,10 @@ def _agg_mask(v: Val, table):
     """(live rows, live rows whose value is valid)."""
     if v.is_scalar:
         live = torch.ones((1,), dtype=torch.bool, device=v.data.device)
+        if v.live is not None:
+            live = live & v.live
     else:
-        live = table.row_mask()
-    if v.live is not None:
-        live = live & v.live
+        live = _live_of(v, table)
     mask = live if v.validity is None else live & v.validity
     return live, mask
 

@@ -17,8 +17,15 @@ The select context (Slice E1): aggregates over the whole column
 `replace`, `hash`, `search_sorted`, `sort_by`, `row_index`, and the
 kinds that change the length: `drop_nulls`, `gather_every`, a slice,
 `expr.filter`). A kind that changes the length keeps every row and
-marks the rows of its result (`Val.live`), as the JAX package's does; a
-group-by aggregate reads only those, a select compacts to them.
+marks the rows of its result in `Val.live`. The rule: `live`, where set,
+marks the rows of the result, and never a row outside the frame's row
+mask. A kind that keeps the input's rows and narrows them (`expr.filter`,
+`drop_nulls`, `gather_every`, a slice, `arg_true`) narrows its operand's
+rows (`_live_of`: the operand's own `live`, else the row mask); a kind
+that makes new rows (`hist`, `mode`, `implode`, `sample`, an array
+literal, ...) marks its own, in slots the row mask may hold dead. A
+group-by aggregate reads only the marked rows, and a select compacts to
+them.
 
 Strings and nested columns (Slice E2): casts to and from String and
 Binary, `concat_str`, list literals and the `bin` namespace live here,
@@ -868,9 +875,12 @@ def eval_expr(e: Expr, table: Table, ctx: str = "select") -> Val:
         v = eval_expr(e.children[0], table, ctx)
         p = eval_expr(e.children[1], table, ctx)
         plive = p.data & p.valid_or_true()
+        if v.is_scalar and p.is_scalar:
+            live = plive if v.live is None else v.live & plive
+        else:
+            live = _live_of(v, table) & plive
         return _with_live(Val(v.dtype, v.data, v.validity, v.sdict,
-                              v.is_scalar),
-                          plive if v.live is None else v.live & plive)
+                              v.is_scalar), live)
     if k == "table_len":
         return Val(UInt32, table.row_mask().sum().view(1), None, None, True)
     if k == "agg":
@@ -1068,8 +1078,13 @@ def _eval_bin(e: Expr, v: Val) -> Val:
 # ---------------------------------------------------------------------------
 
 def _live_of(v: Val, table: Table) -> torch.Tensor:
+    """The rows of `v`: a column's own `live` where set (by the rule of
+    `Val.live` it lies within the row mask, or marks rows the kind made),
+    else the frame's rows; a scalar spreads over the frame's rows."""
     mask = table.row_mask()
-    return mask if v.live is None else mask & v.live
+    if v.live is None:
+        return mask
+    return mask & v.live if v.is_scalar else v.live
 
 
 def _like(v: Val, dtype, data, validity=None) -> Val:
@@ -1203,7 +1218,10 @@ def _eval_drop_nulls(e: Expr, table: Table, ctx: str) -> Val:
     v = eval_expr(e.children[0], table, ctx)
     if v.validity is None:
         return v
-    live = v.validity if v.live is None else v.live & v.validity
+    if v.is_scalar:
+        live = v.validity if v.live is None else v.live & v.validity
+    else:
+        live = _live_of(v, table) & v.validity
     return Val(v.dtype, v.data, v.validity, v.sdict, v.is_scalar, live)
 
 

@@ -639,12 +639,18 @@ _NON_ELEMENTWISE = {"agg", "window", "over", "sort_self", "sort_by",
                     "map_elements", "hist"}
 
 
-def is_elementwise(e: Expr) -> bool:
+# Kinds that narrow the rows by each row's own value alone: an aggregate
+# of one adds up batch by batch (the streaming group-by). `shift`, a
+# slice, `head`, ... see the rows before.
+ROW_LOCAL_NARROWING = frozenset({"expr_filter", "drop_nulls"})
+
+
+def is_elementwise(e: Expr, allow=frozenset()) -> bool:
     """True if the expr maps row->row independently (streamable; reference:
-    `lower_expr.rs:91`)."""
-    if e.kind in _NON_ELEMENTWISE:
+    `lower_expr.rs:91`); the kinds in `allow` count as such."""
+    if e.kind in _NON_ELEMENTWISE and e.kind not in allow:
         return False
-    return all(is_elementwise(c) for c in e.children)
+    return all(is_elementwise(c, allow) for c in e.children)
 
 
 def has_agg(e: Expr) -> bool:

@@ -26,7 +26,7 @@ from ..dtypes import Boolean, Date, Datetime, Float64, Int64, String, \
 from ..errors import ComputeError, InvalidOperationError
 from ..ops import temporal as T
 from ..strings import EMPTY_DICT, NULL_CODE, StringDict
-from .eval import Val, _and_valid, column_to_val, gather_codes
+from .eval import Val, _and_valid, _live_of, column_to_val, gather_codes
 
 __all__ = ["eval_str", "dollar_refs_to_backrefs", "str_transform"]
 
@@ -355,7 +355,7 @@ def _str_concat(e, v: Val, table) -> Val:
     """The live non-null values joined into one string (a scalar)."""
     delim = e.attrs.get("delimiter", "")
     ignore_nulls = e.attrs.get("ignore_nulls", True)
-    mask = table.row_mask() if v.live is None else table.row_mask() & v.live
+    mask = _live_of(v, table)
     mask = mask.expand(v.data.shape[0]) if v.data.shape[0] != 1 else mask[:1]
     codes = v.data[mask].cpu().numpy()
     valid = v.valid_or_true()[mask].cpu().numpy()

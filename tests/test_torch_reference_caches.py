@@ -9,10 +9,15 @@ of each table: once a frame is freed, a new frame whose table takes the
 same id is handed the old frame's optimized plan, and with it the old
 data (`tests/test_torch_q1.py::test_q1_matches_reference[str]` read the
 `[u32]` case's UInt32 symbol so). A port test module runs inside
-`fresh_reference_caches()`: the compile cache emptied when it starts,
-and the optimizer cache keeping nothing while it runs; the test below
-holds the JAX package to a new frame's own data on a freed table's id
-inside it. The JAX package itself is not changed.
+`fresh_reference_caches()`: the compile cache emptied when it starts
+and when it ends, and the optimizer cache keeping nothing while it
+runs; the test below holds the JAX package to a new frame's own data on
+a freed table's id inside it. The compile cache keys a program by its
+chain and the table's layout, not its row count, and the program keeps
+the row count of its first table: `tests/test_server.py`'s SQL over 500
+rows counted 300 when it ran in a worker after
+`tests/test_torch_server.py` had run the same SQL over 300 rows. The JAX
+package itself is not changed.
 """
 
 import contextlib
@@ -35,17 +40,19 @@ def fresh_reference_caches():
         yield
     finally:
         lazyframe._OPT_CACHE = saved
+        compiled._CACHE.clear()
 
 
 def test_reference_frame_on_a_freed_tables_id_gets_its_own_result():
     """Inside `fresh_reference_caches()` the JAX package answers a new
     frame whose table takes a freed table's id with the new frame's own
     data (outside it, its optimizer cache can hand back the freed
-    frame's)."""
+    frame's); the programs it compiled inside are gone when it ends."""
     import gc
 
     import polaroid_tpu as ref
     from polaroid_tpu.batch import Table
+    from polaroid_tpu.exec import compiled
 
     def q(df):
         return df.lazy().filter(ref.col("v") > 0).select("k", "v") \
@@ -67,3 +74,5 @@ def test_reference_frame_on_a_freed_tables_id_gets_its_own_result():
             keep.append(t)
         assert q(ref.DataFrame._from_table(t)) == {"k": [7, 8, 9],
                                                    "v": [4, 5, 6]}
+        assert compiled._CACHE
+    assert not compiled._CACHE
