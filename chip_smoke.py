@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--reps 5] [--only-taq]
                           [--only-surface] [--only-stream] [--only-dist]
                           [--only-io] [--only-services] [--only-holes]
+                          [--only-groupby]
 
 Phases:
 1. the card (name and power limit from nvidia-smi) and a fresh build of
@@ -263,6 +264,20 @@ Phases:
    ms beside the card's name and power limit; the phase must finish in
    30 s. `--only-holes` runs the build and phase 20 alone, and prints no
    result line.
+21. the group-by methods on the H2O frame at 10^7 rows, each eager and
+   lazy: by id4 (100 groups, the dense tier, maintain_order=True) sum,
+   mean, len, count, min, max, first, last, median, quantile(0.9) and
+   n_unique of v1, v2 and v3; by id6 (10^5 groups, the hash tier) sum
+   and len; head(3) and tail(3) by id4; all() of v1 by id4; having(the
+   sum of v3 over numpy's median of the groups' sums).agg(sum of v1);
+   map_groups(first row) and the iteration over id4 and v3; the lazy
+   sum and len by id4 streamed. Each against numpy (rows, keys,
+   integers, counts, extremes, first/last, medians and quantiles bit for
+   bit; Float64 sums and means within rtol 1e-12), with its launches and
+   collect ms beside the card's name and power limit; every launch of A,
+   E, F, B and C in one more collect of each held to its plain version;
+   within 30 s. `--only-groupby` runs the build and phase 21 alone, and
+   prints no result line.
 Each phase prints its seconds. The oracles' host sorts of the same key
 columns are made once per run (`memo_sort`).
 
@@ -770,7 +785,7 @@ def device_ms_of(fn, kernel: str):
     back empty, the profiler (not the port) lost the window, and the
     time is reported as None (the kernel's CUDA-event time stands
     beside it)."""
-    if _NO_TIMING[0]:
+    if _NO_TIMING[0] or _NO_TRACE[0]:
         return {}
     tr = trace_call(fn, each=True)
     if not tr["device_ops"]:
@@ -1435,9 +1450,9 @@ def memo_sort(tag: str, arrays, fn):
     return hit[1]
 
 
-def h2o_oracle(data, keys, outputs):
-    """numpy per-group results: the groups in ascending key order (their
-    key columns), their first rows, and each named output."""
+def h2o_layout(data, keys):
+    """(order, starts, ends): the rows in ascending key order, stable, and
+    where each group's run of them starts and ends (made once per run)."""
     import numpy as np
 
     def layout():
@@ -1448,7 +1463,14 @@ def h2o_oracle(data, keys, outputs):
         sc = code[order]
         starts = np.flatnonzero(np.r_[True, sc[1:] != sc[:-1]])
         return order, starts, np.r_[starts[1:], len(sc)]
-    order, starts, ends = memo_sort("h2o", [data[k] for k in keys], layout)
+    return memo_sort("h2o", [data[k] for k in keys], layout)
+
+
+def h2o_oracle(data, keys, outputs):
+    """numpy per-group results: the groups in ascending key order (their
+    key columns), their first rows, and each named output."""
+    import numpy as np
+    order, starts, ends = h2o_layout(data, keys)
     cnt = ends - starts
     first = order[starts]
     want = {k: data[k][first] for k in keys}
@@ -1478,6 +1500,10 @@ def h2o_oracle(data, keys, outputs):
             want[name] = data[col][first]
         elif kind == "last":
             want[name] = data[col][order[ends - 1]]
+        elif kind == "min":
+            want[name] = red(np.minimum, col)
+        elif kind == "max":
+            want[name] = red(np.maximum, col)
     return want, first
 
 
@@ -1613,14 +1639,14 @@ def sort_oracle(name, data, valid):
 def host_columns(out):
     """Each column of a collected frame as (host values, host validity or
     None) over its live rows, read off its table (a row mask is applied
-    on the host)."""
+    where the table lies, so that only the live rows are copied)."""
     t = out._table
     n = t.count_rows()
-    live = None if t.valid is None else t.valid.cpu().numpy()
+    live = t.valid
 
     def rows(x):
-        x = x.cpu().numpy()
-        return x[:n] if live is None else x[:len(live)][live]
+        x = x[:n] if live is None else x[:live.shape[0]][live]
+        return x.cpu().numpy()
     return {k: (rows(c.data),
                 None if c.validity is None else rows(c.validity))
             for k, c in t.cols.items()}
@@ -6352,9 +6378,10 @@ def check_holes(name, kind, out, rows, sums):
 
 def check_holes_launches(args, torch, TK, TE, TM, TP, name, rec):
     """Every launch of kernels A, E, F, B and C that one collect of a
-    phase-20 query recorded (`rec`, from record_kernel_inputs) held
-    against its plain version (held_to_plain: a shape timed before is
-    held again and keeps its times); {kernel: {"query#i": numbers}}.
+    phase-20 or phase-21 query recorded (`rec`, from
+    record_kernel_inputs) held against its plain version (held_to_plain:
+    a shape timed before is held again and keeps its times); {kernel:
+    {"query#i": numbers}}.
     Timed with CUDA events and not traced: the profiler records nothing
     once a trace comes seconds after the one before, as it would after
     phase 19."""
@@ -6446,6 +6473,361 @@ def run_holes_only(args, torch, pl, TK, TP, TE, TH, TM, smi):
                     jframes, tdata, smi)
 
 
+# --- phase 21: the group-by methods, eager and lazy ----------------------
+
+GROUPBY_LIMIT_S = 30.0      # phase 21's seconds (data built before it)
+GROUPBY_VALUES = ("v1", "v2", "v3")
+DENSE_METHODS = (("sum", ()), ("mean", ()), ("len", ()), ("count", ()),
+                 ("min", ()), ("max", ()), ("first", ()), ("last", ()),
+                 ("median", ()), ("quantile", (0.9,)), ("n_unique", ()))
+# the kernel each dense-tier query (by its method) and head/tail must
+# launch
+GROUPBY_MUST = {"sum": "seg_sum", "mean": "seg_sum", "len": "seg_sum",
+                "count": "seg_sum", "min": "seg_minmax",
+                "max": "seg_minmax", "first": "seg_minmax",
+                "last": "seg_minmax", "median": "merge_sort",
+                "quantile": "merge_sort", "n_unique": "merge_sort",
+                "head3": "compact_words", "tail3": "compact_words"}
+# the queries that filter the frame once per group (partition_by): fewer
+# timed collects
+PARTITIONED = ("map_groups", "iter")
+
+
+class CallQuery:
+    """A call that gives a frame (an eager method; a lazy one and its
+    collect; the iteration), where the script calls .collect()."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def collect(self):
+        return self.fn()
+
+
+def groupby_queries(pl, hdf, t):
+    """(name, query) of phase 21 on the H2O frame (G1_1e7_1e2_0_0, 10^7
+    rows), each method eager and lazy ("name:eager", "name:lazy"): over
+    id4 (100 groups, the dense tier) with maintain_order=True every
+    method of DENSE_METHODS over v1, v2 and v3; over id6 (10^5 groups,
+    the hash tier) sum and len; head(3) and tail(3) by id4 of the whole
+    frame; all() of id4 and v1; having(sum of v3 > t).agg(sum of v1);
+    map_groups(first row) of id4 and v3; the iteration over id4 and v3
+    (eager only); the lazy sum and len by id4 once more streamed
+    (":streaming")."""
+    c = pl.col
+    dense = hdf.select("id4", *GROUPBY_VALUES)
+    hashed = hdf.select("id6", *GROUPBY_VALUES)
+    pair = hdf.select("id4", "v3")
+    spec = [(f"dense_{m}", dense, lambda s, m=m, a=a: getattr(
+        s.group_by("id4", maintain_order=True), m)(*a))
+        for m, a in DENSE_METHODS]
+    spec += [(f"hash_{m}", hashed, lambda s, m=m: getattr(
+        s.group_by("id6"), m)()) for m in ("sum", "len")]
+    spec += [
+        ("head3", hdf, lambda s: s.group_by("id4").head(3)),
+        ("tail3", hdf, lambda s: s.group_by("id4").tail(3)),
+        ("all", hdf.select("id4", "v1"), lambda s: s.group_by("id4").all()),
+        ("having", dense, lambda s: s.group_by("id4").having(
+            c("v3").sum() > t).agg(c("v1").sum())),
+        ("map_groups", pair, lambda s: s.group_by("id4").map_groups(
+            lambda g: g.head(1))),
+    ]
+    out = []
+    for name, src, make in spec:
+        out.append((f"{name}:eager", CallQuery(lambda s=src, f=make: f(s))))
+        out.append((f"{name}:lazy", CallQuery(
+            lambda s=src.lazy(), f=make: f(s).collect())))
+    out.append(("iter:eager", CallQuery(
+        lambda: list(pair.group_by("id4")))))
+    for m in ("sum", "len"):
+        out.append((f"dense_{m}:streaming", CallQuery(
+            lambda m=m: getattr(dense.lazy().group_by("id4"), m)()
+            .collect(engine="streaming"))))
+    return out
+
+
+def groupby_oracle(h2o):
+    """numpy's answers of phase 21. By id4, in the groups' first-row
+    order: their keys, first rows, counts, and the sum, mean, min, max,
+    first and last of each value column; median, quantile(0.9) and
+    n_unique from each value column sorted inside its group (the card's
+    lexsort), the quantiles picked and interpolated as the port does
+    (linear for the median; nearest, half to even, for quantile). By
+    id6, in ascending key order: keys, counts and sums. The layouts of
+    both keys (rows by key, stable) for head/tail, all and the
+    iteration, and having's threshold: the median of the groups' v3
+    sums."""
+    import numpy as np
+    outs = {"len": ("len", None)}
+    for v in GROUPBY_VALUES:
+        for kind in ("sum", "mean", "min", "max", "first", "last"):
+            outs[f"{kind}_{v}"] = (kind, v)
+    dense, first = h2o_oracle(h2o, ("id4",), outs)
+    perm = argsort(first)
+    o = {"id4": {k: v[perm] for k, v in dense.items()},
+         "first_rows": first[perm], "layout4": h2o_layout(h2o, ("id4",))}
+    for v in GROUPBY_VALUES:
+        order = memo_sort(f"h2o_id4_{v}", [h2o["id4"], h2o[v]],
+                          lambda v=v: lexsort([h2o[v], h2o["id4"]]))
+        sv, sk = h2o[v][order], h2o["id4"][order]
+        starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+        n = np.diff(np.r_[starts, len(sk)])
+
+        def pick(i, sv=sv, starts=starts):
+            return sv[starts + i.astype(np.int64)].astype(np.float64)
+        pos = 0.5 * (n.astype(np.float64) - 1)
+        lo, hi = np.floor(pos), np.ceil(pos)
+        frac = pos - lo
+        o["id4"][f"median_{v}"] = (pick(lo) * (1 - frac) +
+                                   pick(hi) * frac)[perm]
+        o["id4"][f"quantile_{v}"] = pick(
+            np.round(0.9 * (n.astype(np.float64) - 1)))[perm]
+        new = np.r_[True, (sv[1:] != sv[:-1]) | (sk[1:] != sk[:-1])]
+        o["id4"][f"n_unique_{v}"] = np.add.reduceat(
+            new.astype(np.int64), starts)[perm]
+        del order, sv, sk, new
+    o["id6"], _ = h2o_oracle(h2o, ("id6",), {
+        "len": ("len", None), **{f"sum_{v}": ("sum", v)
+                                 for v in GROUPBY_VALUES}})
+    sums = o["id4"]["sum_v3"]
+    o["t"] = float(np.median(sums))
+    gap = float(np.min(np.abs(sums - o["t"])))
+    assert gap > 1e-9 * abs(o["t"]), \
+        f"a group's v3 sum lies within {gap} of having's threshold"
+    return o
+
+
+def _values_match(name, col, got, want, close):
+    """Integers and non-close floats bit for bit; close floats within
+    rtol 1e-12."""
+    import numpy as np
+    assert len(got) == len(want), \
+        f"{name}: {col} has {len(got)} rows, numpy {len(want)}"
+    if close:
+        g, w = got.astype(np.float64), want.astype(np.float64)
+        assert np.all(np.abs(g - w) <= 1e-12 * np.abs(w)), \
+            f"{name}: {col} differs beyond rtol 1e-12"
+    elif want.dtype.kind == "f":
+        assert np.array_equal(got.astype(np.float64).view(np.uint64),
+                              want.astype(np.float64).view(np.uint64)), \
+            f"{name}: {col} differs"
+    else:
+        assert np.array_equal(got.astype(np.int64),
+                              want.astype(np.int64)), f"{name}: {col} differs"
+
+
+def _no_nulls(name, cols):
+    for k, (_, valid) in cols.items():
+        assert valid is None or valid.all(), f"{name}: {k} holds nulls"
+
+
+def _by_key(cols, key):
+    """host_columns' values ordered by the key column (hash order and the
+    streaming merge keep no first-row order)."""
+    perm = argsort(cols[key][0])
+    return {k: v[perm] for k, (v, _) in cols.items()}
+
+
+def check_groupby(name, out, h2o, o):
+    """A phase-21 result against groupby_oracle's numpy answers; returns
+    the numbers it prints (groups or rows)."""
+    import numpy as np
+    query = name.split(":")[0]
+    if query == "iter":
+        return check_groupby_iter(name, out, h2o, o)
+    cols = host_columns(out)
+    _no_nulls(name, {k: v for k, v in cols.items()
+                     if not (query == "all" and k == "v1")})
+    kind, _, method = query.partition("_")
+    if kind in ("dense", "hash"):
+        key = "id4" if kind == "dense" else "id6"
+        want = o[key]
+        got = {k: v for k, (v, _) in cols.items()}
+        if kind == "hash" or name.endswith(":streaming"):
+            got = _by_key(cols, key)
+            if kind == "dense":
+                perm = argsort(want[key])
+                want = {k: v[perm] for k, v in want.items()}
+        _values_match(name, key, got[key], want[key], False)
+        if method in ("len", "count"):
+            _values_match(name, method, got[method], want["len"], False)
+        else:
+            for v in GROUPBY_VALUES:
+                _values_match(name, v, got[v], want[f"{method}_{v}"],
+                              method in ("sum", "mean") and
+                              (v == "v3" or method == "mean"))
+        return {"groups": len(got[key])}
+    order, starts, ends = o["layout4"]
+    if query in ("head3", "tail3"):
+        n = ends - starts
+        rank = np.arange(len(order)) - np.repeat(starts, n)
+        keep = rank < 3 if query == "head3" else \
+            rank >= np.repeat(n, n) - 3
+        rows = np.sort(order[keep])
+        assert sorted(cols) == sorted(h2o), f"{name}: columns {sorted(cols)}"
+        for k, (g, _) in cols.items():
+            _values_match(name, k, g, h2o[k][rows], False)
+        return {"out_rows": len(rows)}
+    if query == "all":
+        t = out._table
+        got = _by_key(cols, "id4")
+        _values_match(name, "id4", got["id4"], h2o["id4"][order[starts]],
+                      False)
+        c = t.cols["v1"]
+        live = None if t.valid is None else t.valid.cpu().numpy()
+
+        def rows(x):
+            x = x.cpu().numpy()
+            return x[:out.height] if live is None else x[:len(live)][live]
+        data, lengths = rows(c.data), rows(c.lengths)
+        perm = argsort(cols["id4"][0])
+        data, lengths = data[perm], lengths[perm]
+        assert c.validity is None or rows(c.validity).all(), \
+            f"{name}: a null list"
+        inside = np.arange(data.shape[1])[None, :] < lengths[:, None]
+        assert c.elem_valid is None or rows(c.elem_valid)[perm][inside] \
+            .all(), f"{name}: a null element"
+        _values_match(name, "lengths", lengths, ends - starts, False)
+        _values_match(name, "v1", data[inside], h2o["v1"][order], False)
+        return {"groups": len(lengths), "elements": int(lengths.sum())}
+    if query == "having":
+        sel = o["id4"]["sum_v3"] > o["t"]
+        got = _by_key(cols, "id4")
+        perm = argsort(o["id4"]["id4"][sel])
+        for k, w in (("id4", o["id4"]["id4"]), ("v1", o["id4"]["sum_v1"])):
+            _values_match(name, k, got[k], w[sel][perm], False)
+        return {"groups": int(sel.sum()), "threshold": o["t"]}
+    if query == "map_groups":
+        rows = o["first_rows"]
+        for k, (g, _) in cols.items():
+            _values_match(name, k, g, h2o[k][rows], False)
+        return {"out_rows": len(rows)}
+    raise AssertionError(f"{name}: no check")
+
+
+def check_groupby_iter(name, parts, h2o, o):
+    """The iteration: (key, sub-frame) pairs in the keys' first-row
+    order, each sub-frame the group's id4 and v3 rows in frame order."""
+    import numpy as np
+    order, starts, ends = o["layout4"]
+    keys = h2o["id4"][o["first_rows"]]
+    assert [k for k, _ in parts] == keys.tolist(), \
+        f"{name}: the keys or their order differ"
+    at = {int(h2o["id4"][order[s]]): (s, e) for s, e in zip(starts, ends)}
+    for k, sub in parts:
+        s, e = at[k]
+        cols = host_columns(sub)
+        _no_nulls(name, cols)
+        rows = order[s:e]
+        for c, (g, _) in cols.items():
+            _values_match(f"{name} key {k}", c, g, h2o[c][rows], False)
+    return {"groups": len(parts)}
+
+
+def run_groupby_phase(args, torch, pl, TK, TP, TE, TH, TM, h2o, hdf, smi):
+    """Phase 21: the group-by methods, eager and lazy, at 10^7 rows
+    (groupby_queries), each held to numpy (groupby_oracle); the launches
+    of one counted collect of each (the compiled chains emptied first,
+    so that it runs eagerly), and every launch of kernels A, E, F, B and
+    C in one more collect held against its plain version. Returns (the
+    counted collects' launches, {kernel: numbers by launch})."""
+    from polaroid_tpu_torch.exec import compiled as CM
+
+    def release():
+        """Drop the captured chains (the cache gives their pools back to
+        the card) and read the memory that stays: `pooled_gib` is what
+        graphs' private pools still reserve (segments outside the
+        default pool)."""
+        CM.clear_cache(nofuse=False)
+        segs = torch.cuda.memory_snapshot()
+        assert all("segment_pool_id" in g for g in segs)
+        pooled = sum(g["total_size"] for g in segs
+                     if tuple(g["segment_pool_id"]) != (0, 0))
+        return {"pooled_gib": pooled / 2**30,
+                "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+                "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    t0 = time.perf_counter()
+    o = groupby_oracle(h2o)
+    start = release()
+    print(json.dumps({"phase": "groupby_oracle",
+                      "seconds": time.perf_counter() - t0, **start}))
+    t_phase = time.perf_counter()
+    runs, recorded, by_kernel, memories = [], {}, {}, []
+    for name, q in groupby_queries(pl, hdf, o["t"]):
+        t_query = time.perf_counter()
+        CM.clear_cache(nofuse=False)
+        reset_launches(TK, TP, TE, TH, TM)
+        out = q.collect()
+        ql = read_launches(TK, TP, TE, TH, TM)
+        query = name.split(":")[0]
+        must = GROUPBY_MUST.get(query.partition("_")[2]
+                                if query.startswith("dense_") else query)
+        if must is not None:
+            assert ql[must] >= 1, f"{name} did not launch {must}"
+        if query.startswith("hash_"):
+            assert ql["bucket_exchange"] >= 1 and ql["fallbacks"] == 0, \
+                f"{name} did not group through the exchange"
+        runs.append(ql)
+        res = check_groupby(name, out, h2o, o)
+        del out
+        t_check = time.perf_counter()
+        reps = min(args.reps, 2) if query in PARTITIONED else args.reps
+        times = time_collects(q, reps)
+        t_timed = time.perf_counter()
+        rec = record_kernel_inputs(torch, TK, TE, TM, TP, q)
+        for kernel, m in check_holes_launches(
+                args, torch, TK, TE, TM, TP, name, rec).items():
+            recorded.setdefault(kernel, {}).update(m)
+        del rec
+        for k, v in ql.items():
+            by_kernel[k] = by_kernel.get(k, 0) + v
+        graphs = CM.cache_info()
+        memory = release()
+        memories.append(memory)
+        t_end = time.perf_counter()
+        print(json.dumps({"phase": "groupby", "query": name,
+                          "rows": H2O_ROWS, "launches": ql, **res,
+                          "median_ms": statistics.median(times),
+                          "ms": times, "card": smi,
+                          "seconds": {"collect_and_check": t_check - t_query,
+                                      "timed": t_timed - t_check,
+                                      "kernel_checks": t_end - t_timed},
+                          "graphs": graphs, **memory}))
+    total = time.perf_counter() - t_phase
+    for kernel in ("seg_sum", "compact_words", "seg_minmax",
+                   "bucket_exchange", "merge_sort"):
+        assert by_kernel[kernel] >= 1, f"phase 21 launched no {kernel}"
+    print(json.dumps({"phase": "groupby_launches", "by_kernel": by_kernel,
+                      "card": smi}))
+    # a dropped graph's pool that stays reserved is out of reach of every
+    # other allocation; the default pool's cached blocks are not
+    pooled = max(m["pooled_gib"] for m in memories)
+    print(json.dumps({"phase": "groupby_reserved",
+                      "start": start, "max_pooled_gib": pooled,
+                      "max_reserved_gib": max(m["reserved_gib"]
+                                              for m in memories),
+                      "last": memories[-1]}))
+    assert pooled <= start["pooled_gib"], \
+        f"phase 21 left {pooled:.2f} GiB in dropped graphs' pools"
+    print(json.dumps({"phase": "groupby_seconds", "seconds": total,
+                      "limit_s": GROUPBY_LIMIT_S,
+                      "within_limit": total <= GROUPBY_LIMIT_S, "card": smi}))
+    assert total <= GROUPBY_LIMIT_S, \
+        f"phase 21 took {total:.1f} s, over its {GROUPBY_LIMIT_S} s"
+    return runs, recorded
+
+
+def run_groupby_only(args, torch, pl, TK, TP, TE, TH, TM, smi):
+    """--only-groupby: phase 21 alone (with its kernels' checks); no
+    result line."""
+    t0 = time.perf_counter()
+    h2o = make_h2o_data(H2O_ROWS, args.seed)
+    hdf = pl.DataFrame(h2o, device="cuda")
+    print(json.dumps({"phase": "groupby_only_data",
+                      "seconds": time.perf_counter() - t0}))
+    run_groupby_phase(args, torch, pl, TK, TP, TE, TH, TM, h2o, hdf, smi)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6477,6 +6859,10 @@ def main() -> int:
                     "kinds after breakers that leave holes, with kernel "
                     "B's checks on its launches) alone; prints no result "
                     "line")
+    ap.add_argument("--only-groupby", action="store_true",
+                    help="build, then phase 21 (the group-by methods, eager "
+                    "and lazy, with the checks of their kernels' launches) "
+                    "alone; prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -6544,6 +6930,10 @@ def main() -> int:
     if args.only_holes:
         run_holes_only(args, torch, pl, TK, TP, TE, TH, TM, smi)
         phase_seconds("20")
+        return 0
+    if args.only_groupby:
+        run_groupby_only(args, torch, pl, TK, TP, TE, TH, TM, smi)
+        phase_seconds("21")
         return 0
 
     # phase 10's data, made before the first trace: on the H100 hosts this
@@ -6954,6 +7344,14 @@ def main() -> int:
     for kernel, m in holes_recorded.items():
         recorded[kernel].update(m)
     phase_seconds("20")
+
+    # --- 21. the group-by methods, eager and lazy --------------------------
+    groupby_runs, groupby_recorded = run_groupby_phase(
+        args, torch, pl, TK, TP, TE, TH, TM, h2o, hdf, smi)
+    runs += groupby_runs
+    for kernel, m in groupby_recorded.items():
+        recorded[kernel].update(m)
+    phase_seconds("21")
 
     # --- result ---------------------------------------------------------------
     def launches(name):

@@ -159,7 +159,9 @@ def _pandas_values(series) -> np.ndarray:
 
 
 class DataFrame:
-    def __init__(self, data=None, schema=None, device=None):
+    def __init__(self, data=None, schema=None, strict: bool = True,
+                 device=None):
+        # `strict` is accepted and, as in the JAX package, changes nothing
         if isinstance(data, Table):
             self._table = data
             return

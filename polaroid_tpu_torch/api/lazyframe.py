@@ -165,9 +165,11 @@ class LazyFrame:
              join_nulls: bool = False, nulls_equal: bool = False,
              coalesce: Optional[bool] = None,
              maintain_order: Optional[str] = None,
-             validate: str = "m:m") -> "LazyFrame":
+             validate: str = "m:m", allow_parallel: bool = True
+             ) -> "LazyFrame":
         """A join node (see `DataFrame.join`). Unlike the JAX package's
-        lazy join, it keeps `validate`."""
+        lazy join, it keeps `validate`; `allow_parallel` is accepted and,
+        as there, changes nothing."""
         left_on, right_on = _join_keys(on, how, left_on, right_on)
         return LazyFrame._from_plan(L.Join(
             self._plan, other._plan, left_on, right_on, how, suffix,
@@ -754,16 +756,133 @@ def _submit(plan: L.Plan, fn):
 
 
 class LazyGroupBy:
+    """A lazy group-by. `having`'s predicates are aggregated beside the
+    others as hidden `__pt_having_i` columns, which a filter after the
+    group-by reads (a null as False) and drops."""
+
     def __init__(self, lf: LazyFrame, keys: List[Expr],
-                 maintain_order: bool):
+                 maintain_order: bool, having=None):
         self._lf = lf
         self._keys = keys
         self._maintain_order = maintain_order
+        self._having = list(having) if having else []
 
     def agg(self, *aggs, **named) -> LazyFrame:
-        return LazyFrame._from_plan(
-            L.GroupBy(self._lf._plan, self._keys, _to_exprs(aggs, named),
-                      self._maintain_order))
+        hav = [h.alias(f"__pt_having_{i}")
+               for i, h in enumerate(self._having)]
+        out = LazyFrame._from_plan(
+            L.GroupBy(self._lf._plan, self._keys,
+                      _to_exprs(aggs, named) + hav, self._maintain_order))
+        if not hav:
+            return out
+        names = [f"__pt_having_{i}" for i in range(len(hav))]
+        pred = _col(names[0]).fill_null(False)
+        for n in names[1:]:
+            pred = pred & _col(n).fill_null(False)
+        return out.filter(pred).drop(*names)
+
+    def having(self, *predicates) -> "LazyGroupBy":
+        return LazyGroupBy(self._lf, self._keys, self._maintain_order,
+                           having=self._having + list(predicates))
+
+    def head(self, n: int = 5) -> LazyFrame:
+        """The first n rows of every group, in the frame's row order."""
+        return self._lf.filter(self._ordinal() <= n)
+
+    def tail(self, n: int = 5) -> LazyFrame:
+        glen = Expr("table_len").over(*self._keys)
+        return self._lf.filter(self._ordinal() > glen - n)
+
+    def _ordinal(self) -> Expr:
+        from ..expr.expr import lit
+        return lit(True).cum_count().over(*self._keys)
+
+    def all(self) -> LazyFrame:
+        return self._each(lambda c: c.implode())
+
+    def map_groups(self, function, schema=None) -> LazyFrame:
+        from .groupby import GroupBy
+        keys, order = self._keys, self._maintain_order
+        return self._lf.map_batches(
+            lambda df: GroupBy(df, keys, order).map_groups(function),
+            schema=schema)
+
+    apply = map_groups
+
+    def len(self, name: str = "len") -> LazyFrame:
+        return self.agg(Expr("table_len").alias(name))
+
+    def count(self) -> LazyFrame:
+        return self.len(name="count")
+
+    def sum(self) -> LazyFrame:
+        return self._arith(lambda c: c.sum())
+
+    def mean(self) -> LazyFrame:
+        return self._arith(lambda c: c.mean())
+
+    def median(self) -> LazyFrame:
+        return self._arith(lambda c: c.median())
+
+    def quantile(self, q: float, interpolation: str = "nearest"
+                 ) -> LazyFrame:
+        return self._arith(lambda c: c.quantile(q, interpolation))
+
+    def min(self) -> LazyFrame:
+        return self._each(lambda c: c.min())
+
+    def max(self) -> LazyFrame:
+        return self._each(lambda c: c.max())
+
+    def first(self) -> LazyFrame:
+        return self._each(lambda c: c.first())
+
+    def last(self) -> LazyFrame:
+        return self._each(lambda c: c.last())
+
+    def n_unique(self) -> LazyFrame:
+        return self._each(lambda c: c.n_unique())
+
+    def _non_keys(self) -> Dict[str, object]:
+        """The columns that are not a key's output name, with their
+        dtypes (a key without a name leaves every column)."""
+        from ..errors import ComputeError
+        keys = set()
+        for k in self._keys:
+            try:
+                keys.add(meta.output_name(k))
+            except ComputeError:
+                pass
+        return {n: dt for n, dt in self._lf.schema.items() if n not in keys}
+
+    def _each(self, agg) -> LazyFrame:
+        return self.agg([agg(_col(n)).alias(n) for n in self._non_keys()])
+
+    def _arith(self, agg) -> LazyFrame:
+        """`agg` of every non-key column; a String, Categorical, Binary or
+        nested column, which has no arithmetic, gives nulls of its dtype,
+        as polars does."""
+        from ..expr.expr import lit
+        cols = self._non_keys()
+        out = self.agg([
+            (lit(None, dtype=dt).first() if dt.is_string
+             else agg(_col(n))).alias(n)
+            for n, dt in cols.items() if not dt.is_nested])
+        nested = {n: dt for n, dt in cols.items() if dt.is_nested}
+        if not nested:
+            return out
+        # a nested dtype has no null literal: its nulls join the result
+        order = [meta.output_name(k) for k in self._keys] + list(cols)
+
+        def add_nulls(df):
+            from .frame import DataFrame
+            from .series import Series
+            return df.hstack(DataFrame([
+                Series(n, [None] * df.height, dtype=dt, device=df.device)
+                for n, dt in nested.items()])).select(order)
+        schema = {**out.schema, **nested}
+        return out.map_batches(add_nulls, schema={n: schema[n]
+                                                  for n in order})
 
 
 class _LazyDynamic:

@@ -20,7 +20,9 @@ The port reads these:
   joins' build-side choice and spill), `track_metrics`, `log_metrics`
   (per-node timings, `metrics.py`) and `visualize_ir` (print the
   optimized plan at collect).
-Float64 is always stored as float64: the card computes it natively.
+`verbose` (PT_VERBOSE, `set_verbose`) is kept and read nowhere, as in
+the JAX package. Float64 is always stored as float64: the card computes
+it natively.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ class Config:
 
     def reload(self) -> None:
         self.device: str = os.environ.get("PT_DEVICE", "cuda")
+        # verbosity (POLARS_VERBOSE)
+        self.verbose: bool = _env_bool("PT_VERBOSE")
         self.min_capacity: int = _env_int("PT_MIN_CAPACITY", 128)
         # how a frame prints (`api/fmt.py`)
         self.fmt_max_rows: int = _env_int("PT_FMT_MAX_ROWS", 10)
@@ -80,7 +84,7 @@ class Config:
 
     # the polars option names of the formatting settings
     _PL_NAMES = {"tbl_rows": "fmt_max_rows", "tbl_cols": "fmt_max_cols",
-                 "fmt_str_lengths": "fmt_str_len"}
+                 "fmt_str_lengths": "fmt_str_len", "verbose": "verbose"}
 
     def set(self, **kwargs: Any) -> "Config":
         for k, v in kwargs.items():
@@ -110,6 +114,10 @@ class Config:
 
     def set_fmt_str_lengths(self, n: int) -> "Config":
         self.fmt_str_len = n
+        return self
+
+    def set_verbose(self, active: bool = True) -> "Config":
+        self.verbose = active
         return self
 
     def __enter__(self) -> "Config":

@@ -107,11 +107,13 @@ reset_counts()
 
 
 def clear_cache(nofuse: bool = True) -> None:
-    """Drop every cached graph and, with `nofuse`, every no-fuse mark."""
+    """Drop every cached graph, and give their private pools back to the
+    card; with `nofuse`, drop every no-fuse mark too."""
     with _LOCK:
-        if torch.cuda.is_initialized() and any(
-                isinstance(e, _Graph) for e in _CACHE.values()):
-            # a pool goes back to the allocator: no replay may still run
+        graphs = torch.cuda.is_initialized() and any(
+            isinstance(e, _Graph) for e in _CACHE.values())
+        if graphs:
+            # no replay may still run on a pool that is given back
             torch.cuda.synchronize()
         for k in [k for k, e in _CACHE.items()
                   if nofuse or isinstance(e, _Graph)]:
@@ -119,6 +121,10 @@ def clear_cache(nofuse: bool = True) -> None:
         if nofuse:
             NOFUSE.clear()
         COUNTS["pool_bytes"] = 0
+        if graphs:
+            # a dropped graph's private pool stays reserved, out of reach
+            # of every other allocation, until the allocator empties it
+            torch.cuda.empty_cache()
 
 
 # the top node of a chain -> its fingerprint (a cached optimized plan
@@ -599,12 +605,17 @@ def _evict() -> None:
     if len(_CACHE) <= MAX_ENTRIES and total <= BUDGET_BYTES:
         return
     torch.cuda.synchronize()
+    dropped, e = 0, None
     while _CACHE and (len(_CACHE) > MAX_ENTRIES or total > BUDGET_BYTES):
         _, e = _CACHE.popitem(last=False)
         if isinstance(e, _Graph):
             total -= e.nbytes
-            COUNTS["evictions"] += 1
+            dropped += 1
+    e = None  # the last graph dropped holds its pool until then
+    COUNTS["evictions"] += dropped
     COUNTS["pool_bytes"] = total
+    if dropped:
+        torch.cuda.empty_cache()  # the dropped pools (clear_cache)
 
 
 def cache_info() -> Dict[str, object]:

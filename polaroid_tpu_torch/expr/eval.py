@@ -407,17 +407,25 @@ def _array_lit(value, dtype: Optional[DataType], device,
     """A list or array literal is a column of its own length, as in the
     JAX package: on a compact frame of that many rows it lines up with
     the rows; otherwise it carries its own rows (`live`), which a select
-    compacts to."""
+    compacts to. A list holding None is built as a Series is: its dtype
+    from its other values (Boolean where all are None), unless `dtype`
+    says, and each None a null."""
     from ..config import capacity_for
     from ..dtypes import dtype_from_numpy
+    n = len(value)
+    aligned = table is not None and table.valid is None and \
+        table._nrows == n and table.capacity >= n
+    cap = table.capacity if aligned else capacity_for(n)
+    live = None if aligned else torch.arange(cap, device=device) < n
+    if isinstance(value, (list, tuple)) and any(v is None for v in value):
+        v = column_to_val(Column.from_host(list(value), dtype=dtype,
+                                           capacity=cap, device=device))
+        v.live = live
+        return v
     arr = np.asarray(value)
     adt = dtype_from_numpy(arr.dtype) if dtype is None else dtype
     if isinstance(adt, type):
         adt = adt()
-    n = len(arr)
-    aligned = table is not None and table.valid is None and \
-        table._nrows == n and table.capacity >= n
-    cap = table.capacity if aligned else capacity_for(n)
     if adt.is_string:
         codes, sd = StringDict.encode(arr.astype(object))
         host = np.full(cap, NULL_CODE, np.int32)
@@ -428,8 +436,6 @@ def _array_lit(value, dtype: Optional[DataType], device,
             torch.empty(0, dtype=storage_torch_dtype(adt)).numpy().dtype))
         host[:n] = arr.astype(host.dtype)
     data = torch.from_numpy(host).to(device)
-    live = None if aligned else \
-        torch.arange(cap, device=device) < n
     return Val(adt, data, None, sd, False, live)
 
 

@@ -360,3 +360,54 @@ def test_a_new_frame_on_a_freed_tables_id_gets_its_own_result():
         keep.append(t)
     new = pt.DataFrame._from_table(t)
     assert q(new) == {"k": [7, 8, 9], "v": [4, 5, 6]}
+
+
+class _Pool:
+    """Stands for a captured graph's private pool."""
+
+
+@pytest.mark.parametrize("how", ["clear_cache", "clear_graphs", "evict",
+                                 "nofuse_only"])
+def test_dropped_graphs_give_their_pools_back(monkeypatch, how):
+    """`clear_cache` and eviction empty the caching allocator once the
+    graphs they drop are unreferenced: a dropped graph's private pool
+    stays reserved, out of reach of every other allocation, until then.
+    A cache that dropped no graph leaves the allocator alone. (The card
+    test `test_clear_cache_gives_graph_pools_back` measures it.)"""
+    import weakref
+    CM.clear_cache()
+    pools, emptied = [], []
+    for i in range(3):
+        entry = CM._Graph(((), None))
+        entry.graph, entry.nbytes = _Pool(), 1 << 20
+        pools.append(weakref.ref(entry.graph))
+        CM._CACHE[("graph", i)] = entry
+    del entry
+    CM._CACHE[("mark",)] = CM._NoFuse("here")
+    CM.COUNTS["pool_bytes"] = 3 << 20
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: emptied.append(
+        [p() is None for p in pools]))
+    try:
+        if how == "clear_cache":
+            CM.clear_cache()
+            assert emptied == [[True] * 3] and not CM._CACHE
+        elif how == "clear_graphs":
+            CM.clear_cache(nofuse=False)
+            assert emptied == [[True] * 3] and list(CM._CACHE) == [("mark",)]
+        elif how == "evict":
+            monkeypatch.setattr(CM, "MAX_ENTRIES", 2)
+            evictions = CM.COUNTS["evictions"]
+            CM._evict()
+            assert emptied == [[True, True, False]]
+            assert CM.COUNTS["evictions"] == evictions + 2
+            assert CM.COUNTS["pool_bytes"] == 1 << 20
+        else:
+            CM._CACHE.clear()
+            CM._CACHE[("mark",)] = CM._NoFuse("here")
+            CM.clear_cache()
+            assert emptied == [] and not CM._CACHE
+    finally:
+        CM._CACHE.clear()
+        CM.reset_counts()

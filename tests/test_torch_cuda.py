@@ -1087,6 +1087,44 @@ def test_a_graph_keeps_no_freed_frame_alive(dev):
     assert CM.COUNTS["captures"] == 1 and CM.COUNTS["replays"] == 2
 
 
+def test_clear_cache_gives_graph_pools_back(dev, monkeypatch):
+    """The reserved memory that captures took comes back with
+    `clear_cache` and with eviction, and captures over and over after
+    each leave the card's reserve where it was."""
+    import gc
+    c = pt.col
+    CM.clear_cache()
+    df = _cuda_frame(14, n=1 << 20)
+
+    def capture(k):
+        for t in range(k, k + 4):
+            q = df.lazy().filter(c("volume") > 100 * t).with_columns(
+                (c("price") * t).alias("p")).group_by("symbol").agg(
+                    c("p").sum())
+            q.collect()
+            q.collect()
+        gc.collect()
+        torch.cuda.synchronize()
+        return CM.cache_info()
+    held = capture(1)
+    assert held["graphs"] == 4 and held["pool_bytes"] > 0
+    before = torch.cuda.memory_reserved()
+    CM.clear_cache(nofuse=False)
+    assert before - torch.cuda.memory_reserved() >= held["pool_bytes"]
+    # kept pools would add a round's pools each round
+    floor = torch.cuda.memory_reserved()
+    for k in (10, 20, 30):
+        capture(k)
+        CM.clear_cache(nofuse=False)
+        assert torch.cuda.memory_reserved() < floor + held["pool_bytes"]
+    held = capture(40)
+    before = torch.cuda.memory_reserved()
+    monkeypatch.setattr(CM, "BUDGET_BYTES", 0)
+    CM._evict()
+    assert CM.cache_info()["graphs"] == 0
+    assert before - torch.cuda.memory_reserved() >= held["pool_bytes"]
+
+
 def test_a_concurrent_sync_leaves_the_chain_captured(dev):
     """Another thread's syncs while a chain is first seen are not the
     chain's: it is captured, not marked no-fuse."""
