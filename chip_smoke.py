@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--reps 5] [--only-taq]
                           [--only-surface] [--only-stream] [--only-dist]
                           [--only-io] [--only-services] [--only-holes]
-                          [--only-groupby]
+                          [--only-groupby] [--only-exprs]
 
 Phases:
 1. the card (name and power limit from nvidia-smi) and a fresh build of
@@ -278,6 +278,28 @@ Phases:
    E, F, B and C in one more collect of each held to its plain version;
    within 30 s. `--only-groupby` runs the build and phase 21 alone, and
    prints no result line.
+22. every public expression of the port (tests/torch_expr_catalog.py,
+   loaded by its path: one entry a name of Expr and of its str, dt,
+   list/arr, struct, cat, name and bin namespaces and a top-level
+   function, and the variants: .over() with a Float64 and a String key,
+   cum_* over partitions, four time zones), each as its own select (or
+   group-by) in memory at full size: the numeric entries on the H2O
+   frame (10^7 rows) as built and with id4 and v3 nullable, the others
+   on phase 14's 2^23 TAQ trades with the catalog's derived columns;
+   the host UDFs on a prefix of 2^16 rows (2^8 where the function
+   builds a Series a row); some entries also after filter(v1 > 2). Each
+   held to the port's CPU collect of the same query on the same frame
+   (or numpy's closed form where the catalog names one; a sampling
+   entry to its properties; a refused entry to the CPU's error) within
+   the catalog's tolerance (a SCAN entry within its statistic's bound,
+   and over x also computed from x in Float32, its error over that
+   bound printed), each oracle made in this process just before the
+   card runs the entry; its launches and the median of 3 collects after
+   the counted one beside the card's name and power limit; every launch
+   of A, E, F, B and C in the counted collect held to its plain version;
+   the card's seconds (its collects, the host UDFs' left out) within 30
+   (EXPRS_LIMIT_S). `--only-exprs` runs the build and phase 22 alone,
+   and prints no result line.
 Each phase prints its seconds. The oracles' host sorts of the same key
 columns are made once per run (`memo_sort`).
 
@@ -1571,17 +1593,27 @@ def with_null_copies(pl, hdf, h2o, seed: int):
     """The H2O frame plus id4n and v3n: id4 and v3 with NULL_SHARE of
     their rows null, drawn from the seed; returns the frame and the
     host validity masks."""
-    import numpy as np
     from polaroid_tpu_torch.batch import Column
-    rng = np.random.default_rng(seed + 1)
     t = hdf._table
-    valid = {}
-    for name, src in (("id4n", "id4"), ("v3n", "v3")):
-        valid[name] = rng.uniform(size=len(h2o[src])) >= NULL_SHARE
+    valid = null_masks(h2o, seed)
+    for name, src in NULL_SOURCE.items():
         t = t.with_column(name, Column.from_host(
             h2o[src], capacity=t.capacity, device=t.device,
             validity=valid[name]))
     return pl.DataFrame._from_table(t), valid
+
+
+# the nullable copies' source columns
+NULL_SOURCE = {"id4n": "id4", "v3n": "v3"}
+
+
+def null_masks(h2o, seed):
+    """The validity of id4n and v3n: NULL_SHARE of the rows null, drawn
+    from the seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 1)
+    return {name: rng.uniform(size=len(h2o[src])) >= NULL_SHARE
+            for name, src in NULL_SOURCE.items()}
 
 
 def f64_code(x):
@@ -6828,6 +6860,283 @@ def run_groupby_only(args, torch, pl, TK, TP, TE, TH, TM, smi):
     run_groupby_phase(args, torch, pl, TK, TP, TE, TH, TM, h2o, hdf, smi)
 
 
+# --- phase 22: every expression of the port at full size ----------------
+
+EXPRS_LIMIT_S = 30.0        # phase 22's card seconds: its collects
+EXPRS_MUST = ("compact_words", "merge_sort", "seg_sum")
+
+
+def load_catalog():
+    """tests/torch_expr_catalog.py, loaded by its path once a process (it
+    imports numpy and torch)."""
+    import importlib.util
+    if "torch_expr_catalog" in sys.modules:
+        return sys.modules["torch_expr_catalog"]
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_expr_catalog.py")
+    spec = importlib.util.spec_from_file_location("torch_expr_catalog", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def exprs_frames(pl, C, h2o, base, tdata, seed, device):
+    """Phase 22's frames on `device`, from the same numpy arrays on each
+    device: "h2o" (the catalog's names of H2O's columns), "h2o_nulls"
+    (id4 and v3 nullable) and "taq" (the trades and the catalog's
+    derived columns). `base` is the H2O frame on that device."""
+    with C.on_device(pl, device):
+        nulls, _ = with_null_copies(pl, base, h2o, seed)
+        out = {}
+        for name, names in (("h2o", C.NUM_COLUMNS),
+                            ("h2o_nulls", C.NUM_NULL_COLUMNS)):
+            f = base if name == "h2o" else nulls
+            out[name] = f.select([pl.col(src).alias(dst)
+                                  for dst, src in names.items()])
+        out["taq"] = taq_frame(pl, tdata, device).with_columns(
+            C.taq_derived(pl))
+    return out
+
+
+def exprs_host(C, h2o, tdata, seed):
+    """Phase 22's frames as numpy's closed forms and the SCAN bounds read
+    them."""
+    valid = null_masks(h2o, seed)
+    out = {"taq": C.host_columns("taq", tdata)}
+    for name, names in (("h2o", C.NUM_COLUMNS),
+                        ("h2o_nulls", C.NUM_NULL_COLUMNS)):
+        out[name] = C.host_columns(
+            "num", {dst: h2o[NULL_SOURCE.get(src, src)]
+                    for dst, src in names.items()},
+            {dst: valid[src] for dst, src in names.items() if src in valid})
+    return out
+
+
+def exprs_runs(C):
+    """(entry, frame name, hole) of phase 22, an entry's runs together:
+    each numeric entry on "h2o" and "h2o_nulls", each other on "taq";
+    the variants; the hole entries after the breaker."""
+    out = []
+    for e in list(C.ENTRIES.values()) + C.VARIANTS:
+        frames = ("h2o", "h2o_nulls") if e.source == "num" else ("taq",)
+        out += [(e, f, False) for f in frames]
+        if e.name in C.HOLE_ENTRIES:
+            out.append((e, frames[-1], True))
+    return out
+
+
+def oracle_key(pl, C, e, fname, hole):
+    """What a run's oracle is: the run's properties (SAMPLE), or (kind,
+    entry, frame, hole) of numpy's closed form (where the catalog names
+    one) or the CPU's collect; a run over the nullable frame that reads
+    only the columns it shares with the frame as built (j, k, g) has
+    that frame's oracle."""
+    if e.family == C.SAMPLE:
+        return ("properties",)
+    same = fname == "h2o_nulls" and e.cols(pl) and \
+        set(e.cols(pl)) <= {"j", "k", "g"}
+    return ("numpy" if e.numpy else "cpu", e.name,
+            "h2o" if same else fname, hole)
+
+
+def exprs_oracle(pl, C, e, key, cpu_frames, hosts):
+    """A run's oracle, made in this process before the card runs it:
+    numpy's closed form, the CPU's refusal (a REFUSED entry) or the
+    leaves of the port's CPU collect of the same query on the same
+    data."""
+    how, _, fname, hole = key
+    with C.on_device(pl, "cpu"), C.quiet():
+        if how == "numpy":
+            return C.numpy_form(e, hosts[fname], hole)
+        if e.family == C.REFUSED:
+            return C.refusal(pl, e, cpu_frames[fname], hole)
+        return C.leaves(C.query(pl, e, cpu_frames[fname], hole).collect())
+
+
+def recorded_collect(torch, TK, TP, TE, TH, TM, q):
+    """One collect of `q` with the compiled chains emptied first (so that
+    it runs eagerly), its kernels' launches counted and their inputs
+    recorded: (result, launches, (A, E, F, B, C inputs), host ms)."""
+    from polaroid_tpu_torch.exec import compiled as CM
+    CM.clear_cache(nofuse=False)
+    reset_launches(TK, TP, TE, TH, TM)
+    TK.RECORD, TE.RECORD, TM.RECORD, TP.RECORD = [], [], [], []
+    TK.MINMAX_RECORD = []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = q.collect()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = (TK.RECORD, TE.RECORD, TM.RECORD, TP.RECORD, TK.MINMAX_RECORD)
+    finally:
+        TK.RECORD = TE.RECORD = TM.RECORD = TP.RECORD = None
+        TK.MINMAX_RECORD = None
+    return out, read_launches(TK, TP, TE, TH, TM), rec, ms
+
+
+def f32_over_bound(pl, C, e, card, hole, want, bound):
+    """A SCAN entry over x computed on the card from x in Float32, its
+    result in Float32 and widened back, against its oracle: its largest
+    error over its bound (above 1: the bound rejects a Float32
+    computation)."""
+    import torch
+    f32 = card.with_columns(pl.col("x").cast(pl.Float32))
+    with C.on_device(pl, "cuda"), C.quiet():
+        got = C.leaves(C.query(pl, e, f32, hole).collect())
+    (k,) = [k for k in want if k != "__schema__"]
+    a, b = got[k][0].float().double(), C._on(want[k][0], got[k][0])
+    ok = torch.ones(len(b), dtype=torch.bool, device=b.device) \
+        if want[k][1] is None else C._on(want[k][1], b).bool()
+    if got[k][1] is not None:
+        ok &= got[k][1]
+    lim = bound(b)[ok]
+    return float(((a[ok] - b[ok].double()).abs() / lim).max())
+
+
+def run_exprs_phase(args, torch, pl, TK, TP, TE, TH, TM, h2o, hdf, tdata,
+                    smi):
+    """Phase 22: every catalog entry on the card at full size (exprs_runs)
+    held to its oracle (oracle_key), made in this process just before
+    the card runs it (exprs_oracle: numpy's form or the port's CPU
+    collect); every launch of A, E, F, B and C in its counted collect
+    held to its plain version. The card's seconds are its collects' but
+    the host UDFs' (a Python loop on the host). Returns (the counted
+    collects' launches, {kernel: numbers by launch})."""
+    from polaroid_tpu_torch.exec import compiled as CM
+    C = load_catalog()
+    t0 = time.perf_counter()
+    runs_of = exprs_runs(C)
+    keys = [oracle_key(pl, C, e, f, h) for e, f, h in runs_of]
+    frames = exprs_frames(pl, C, h2o, hdf, tdata, args.seed, "cuda")
+    with C.on_device(pl, "cpu"):
+        base = pl.DataFrame({k: h2o[k] for k in H2O_COLUMNS}, device="cpu")
+    cpu_frames = exprs_frames(pl, C, h2o, base, tdata, args.seed, "cpu")
+    hosts = exprs_host(C, h2o, tdata, args.seed)
+    last_use = {k: i for i, k in enumerate(keys)}
+    print(json.dumps({"phase": "exprs_data",
+                      "seconds": time.perf_counter() - t0,
+                      "entries": len(C.ENTRIES), "variants": len(C.VARIANTS),
+                      "excluded": len(C.EXCLUDED), "runs": len(runs_of),
+                      "oracles": len(set(keys) - {("properties",)}),
+                      "torch_threads": torch.get_num_threads()}))
+    t_phase = time.perf_counter()
+    spent = dict.fromkeys(("oracles", "collects", "host_udfs",
+                           "kernel_checks", "compare", "f32"), 0.0)
+    runs, recorded, by_kernel, failed, oracles = [], {}, {}, [], {}
+    for n_run, ((e, fname, hole), key) in enumerate(zip(runs_of, keys)):
+        card = frames[fname]
+        tag = f"{e.name}@{fname}{':hole' if hole else ''}"
+        res = {"phase": "exprs", "entry": tag, "family": e.family,
+               "rows": e.prefix or len(h2o["id4"] if fname != "taq"
+                                       else tdata["ts"]),
+               "card": smi}
+        want, bound, t_ora = None, None, time.perf_counter()
+        try:
+            if key[0] != "properties":
+                if key not in oracles:
+                    oracles[key] = exprs_oracle(pl, C, e, key, cpu_frames,
+                                                hosts)
+                want = oracles[key]
+                if last_use[key] == n_run:
+                    del oracles[key]
+            if e.family == C.SCAN:
+                bound = C.scan_bound(e, hosts[fname], hole,
+                                     numpy=key[0] == "numpy")
+            ora_s = time.perf_counter() - t_ora
+            spent["oracles"] += ora_s
+            res["oracle_ms"] = ora_s * 1e3
+            if e.family == C.REFUSED:
+                t1 = time.perf_counter()
+                with C.on_device(pl, "cuda"):
+                    got = C.refusal(pl, e, card, hole)
+                spent["collects"] += time.perf_counter() - t1
+                assert got == want, f"{tag}: refused {got!r}, CPU {want!r}"
+                print(json.dumps({**res, "oracle": "refusal",
+                                  "refusal": got[:160], "ok": True}))
+                continue
+            q = C.query(pl, e, card, hole)
+            t1 = time.perf_counter()
+            with C.on_device(pl, "cuda"), C.quiet():
+                out, ql, rec, first_ms = recorded_collect(
+                    torch, TK, TP, TE, TH, TM, q)
+                times = time_collects(q, 3)
+            t2 = time.perf_counter()
+            got = C.leaves(out)
+            del out
+            for kernel, m in check_holes_launches(
+                    args, torch, TK, TE, TM, TP, tag, rec).items():
+                recorded.setdefault(kernel, {}).update(m)
+            del rec
+            CM.clear_cache(nofuse=False)
+            t3 = time.perf_counter()
+            spent["host_udfs" if e.host else "collects"] += t2 - t1
+            spent["kernel_checks"] += t3 - t2
+            runs.append(ql)
+            for k, v in ql.items():
+                by_kernel[k] = by_kernel.get(k, 0) + v
+            err = 0.0
+            if key[0] == "properties":
+                src = C.Entry(e.name, e.source, C.EXACT,
+                              lambda P, c=e.cols(pl)[0]: P.col(c))
+                with C.on_device(pl, "cuda"), C.quiet():
+                    C.check_sample(e, got, C.leaves(C.query(
+                        pl, src, card, hole).collect()))
+            else:
+                if key[0] == "numpy":
+                    want = C.numpy_leaves(e, got, want)
+                err = C.compare(e, got, want, bound)
+            t4 = time.perf_counter()
+            spent["compare"] += t4 - t3
+            res.update(oracle=key[0], max_err=err,
+                       launches={k: v for k, v in ql.items() if v},
+                       first_ms=first_ms, median_ms=statistics.median(times),
+                       ms=times, compare_ms=(t4 - t3) * 1e3)
+            leaf = got[next(k for k in got if k != "__schema__")][0]
+            if e.family == C.SCAN and e.source == "num" and \
+                    "x" in e.cols(pl) and torch.is_tensor(leaf) and \
+                    leaf.dtype == torch.float64:
+                res["f32_over_bound"] = f32_over_bound(
+                    pl, C, e, card, hole, want, bound)
+                spent["f32"] += time.perf_counter() - t4
+            print(json.dumps({**res, "ok": True}))
+        except Exception as exc:    # every run runs; the phase fails
+            failed.append(tag)      # below, naming them
+            print(json.dumps({**res, "ok": False, "error":
+                              f"{type(exc).__name__}: {exc}"[:600]}))
+        finally:
+            del want, bound
+            CM.clear_cache(nofuse=False)
+    total = time.perf_counter() - t_phase
+    card_s = spent["collects"]
+    print(json.dumps({"phase": "exprs_launches", "by_kernel": by_kernel,
+                      "card": smi}))
+    print(json.dumps({"phase": "exprs_seconds", "card_seconds": card_s,
+                      "seconds": total, "spent": spent,
+                      "limit_s": EXPRS_LIMIT_S,
+                      "within_limit": card_s <= EXPRS_LIMIT_S,
+                      "failed": failed, "card": smi}))
+    assert not failed, f"phase 22: {len(failed)} runs failed: {failed[:20]}"
+    for kernel in EXPRS_MUST:
+        assert by_kernel.get(kernel, 0) >= 1, f"phase 22 launched no {kernel}"
+    assert card_s <= EXPRS_LIMIT_S, \
+        f"phase 22 took {card_s:.1f} s of the card, over its {EXPRS_LIMIT_S} s"
+    return runs, recorded
+
+
+def run_exprs_only(args, torch, pl, TK, TP, TE, TH, TM, smi):
+    """--only-exprs: phase 22 alone (with its kernels' checks); no result
+    line."""
+    t0 = time.perf_counter()
+    h2o = make_h2o_data(H2O_ROWS, args.seed)
+    hdf = pl.DataFrame(h2o, device="cuda")
+    tdata, _ = make_taq_data(args.rows, args.seed)
+    print(json.dumps({"phase": "exprs_only_data",
+                      "seconds": time.perf_counter() - t0}))
+    run_exprs_phase(args, torch, pl, TK, TP, TE, TH, TM, h2o, hdf, tdata, smi)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6859,6 +7168,10 @@ def main() -> int:
                     "kinds after breakers that leave holes, with kernel "
                     "B's checks on its launches) alone; prints no result "
                     "line")
+    ap.add_argument("--only-exprs", action="store_true",
+                    help="build, then phase 22 (every expression of the "
+                    "catalog at full size, with the checks of their kernels' "
+                    "launches) alone; prints no result line")
     ap.add_argument("--only-groupby", action="store_true",
                     help="build, then phase 21 (the group-by methods, eager "
                     "and lazy, with the checks of their kernels' launches) "
@@ -6934,6 +7247,10 @@ def main() -> int:
     if args.only_groupby:
         run_groupby_only(args, torch, pl, TK, TP, TE, TH, TM, smi)
         phase_seconds("21")
+        return 0
+    if args.only_exprs:
+        run_exprs_only(args, torch, pl, TK, TP, TE, TH, TM, smi)
+        phase_seconds("22")
         return 0
 
     # phase 10's data, made before the first trace: on the H100 hosts this
@@ -7309,6 +7626,7 @@ def main() -> int:
     run_surface_phase(args, torch, TK, TP, TE, TH, TM, sf["sql"],
                       sf["surface"], sf["twins"], h2o, taq["data"],
                       taq["draws"], surface_first_ms, runs)
+    taq_data = taq["data"]      # phase 22's trades
     del taq, sf
     print(json.dumps({"phase": "surface_seconds",
                       "seconds": time.perf_counter() - t0}))
@@ -7352,6 +7670,15 @@ def main() -> int:
     for kernel, m in groupby_recorded.items():
         recorded[kernel].update(m)
     phase_seconds("21")
+
+    # --- 22. every expression of the port at full size -------------------
+    exprs_runs, exprs_recorded = run_exprs_phase(
+        args, torch, pl, TK, TP, TE, TH, TM, h2o, hdf, taq_data, smi)
+    runs += exprs_runs
+    for kernel, m in exprs_recorded.items():
+        recorded[kernel].update(m)
+    del taq_data
+    phase_seconds("22")
 
     # --- result ---------------------------------------------------------------
     def launches(name):

@@ -6,7 +6,8 @@ whole column (`ops/temporal.py`); a tz-aware Datetime stores UTC epochs,
 and the calendar ops run on its local wall time (`ops/tzdata.py`: one
 `searchsorted` into the zone's transition table), a tz-aware result
 going back to UTC the same way. `strftime` formats on the host and
-encodes the text into a `StringDict`, as the JAX package does.
+encodes the text into a `StringDict`, as the JAX package does, but only
+the column's distinct valid values (the JAX package formats every row).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from ..dtypes import Boolean, Date, Datetime, Duration, Int32, Int64, \
 from ..errors import ComputeError, InvalidOperationError
 from ..ops import temporal as T
 from ..ops import tzdata as TZ
-from ..strings import StringDict
+from ..strings import NULL_CODE, StringDict
 from .eval import Val, cast_val, eval_expr, rescale_time
 
 __all__ = ["eval_dt"]
@@ -273,17 +274,27 @@ def _timestamp(e, dt, tu, x, days, out) -> Val:
 
 
 def _strftime(e, v: Val, dt, tu, x) -> Val:
-    """Format on the host (one copy of the column and a Python loop over
-    its rows) and encode the text into a sorted dictionary."""
+    """Format the distinct values of the valid rows on the host (one
+    `torch.unique` on the device, one copy of the distinct values, a
+    Python loop over them) and encode the text into a sorted dictionary;
+    the rows take their codes back through the inverse, on the device."""
     fmt = e.attrs.get("format") or "%Y-%m-%d %H:%M:%S"
-    vals = x.cpu().numpy()
+    mask = v.valid_or_true().expand(x.shape)
+    uniq, inv = torch.unique(x[mask], return_inverse=True)
+    ucodes, sdict = StringDict.encode(
+        format_values(uniq.cpu().numpy(), dt, tu, fmt))
+    codes = torch.full(x.shape, int(NULL_CODE), dtype=torch.int32,
+                       device=x.device)
+    codes[mask] = torch.from_numpy(np.asarray(ucodes, np.int32)).to(
+        x.device)[inv]
+    return Val(String, codes, v.validity, sdict, v.is_scalar)
+
+
+def format_values(vals: np.ndarray, dt, tu, fmt: str) -> np.ndarray:
+    """strftime of each Date or Datetime value (NaT as "")."""
     if dt == Date:
         objs = vals.astype("datetime64[D]").astype(_pydt.date)
     else:
         objs = vals.astype(f"datetime64[{tu}]").astype(_pydt.datetime)
-    txt = np.array([o.strftime(fmt) if o is not None else ""
-                    for o in objs], dtype=object)
-    mask = v.valid_or_true().cpu().numpy()
-    codes, sdict = StringDict.encode(txt, mask)
-    return Val(String, torch.from_numpy(np.asarray(codes, np.int32))
-               .to(x.device), v.validity, sdict, v.is_scalar)
+    return np.array([o.strftime(fmt) if o is not None else ""
+                     for o in objs], dtype=object)
